@@ -3,5 +3,7 @@ from ldm3d_torch.ckpt.from_jax import (
     state_dict_from_jax,
     unet_state_dict_from_jax,
 )
+from ldm3d_torch.ckpt.manager import CheckpointManager
 
-__all__ = ["state_dict_from_jax", "unet_state_dict_from_jax", "autoencoder_state_dict_from_jax"]
+__all__ = ["CheckpointManager", "state_dict_from_jax", "unet_state_dict_from_jax",
+           "autoencoder_state_dict_from_jax"]

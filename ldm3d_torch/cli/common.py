@@ -9,22 +9,23 @@ Device rule: entry points run on ``cuda`` unless the caller passes
 ``--device cpu``. Without a CUDA device and without ``--device cpu`` they
 raise; they never carry on on the CPU.
 
-Checkpoints: ``model_dir/autoencoder_best.pt`` and
-``model_dir/diffusion_best.pt``, each ``{"state_dict": ..., "meta": {...}}``
-written by ``torch.save``; the latent ``scale_factor`` is in the diffusion
-checkpoint's meta. Reading the JAX package's orbax checkpoints is not ported
-yet (ROADMAP.md queue A, 'Checkpoints and training state').
+Checkpoints: the ``best`` roles of :class:`ldm3d_torch.ckpt.CheckpointManager`,
+``model_dir/autoencoder_best.pt`` and ``model_dir/diffusion_best.pt``, each
+``{"state_dict": ..., "meta": {...}}``; the latent ``scale_factor`` is in the
+diffusion checkpoint's meta. The training CLI writes them; reading the JAX
+package's orbax checkpoints is not ported yet (ROADMAP.md queue A,
+'Checkpoints').
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
-import os
 import sys
 
 import torch
 
+from ldm3d_torch.ckpt.manager import CheckpointManager
 from ldm3d_torch.configs import define_instance, preset_path
 from ldm3d_torch.utils import merge_configs_onto_args
 
@@ -35,8 +36,6 @@ log = logging.getLogger("ldm3d_torch")
 
 # the JAX package's sampler registry; only ddim is ported in this slice
 SAMPLERS = ("ddpm", "ddim", "dpm", "dpm3")
-
-CHECKPOINTS = {"autoencoder": "autoencoder_best.pt", "diffusion": "diffusion_best.pt"}
 
 
 def build_parser(description: str) -> argparse.ArgumentParser:
@@ -83,19 +82,10 @@ def env_seed(args, default: int = 42) -> int:
 
 def save_two_stage(model_dir: str, ae: torch.nn.Module, unet: torch.nn.Module,
                    scale_factor: float) -> None:
-    """Write the two checkpoints :func:`load_two_stage` reads."""
-    os.makedirs(model_dir, exist_ok=True)
-    for role, model in (("autoencoder", ae), ("diffusion", unet)):
-        meta = {"scale_factor": float(scale_factor)} if role == "diffusion" else {}
-        torch.save({"state_dict": model.state_dict(), "meta": meta},
-                   os.path.join(model_dir, CHECKPOINTS[role]))
-
-
-def _load(model_dir: str, role: str, device: torch.device) -> dict:
-    path = os.path.join(model_dir, CHECKPOINTS[role])
-    if not os.path.exists(path):
-        raise FileNotFoundError(f"no {role} checkpoint at {path}")
-    return torch.load(path, map_location=device, weights_only=True)
+    """Write the two ``best`` checkpoints :func:`load_two_stage` reads."""
+    CheckpointManager(model_dir, "autoencoder").save("best", {"state_dict": ae.state_dict()})
+    CheckpointManager(model_dir, "diffusion").save(
+        "best", {"state_dict": unet.state_dict()}, {"scale_factor": float(scale_factor)})
 
 
 def load_two_stage(args, device: torch.device, dtype: torch.dtype):
@@ -104,7 +94,7 @@ def load_two_stage(args, device: torch.device, dtype: torch.dtype):
     with compute dtype ``dtype``."""
     models = []
     for role, key in (("autoencoder", "autoencoder_def"), ("diffusion", "diffusion_def")):
-        ckpt = _load(args.model_dir, role, device)
+        ckpt = CheckpointManager(args.model_dir, role).load("best", map_location=device)
         with torch.device(device):
             model = define_instance(args, key)
         model.load_state_dict(ckpt["state_dict"])

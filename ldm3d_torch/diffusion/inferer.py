@@ -1,8 +1,10 @@
-"""Latent diffusion sampling: the reverse loop and the VAE decode.
+"""Latent diffusion inferer: training-step noising, the reverse loop and the
+VAE decode.
 
-Counterpart of ``ldm3d_tpu/diffusion/inferer.py`` (sampling half). The JAX
-package compiles the reverse loop as one ``lax.scan``; here it is a Python
-loop over the scheduler's timesteps, one UNet call per step.
+Counterpart of ``ldm3d_tpu/diffusion/inferer.py``. The JAX package compiles
+the reverse loop as one ``lax.scan``; here it is a Python loop over the
+scheduler's timesteps, one UNet call per step. An ancestral (DDPM) sampler
+draws its per-step noise from the caller's ``generator``.
 
 Conditioning: ``condition=None`` samples unconditionally; a
 ``(B, d, h, w, C_cond)`` condition is channel-concatenated every step
@@ -16,9 +18,33 @@ from typing import Callable, Optional
 
 import torch
 
-__all__ = ["guided_model_pred", "sample_latents", "sample"]
+__all__ = ["noise_prediction_inputs", "training_targets", "guided_model_pred",
+           "sample_latents", "sample"]
 
 UNetApply = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+
+
+def noise_prediction_inputs(scheduler, latents: torch.Tensor, noise: torch.Tensor,
+                            timesteps: torch.Tensor,
+                            condition: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The UNet input of a training step: noisy (scaled) latents, with the
+    condition channel-concatenated."""
+    noisy = scheduler.add_noise(latents, noise, timesteps)
+    if condition is not None:
+        noisy = torch.cat([noisy, condition.to(noisy.dtype)], dim=-1)
+    return noisy
+
+
+def training_targets(scheduler, latents: torch.Tensor, noise: torch.Tensor,
+                     timesteps: torch.Tensor) -> torch.Tensor:
+    """Regression target per ``scheduler.prediction_type``."""
+    if scheduler.prediction_type == "epsilon":
+        return noise
+    if scheduler.prediction_type == "sample":
+        return latents
+    if scheduler.prediction_type == "v_prediction":
+        return scheduler.velocity(latents, noise, timesteps)
+    raise ValueError(scheduler.prediction_type)
 
 
 def guided_model_pred(unet_apply: UNetApply, x: torch.Tensor, t_b: torch.Tensor,
@@ -40,19 +66,22 @@ def guided_model_pred(unet_apply: UNetApply, x: torch.Tensor, t_b: torch.Tensor,
 @torch.no_grad()
 def sample_latents(unet_apply: UNetApply, scheduler, noise: torch.Tensor,
                    condition: Optional[torch.Tensor] = None,
-                   guidance_scale: float = 1.0) -> torch.Tensor:
+                   guidance_scale: float = 1.0,
+                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """Run the reverse loop in latent space from ``noise`` ``(B, d, h, w, C)``."""
     x = noise
     for t in scheduler.timesteps:
         t_b = torch.full((noise.shape[0],), t, dtype=torch.int32, device=noise.device)
-        x = scheduler.step(guided_model_pred(unet_apply, x, t_b, condition, guidance_scale), t, x)
+        pred = guided_model_pred(unet_apply, x, t_b, condition, guidance_scale)
+        x = scheduler.step(pred, t, x, generator)
     return x
 
 
 @torch.no_grad()
 def sample(unet_apply: UNetApply, decode_apply: Callable[[torch.Tensor], torch.Tensor],
            scheduler, noise: torch.Tensor, condition: Optional[torch.Tensor] = None,
-           scale_factor: float = 1.0, guidance_scale: float = 1.0) -> torch.Tensor:
+           scale_factor: float = 1.0, guidance_scale: float = 1.0,
+           generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """Reverse loop, then divide by ``scale_factor`` and decode."""
-    latents = sample_latents(unet_apply, scheduler, noise, condition, guidance_scale)
+    latents = sample_latents(unet_apply, scheduler, noise, condition, guidance_scale, generator)
     return decode_apply(latents / torch.tensor(scale_factor, dtype=latents.dtype))

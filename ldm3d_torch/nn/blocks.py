@@ -16,6 +16,10 @@ Precision. Parameters are fp32. The compute dtype is the dtype of the
 activations (fp32, or bf16 under ``--amp``); each block casts its weights to
 it. GroupNorm statistics are fp32 whatever the compute dtype.
 
+Gradients. Attention and GroupNorm are autograd Functions whose backward
+runs the hand-written kernels on the card (``ldm3d_torch/ops``); the rest is
+PyTorch autograd.
+
 The JAX package's depth-sharded (``spatial_axis``) and rematerialised
 variants are not ported in this slice.
 """
@@ -29,11 +33,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from ldm3d_torch.ops.attention import volumetric_attention
+from ldm3d_torch.ops.groupnorm import gn_bwd_sums, gn_sums
 
 __all__ = [
     "Conv3D",
     "Dense",
     "GroupNorm32",
+    "GroupNormAffine",
     "ResBlock3D",
     "TimeResBlock3D",
     "AttentionBlock3D",
@@ -113,12 +119,81 @@ class Dense(nn.Module):
         return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
 
 
+def _per_channel(t: torch.Tensor, ndim: int) -> torch.Tensor:
+    """``(B, C)`` -> ``(B, C, 1, ...)`` broadcasting against an ``ndim`` activation."""
+    return t.reshape(t.shape + (1,) * (ndim - 2))
+
+
+def _gn_stats(x: torch.Tensor, g: int, eps: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """fp32 (mean, inv-std) per (batch, channel), group-combined: per-channel
+    sums first (:func:`~ldm3d_torch.ops.groupnorm.gn_sums`), then the tiny
+    (B, C) -> (B, G) combine (``ldm3d_tpu/nn/blocks.py:167-198``)."""
+    b, c = x.shape[:2]
+    s1c, s2c = gn_sums(x)
+    s1 = s1c.reshape(b, g, c // g).sum(-1)
+    s2 = s2c.reshape(b, g, c // g).sum(-1)
+    count = float(x[0, 0].numel() * (c // g))
+    mean = s1 / count
+    var = torch.clamp(s2 / count - mean * mean, min=0.0)
+    inv = torch.rsqrt(var + eps)
+    return mean.repeat_interleave(c // g, dim=1), inv.repeat_interleave(c // g, dim=1)
+
+
+class GroupNormAffine(torch.autograd.Function):
+    """GroupNorm with the closed-form backward of ``_gn_affine_bwd``
+    (``ldm3d_tpu/nn/blocks.py:214-252``). With per-group sums S1 = sum(dy*gamma)
+    and S2 = sum(dy*gamma*x_hat) over the group's N voxels x channels:
+
+        dx = a1*dy + a2*x + a3,  a1 = inv*gamma,  a2 = -inv^2 * S2 / N,
+        a3 = -inv * S1 / N + mean * inv^2 * S2 / N,
+
+    one pass over dy and x with per-(batch, channel) coefficients, in the
+    activations' dtype; dscale = sum_b sum_v dy*x_hat, dbias = sum_b sum_v dy.
+    It saves x and the fp32 (mean, inv) per channel, not an fp32 copy of the
+    volume."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, g: int, eps: float):
+        mean_c, inv_c = _gn_stats(x, g, eps)
+        a_c = inv_c * weight[None, :]
+        b_c = bias[None, :] - mean_c * a_c
+        ctx.save_for_backward(x, weight, mean_c, inv_c)
+        ctx.g = g
+        nd = x.dim()
+        return x * _per_channel(a_c, nd).to(x.dtype) + _per_channel(b_c, nd).to(x.dtype)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dy):
+        x, weight, mean_c, inv_c = ctx.saved_tensors
+        g = ctx.g
+        b, c = x.shape[:2]
+        n = float(x[0, 0].numel() * (c // g))
+        sum_dy_c, sum_dyx_c = gn_bwd_sums(dy, x, mean_c, inv_c)
+        dscale = sum_dyx_c.sum(0)
+        dbias = sum_dy_c.sum(0)
+        gam = weight[None, :]
+        s1 = (sum_dy_c * gam).reshape(b, g, c // g).sum(-1)
+        s2 = (sum_dyx_c * gam).reshape(b, g, c // g).sum(-1)
+        s1_c = s1.repeat_interleave(c // g, dim=1)
+        s2_c = s2.repeat_interleave(c // g, dim=1)
+        a1 = inv_c * gam
+        a2 = -(inv_c * inv_c) * s2_c / n
+        a3 = -inv_c * s1_c / n + mean_c * (inv_c * inv_c) * s2_c / n
+        nd, od = x.dim(), x.dtype
+        dx = (dy * _per_channel(a1, nd).to(od) + x * _per_channel(a2, nd).to(od)
+              + _per_channel(a3, nd).to(od))
+        return dx, dscale, dbias, None, None
+
+
 class GroupNorm32(nn.Module):
     """GroupNorm with fp32 statistics regardless of the compute dtype.
 
-    Per-(batch, channel) fp32 sums, combined per group; var = E[x^2] - mean^2
-    clamped at 0; the affine is folded into one per-channel multiply-add
-    applied in the compute dtype (``ldm3d_tpu/nn/blocks.py:167-211``)."""
+    Per-(batch, channel) fp32 sums (the GroupNorm-sums kernel on the card),
+    combined per group; var = E[x^2] - mean^2 clamped at 0; the affine is
+    folded into one per-channel multiply-add applied in the compute dtype
+    (``ldm3d_tpu/nn/blocks.py:167-261``); the backward is
+    :class:`GroupNormAffine`'s closed form."""
 
     def __init__(self, channels: int, num_groups: int = 32, eps: float = 1e-6):
         super().__init__()
@@ -133,21 +208,7 @@ class GroupNorm32(nn.Module):
         nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        b, c = x.shape[:2]
-        g = self.num_groups
-        xf = x.float()
-        s1 = xf.sum(dim=(2, 3, 4)).reshape(b, g, c // g).sum(-1)
-        s2 = (xf * xf).sum(dim=(2, 3, 4)).reshape(b, g, c // g).sum(-1)
-        count = float(x[0, 0].numel() * (c // g))
-        mean = s1 / count
-        var = torch.clamp(s2 / count - mean * mean, min=0.0)
-        inv = torch.rsqrt(var + self.eps)
-        mean_c = mean.repeat_interleave(c // g, dim=1)
-        inv_c = inv.repeat_interleave(c // g, dim=1)
-        a_c = inv_c * self.weight[None, :]
-        b_c = self.bias[None, :] - mean_c * a_c
-        shape = (b, c, 1, 1, 1)
-        return x * a_c.reshape(shape).to(x.dtype) + b_c.reshape(shape).to(x.dtype)
+        return GroupNormAffine.apply(x, self.weight, self.bias, self.num_groups, self.eps)
 
 
 class ResBlock3D(nn.Module):

@@ -4,8 +4,9 @@ Each source under ``ldm3d_torch/csrc`` has a plain C interface. It is compiled
 with ``nvcc`` for ``sm_90a`` into a shared library under ``build/ldm3d_torch/``
 at the root of the checkout, at first use, and loaded with ``ctypes``. The
 library's file name carries a hash of the source, so an edited source is
-rebuilt and a stale library is never loaded. Nothing here runs at import time:
-a machine without ``nvcc`` or a GPU imports the port and uses the kernels'
+rebuilt and a stale library is never loaded. :func:`build_libraries` starts
+one ``nvcc`` per source, all at once. Nothing here runs at import time: a
+machine without ``nvcc`` or a GPU imports the port and uses the kernels'
 plain PyTorch versions on CPU tensors.
 """
 
@@ -19,10 +20,12 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "CSRC_DIR", "build_library", "flash_fwd_library", "nvcc_path"]
+__all__ = ["BUILD_DIR", "CSRC_DIR", "SOURCES", "build_library", "build_libraries",
+           "flash_fwd_library", "flash_bwd_library", "groupnorm_library", "nvcc_path"]
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ldm3d_torch"
+SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "groupnorm_sums.cu")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -41,34 +44,81 @@ def nvcc_path() -> str:
                        "from source at first use and need the CUDA toolkit")
 
 
-def build_library(source: str) -> Path:
-    """Compile ``csrc/<source>`` into ``build/ldm3d_torch`` (once per source hash)
-    and return the library's path. ``nvcc``'s register and shared-memory report
-    is kept beside the library as ``<name>.log``."""
+def _library_path(source: str) -> Path:
     src = CSRC_DIR / source
     digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    out = BUILD_DIR / f"lib{src.stem}-{digest}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {src} (exit {proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, out)  # atomic: a concurrent build never sees a partial library
-    return out
+    return BUILD_DIR / f"lib{src.stem}-{digest}.so"
+
+
+def build_libraries(sources) -> list[Path]:
+    """Compile each ``csrc/<source>`` into ``build/ldm3d_torch`` (once per
+    source hash), one ``nvcc`` process per source started together, and
+    return the libraries' paths. ``nvcc``'s register and shared-memory report
+    is kept beside each library as ``<name>.log``."""
+    outs = [_library_path(s) for s in sources]
+    running = []
+    for source, out in zip(sources, outs):
+        if out.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.Popen([nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / source)],
+                                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        running.append((source, out, tmp, proc))
+    failures = []
+    for source, out, tmp, proc in running:
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            failures.append(f"nvcc failed for {CSRC_DIR / source} (exit {proc.returncode}):\n"
+                            f"{stdout}\n{stderr}")
+            continue
+        out.with_suffix(".log").write_text(stdout + stderr)
+        os.replace(tmp, out)  # atomic: a concurrent build never sees a partial library
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return outs
+
+
+def build_library(source: str) -> Path:
+    """:func:`build_libraries` for one source."""
+    return build_libraries([source])[0]
+
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_STRIDES = ctypes.POINTER(ctypes.c_int64)
 
 
 @functools.cache
 def flash_fwd_library() -> ctypes.CDLL:
     """The flash-attention forward library, built on first call."""
     lib = ctypes.CDLL(str(build_library("flash_fwd.cu")))
-    p = ctypes.c_void_p
-    i = ctypes.c_int
-    lib.ldm3d_flash_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i,
-                                    ctypes.POINTER(ctypes.c_int64), ctypes.c_float, p]
+    lib.ldm3d_flash_fwd.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                    _STRIDES, ctypes.c_float, _P]
     lib.ldm3d_flash_fwd.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def flash_bwd_library() -> ctypes.CDLL:
+    """The flash-attention backward library (dQ and dK/dV), built on first call."""
+    lib = ctypes.CDLL(str(build_library("flash_bwd.cu")))
+    lib.ldm3d_flash_bwd_dq.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                       _STRIDES, ctypes.c_float, _P]
+    lib.ldm3d_flash_bwd_dq.restype = ctypes.c_int
+    lib.ldm3d_flash_bwd_dkv.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                        _STRIDES, ctypes.c_float, _P]
+    lib.ldm3d_flash_bwd_dkv.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def groupnorm_library() -> ctypes.CDLL:
+    """The GroupNorm voxel-sums library (forward and backward), built on first call."""
+    lib = ctypes.CDLL(str(build_library("groupnorm_sums.cu")))
+    lib.ldm3d_gn_sums.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _STRIDES, _I, _P]
+    lib.ldm3d_gn_sums.restype = ctypes.c_int
+    lib.ldm3d_gn_bwd_sums.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _STRIDES,
+                                      _I, _P]
+    lib.ldm3d_gn_bwd_sums.restype = ctypes.c_int
     return lib

@@ -1,22 +1,33 @@
-"""Volumetric self-attention over flattened D*H*W tokens.
+"""Volumetric self-attention over flattened D*H*W tokens, with its gradient.
 
 Shapes follow the JAX package: q, k, v are ``(batch, tokens, heads, head_dim)``.
 
-On a CUDA tensor the attention runs through the hand-written flash-attention
-forward kernel ``csrc/flash_fwd.cu``; if it cannot (no ``nvcc``, a shape it
-does not take, a failed launch) the call raises. On a CPU tensor it runs
-:func:`attention_reference`, the plain PyTorch version of the same fp32 math.
-Any other device raises. There is no switch between the two.
+:func:`volumetric_attention` is :class:`FlashAttention`, a
+``torch.autograd.Function``: its forward saves ``(q, k, v, O, LSE)`` as the
+JAX custom VJP does (``ldm3d_tpu/ops/attention.py:373-375``), and its backward
+computes D = rowsum(dO * O) in fp32 as plain torch (outside any kernel in JAX
+too, ``:305-307``), then dQ and dK/dV.
 
-Kernel note. ``flash_fwd.cu`` replaces the TPU's ``_flash_kernel_mono`` and
+On CUDA tensors every step runs a hand-written kernel: the forward
+``csrc/flash_fwd.cu``, the backward ``csrc/flash_bwd.cu`` (two kernels, dQ
+and dK/dV); if one cannot run (no ``nvcc``, a shape it does not take, a
+failed launch) the call raises. On CPU tensors each wrapper runs its plain
+PyTorch version of the same fp32 math (:func:`attention_reference`,
+:func:`attention_bwd_dq_reference`, :func:`attention_bwd_dkv_reference`).
+Any other device raises. There is no switch between the two. Each wrapper
+counts its kernel launches in ``<wrapper>.launches``.
+
+Kernel notes. ``flash_fwd.cu`` replaces the TPU's ``_flash_kernel_mono`` and
 ``_flash_kernel`` (``ldm3d_tpu/ops/attention.py:49`` and ``:83``) with one
-kernel. At the shapes that carry the models' attention time the work
-(4·n·kv·d flops) is compute-bound on the H100; the kernel is a scalar-fp32
-FMA design that streams k/v tiles through shared memory with the online
-softmax in registers, exact to fp32 summation order, and far from the bf16
-tensor-core bound (see the source's header and ``PERF.md``). The TPU path's ``_pad_heads`` lane padding has no
-counterpart: the kernel takes any head_dim that is a multiple of 8 up to 256
-at the true 1/sqrt(d) scale, and any token count.
+kernel; ``flash_bwd.cu`` replaces ``_flash_dq_kernel`` (``:122``) and
+``_flash_dkv_kernel`` (``:150``). At the shapes that carry the models'
+attention time the work (4, 6 and 8 n·kv·d flops) is compute-bound on the
+H100; the kernels are scalar-fp32 FMA designs that stream tiles through
+shared memory with fp32 accumulators in registers, exact to fp32 summation
+order, and far from the bf16 tensor-core bound (see the sources' headers and
+``PERF.md``). The TPU path's ``_pad_heads`` lane padding has no counterpart:
+the kernels take any head_dim that is a multiple of 8 up to 256 at the true
+1/sqrt(d) scale, and any token count.
 """
 
 from __future__ import annotations
@@ -26,7 +37,11 @@ import math
 
 import torch
 
-__all__ = ["attention_reference", "flash_attention_fwd", "volumetric_attention"]
+__all__ = ["FlashAttention", "attention_reference", "attention_bwd_reference",
+           "attention_bwd_dq_reference", "attention_bwd_dkv_reference", "attention_bwd_dvec",
+           "flash_attention_fwd",
+           "flash_attention_bwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+           "volumetric_attention"]
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -109,6 +124,176 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
 flash_attention_fwd.launches = 0
 
 
+def _probs(q: torch.Tensor, k: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:
+    """P = exp(scale * q k^T - LSE) in fp32, ``(B, h, n, kv)``."""
+    b, n, h, d = q.shape
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (1.0 / math.sqrt(d))
+    return torch.exp(logits - lse.reshape(b, h, n)[..., None])
+
+
+def _dscores(q, k, v, do, lse, dvec):
+    """(P, dS) with dS = P * (dO v^T - D), fp32, ``(B, h, n, kv)``."""
+    b, n, h, _ = q.shape
+    p = _probs(q, k, lse)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+    return p, p * (dp - dvec.reshape(b, h, n)[..., None])
+
+
+def attention_bwd_dq_reference(q, k, v, do, lse, dvec):
+    """Plain PyTorch dQ = scale * dS k (fp32 math, input dtype out), from the
+    forward's LSE and D = rowsum(dO * O), both ``(B*h, n)`` fp32."""
+    _, ds = _dscores(q, k, v, do, lse, dvec)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) * (1.0 / math.sqrt(q.shape[-1]))
+    return dq.to(q.dtype)
+
+
+def attention_bwd_dkv_reference(q, k, v, do, lse, dvec):
+    """Plain PyTorch dK = scale * dS^T q and dV = P^T dO (fp32 math, input
+    dtype out); arguments as :func:`attention_bwd_dq_reference`."""
+    p, ds = _dscores(q, k, v, do, lse, dvec)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * (1.0 / math.sqrt(q.shape[-1]))
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def attention_bwd_dvec(do: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
+    """D = rowsum(dO * O) in fp32, ``(B*h, n)`` contiguous."""
+    b, n, h, _ = o.shape
+    # at batch 1 the transposed (1, h, n) reshapes to a strided view: copy it
+    return (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous().reshape(b * h, n)
+
+
+def attention_bwd_reference(q, k, v, o, lse, do):
+    """Plain PyTorch FlashAttention-2 backward: ``(dq, dk, dv)`` from the
+    forward's inputs, output O and LSE, and dO."""
+    dvec = attention_bwd_dvec(do, o)
+    return (attention_bwd_dq_reference(q, k, v, do, lse, dvec),
+            *attention_bwd_dkv_reference(q, k, v, do, lse, dvec))
+
+
+def _check_bwd_inputs(q, k, v, do, lse, dvec) -> None:
+    _check_inputs(q, k, v)
+    b, n, h, _ = q.shape
+    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
+        raise ValueError(f"dO must match q: got {tuple(do.shape)} {do.dtype} {do.device}, "
+                         f"q {tuple(q.shape)} {q.dtype} {q.device}")
+    for name, t in (("lse", lse), ("D", dvec)):
+        if t.shape != (b * h, n) or t.dtype != torch.float32 or t.device != q.device:
+            raise ValueError(f"{name} must be fp32 (batch*heads, tokens) = {(b * h, n)} on "
+                             f"{q.device}; got {tuple(t.shape)} {t.dtype} {t.device}")
+
+
+def _bwd_kernel_args(q, k, v, do, lse, dvec):
+    """Checks shared by the two backward kernels; returns their ctypes strides."""
+    b, n, h, d = q.shape
+    if q.dtype not in _KERNEL_DTYPES:
+        raise ValueError(f"flash backward kernels take float32 or bfloat16, got {q.dtype}")
+    if d % 8 or d > 256:
+        raise ValueError(f"flash backward kernels take head_dim a multiple of 8 up to 256, got {d}")
+    if b * h > 65535:
+        raise ValueError(f"flash backward kernels take batch*heads <= 65535, got {b * h}")
+    for name, t in (("q", q), ("k", k), ("v", v), ("dO", do)):
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name} must have unit stride on head_dim, got strides {t.stride()}")
+    for name, t in (("lse", lse), ("D", dvec)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    return (ctypes.c_int64 * 12)(*(s for t in (q, k, v, do) for s in t.stride()[:3]))
+
+
+def flash_attention_bwd_dq(q, k, v, do, lse, dvec):
+    """dQ of attention: the kernel ``ldm3d_flash_bwd_dq`` of ``csrc/flash_bwd.cu``
+    on CUDA tensors, :func:`attention_bwd_dq_reference` on CPU tensors.
+    ``flash_attention_bwd_dq.launches`` counts kernel launches."""
+    _check_bwd_inputs(q, k, v, do, lse, dvec)
+    if q.device.type == "cpu":
+        return attention_bwd_dq_reference(q, k, v, do, lse, dvec)
+    if q.device.type != "cuda":
+        raise ValueError(f"attention runs on cuda (kernel) or cpu (plain), not {q.device}")
+    from ldm3d_torch.ops._kernels import flash_bwd_library
+
+    b, n, h, d = q.shape
+    strides = _bwd_kernel_args(q, k, v, do, lse, dvec)
+    dq = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
+    lib = flash_bwd_library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.ldm3d_flash_bwd_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                                     lse.data_ptr(), dvec.data_ptr(), dq.data_ptr(),
+                                     int(q.dtype == torch.bfloat16), b, h, n, k.shape[1], d,
+                                     strides, 1.0 / math.sqrt(d), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_bwd dQ kernel launch failed with cudaError {err} for "
+                           f"q {tuple(q.shape)} k {tuple(k.shape)} {q.dtype}")
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+flash_attention_bwd_dq.launches = 0
+
+
+def flash_attention_bwd_dkv(q, k, v, do, lse, dvec):
+    """(dK, dV) of attention: the kernel ``ldm3d_flash_bwd_dkv`` of
+    ``csrc/flash_bwd.cu`` on CUDA tensors, :func:`attention_bwd_dkv_reference`
+    on CPU tensors. ``flash_attention_bwd_dkv.launches`` counts kernel launches."""
+    _check_bwd_inputs(q, k, v, do, lse, dvec)
+    if q.device.type == "cpu":
+        return attention_bwd_dkv_reference(q, k, v, do, lse, dvec)
+    if q.device.type != "cuda":
+        raise ValueError(f"attention runs on cuda (kernel) or cpu (plain), not {q.device}")
+    from ldm3d_torch.ops._kernels import flash_bwd_library
+
+    b, n, h, d = q.shape
+    kv_len = k.shape[1]
+    strides = _bwd_kernel_args(q, k, v, do, lse, dvec)
+    dk = torch.empty((b, kv_len, h, d), dtype=k.dtype, device=k.device)
+    dv = torch.empty((b, kv_len, h, d), dtype=v.dtype, device=v.device)
+    lib = flash_bwd_library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.ldm3d_flash_bwd_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                                      lse.data_ptr(), dvec.data_ptr(), dk.data_ptr(),
+                                      dv.data_ptr(), int(q.dtype == torch.bfloat16), b, h, n,
+                                      kv_len, d, strides, 1.0 / math.sqrt(d), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_bwd dK/dV kernel launch failed with cudaError {err} for "
+                           f"q {tuple(q.shape)} k {tuple(k.shape)} {q.dtype}")
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_attention_bwd_dkv.launches = 0
+
+
+def flash_attention_bwd(q, k, v, o, lse, do):
+    """Attention backward ``(dq, dk, dv)``: D = rowsum(dO * O) in fp32, then
+    :func:`flash_attention_bwd_dq` and :func:`flash_attention_bwd_dkv`."""
+    dvec = attention_bwd_dvec(do, o)
+    return (flash_attention_bwd_dq(q, k, v, do, lse, dvec),
+            *flash_attention_bwd_dkv(q, k, v, do, lse, dvec))
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable attention: the forward kernel, and the FlashAttention-2
+    backward that rebuilds each tile of P from the saved LSE instead of
+    keeping the (tokens x tokens) matrix."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        out, lse = flash_attention_fwd(q, k, v)
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        if do.stride(-1) != 1:  # e.g. the expanded gradient of a sum()
+            do = do.contiguous()
+        return flash_attention_bwd(q, k, v, out, lse, do)
+
+
 def volumetric_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Multi-head attention over volumetric tokens, ``(B, n, h, d)`` in and out."""
-    return flash_attention_fwd(q, k, v)[0]
+    """Multi-head attention over volumetric tokens, ``(B, n, h, d)`` in and out;
+    differentiable through :class:`FlashAttention`."""
+    return FlashAttention.apply(q, k, v)

@@ -49,11 +49,13 @@ def test_port_imports_without_nvcc_gpu_or_triton(tmp_path):
     port's modules, loads no JAX and no triton, and builds nothing."""
     code = (
         "import sys\n"
-        "import ldm3d_torch.ops.attention, ldm3d_torch.nn, ldm3d_torch.cli.inference\n"
+        "import ldm3d_torch.ops.attention, ldm3d_torch.ops.groupnorm, ldm3d_torch.nn\n"
+        "import ldm3d_torch.cli.inference, ldm3d_torch.cli.train_diffusion\n"
         "import ldm3d_torch.ops._kernels as k\n"
         "bad = [m for m in ('jax', 'flax', 'triton', 'ldm3d_tpu') if m in sys.modules]\n"
         "assert not bad, bad\n"
-        "assert k.flash_fwd_library.cache_info().currsize == 0\n"
+        "libs = (k.flash_fwd_library, k.flash_bwd_library, k.groupnorm_library)\n"
+        "assert all(lib.cache_info().currsize == 0 for lib in libs)\n"
         "print('ok')\n"
     )
     env = dict(os.environ, PATH=str(tmp_path), CUDA_VISIBLE_DEVICES="",
