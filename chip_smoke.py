@@ -36,9 +36,26 @@ printing JSON lines:
    them: the wrappers record each launch's (shape, dtype, strides of x and
    dy), and each recorded input is rebuilt with those strides, checked in
    bf16 and fp32 and timed; the times are summed over each path's launches;
-8. card against CPU: the ``config_tiny_cpu.json`` sample (as before) and
+8. main path, serving: ``ModelServer`` on the full-width
+   ``config_train_32g.json`` models (random weights from a seed), 80^3,
+   fp32, DDIM-50, batch 2, behind the port's stdlib HTTP server on
+   127.0.0.1: two concurrent conditional POST /generate merged by the
+   micro-batcher into one batch-2 call, the same request alone twice (the
+   batched-vs-alone and same-seed differences, each held to a stated limit),
+   a dpm-20 override, a NIfTI output, GET /health, /metrics and /model/info;
+   every response 200, a real (not dummy) model, finite 80^3 volumes, the
+   echoed sampler and spacing, and the exact attention and GroupNorm-sums
+   launches the served calls imply;
+9. kernel_conv: the implicit-GEMM conv kernel (B6) through its entry point
+   ``ldm3d_torch.tools.conv_ab`` at its L0 shapes in bf16 and fp32: held
+   against its plain version, timed beside cuDNN; the untargeted shapes raise
+   on the card too;
+10. card against CPU: the ``config_tiny_cpu.json`` sample (as before) and
    one ``config_tiny_cpu.json`` train step, same weights and draws on the
    card (kernels) and on the CPU (plain), fp32 with TF32 off.
+
+The GroupNorm kernel phase (7) runs after the serving path, and replays the
+inputs of all three main paths.
 
 Times are device ms per call (CUDA events around back-to-back calls, median
 of 5 loops); ``*_host_ms`` is the host's cost to issue one call;
@@ -95,7 +112,7 @@ HBM_BYTES_PER_S = 3.35e12
 # and at 96^3 (BASELINE.json's size); a batch-2 case; a ragged odd case
 MAIN_SHAPES = [(1, 1000, 8, 64), (1, 125, 16, 64), (1, 8000, 1, 256)]
 SHAPES = MAIN_SHAPES + [(1, 1728, 8, 64), (1, 216, 16, 64), (1, 13824, 1, 256),
-                        (2, 1000, 8, 64), (2, 100, 3, 40)]
+                        (2, 1000, 8, 64), (2, 125, 16, 64), (2, 8000, 1, 256), (2, 100, 3, 40)]
 # launches of each MAIN_SHAPES entry in one flagship sample (batch 1, DDIM-50):
 # 5 UNet level-1 and 6 level-2 attentions per step, 2 in the encoder, 2 in the decoder
 LAUNCHES_PER_SAMPLE = {MAIN_SHAPES[0]: 250, MAIN_SHAPES[1]: 300, MAIN_SHAPES[2]: 4}
@@ -121,6 +138,17 @@ BWD_SHAPES = TRAIN_SHAPES[:2] + [(2, 100, 3, 40), (1, 8000, 1, 256)]
 TRAIN_LOSS_REL = 1e-5
 TRAIN_GRAD_REL = 1e-3
 TINY_LR = 1e-4
+
+# Serving main path: the flagship models in fp32 (as the JAX server serves),
+# 80^3, DDIM-50, batch 2; a dpm-20 override. The served volumes are min-max
+# normalised to [0, 1]: the same request batched with another or alone, and
+# the same seed served twice, may differ by fp32 summation order through 50
+# steps of fp32 convolutions (cuDNN may pick its algorithms per call), held to
+# 1e-3 like the tiny sample card vs CPU.
+SERVE_STEPS = 50
+SERVE_DPM_STEPS = 20
+SERVE_BATCH = 2
+SERVE_TOL = 1e-3
 
 T_START = time.perf_counter()
 
@@ -223,6 +251,7 @@ def phase_build() -> None:
     _kernels.flash_fwd_library()
     _kernels.flash_bwd_library()
     _kernels.groupnorm_library()
+    _kernels.conv3d_library()
     ptxas = {}
     for path in paths:
         log = path.with_suffix(".log").read_text() if path.with_suffix(".log").exists() else ""
@@ -521,22 +550,25 @@ def _module_counts(torch, ns) -> dict:
 
 def _reset_counts() -> None:
     from ldm3d_torch.ops import attention as A
+    from ldm3d_torch.ops import conv3d as C
     from ldm3d_torch.ops import groupnorm as G
 
     for fn in (A.flash_attention_fwd, A.flash_attention_bwd_dq, A.flash_attention_bwd_dkv,
-               G.gn_sums, G.gn_bwd_sums):
+               G.gn_sums, G.gn_bwd_sums, C.conv3d_igemm):
         fn.launches = 0
     G.gn_sums.cases, G.gn_bwd_sums.cases = {}, {}
 
 
 def _read_counts() -> dict:
     from ldm3d_torch.ops import attention as A
+    from ldm3d_torch.ops import conv3d as C
     from ldm3d_torch.ops import groupnorm as G
 
     return {"flash_fwd": A.flash_attention_fwd.launches,
             "flash_bwd_dq": A.flash_attention_bwd_dq.launches,
             "flash_bwd_dkv": A.flash_attention_bwd_dkv.launches,
-            "gn_sums": G.gn_sums.launches, "gn_bwd_sums": G.gn_bwd_sums.launches}
+            "gn_sums": G.gn_sums.launches, "gn_bwd_sums": G.gn_bwd_sums.launches,
+            "conv3d_igemm": C.conv3d_igemm.launches}
 
 
 def _read_gn_cases() -> dict:
@@ -588,8 +620,9 @@ def phase_main_path(torch, ns, counts, workdir: Path, card: str, smi_line: str) 
                    + counts["decoder"]["gn"])
     check(launches["gn_sums"] == expected_gn,
           f"GroupNorm sums kernel launched {launches['gn_sums']} times, expected {expected_gn}")
-    check(launches["flash_bwd_dq"] == launches["flash_bwd_dkv"] == launches["gn_bwd_sums"] == 0,
-          f"a backward kernel ran during sampling: {launches}")
+    check(launches["flash_bwd_dq"] == launches["flash_bwd_dkv"] == launches["gn_bwd_sums"]
+          == launches["conv3d_igemm"] == 0,
+          f"a backward or conv kernel ran during sampling: {launches}")
     encode_ms, denoise_ms, decode_ms = (timings[k][0] for k in ("encode_ms", "denoise_ms",
                                                                  "decode_ms"))
     emit({"phase": "main_path", "config": "config_train_32g.json", "volume": list(vol.shape),
@@ -753,6 +786,7 @@ def phase_train(torch, ns, counts, workdir: Path, card: str, smi_line: str) -> d
         "flash_bwd_dkv": steps * counts["unet"]["attn"],
         "gn_sums": encodes * counts["encoder"]["gn"] + (steps + val_batches) * counts["unet"]["gn"],
         "gn_bwd_sums": steps * counts["unet"]["gn"],
+        "conv3d_igemm": 0,
     }
     for name, n in expected.items():
         check(launches[name] == n, f"{name} launched {launches[name]} times in training, "
@@ -832,6 +866,197 @@ def phase_train_profile(torch, ns, model_dir: Path, scale_factor: float) -> None
           **_profile_summary(torch, prof, window_ms)})
     del state, unet, ae, batch
     torch.cuda.empty_cache()
+
+def _post(port: int, body: dict) -> tuple[int, dict, float]:
+    """POST /generate on the local server; (status, JSON reply, seconds)."""
+    import http.client
+
+    t0 = time.perf_counter()
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=900)
+    conn.request("POST", "/generate", json.dumps(body), {"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    data = resp.read()
+    conn.close()
+    return resp.status, json.loads(data), time.perf_counter() - t0
+
+
+def _get(port: int, path: str) -> tuple[int, bytes]:
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    conn.request("GET", path)
+    resp = conn.getresponse()
+    data = resp.read()
+    conn.close()
+    return resp.status, data
+
+
+def _served_volume(reply: dict, tmp: Path) -> np.ndarray:
+    """The reply's one volume, decoded from raw float32 or NIfTI."""
+    import base64
+
+    from ldm3d_torch.utils.nifti import read_nifti
+
+    sample = reply["samples"][0]
+    raw = base64.b64decode(sample["data"])
+    if sample["format"] == "nii":
+        path = tmp / "served.nii"
+        path.write_bytes(raw)
+        return read_nifti(str(path))[0]
+    return np.frombuffer(raw, np.float32).reshape(sample["shape"])
+
+
+def phase_serve(torch, ns, counts, workdir: Path, card: str, smi_line: str) -> dict:
+    """The serving main path over HTTP; returns its launch counts and the
+    GroupNorm wrappers' inputs."""
+    import base64
+    import threading
+
+    from ldm3d_torch.cli.common import save_two_stage
+    from ldm3d_torch.configs import preset_path
+    from ldm3d_torch.serving.api_server import Api, make_stdlib_server
+    from ldm3d_torch.serving.model_server import ModelServer
+
+    model_dir = workdir / "serve"
+    ae, unet = _flagship_models(torch, ns, torch.Generator(device="cuda").manual_seed(8))
+    save_two_stage(str(model_dir), ae, unet, scale_factor=0.8)
+    del ae, unet
+    torch.cuda.empty_cache()
+    env = _write_env(model_dir)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    server = ModelServer(preset_path("config_train_32g.json"), str(env), sampler="ddim",
+                         steps=SERVE_STEPS, batch=SERVE_BATCH, decode_chunk=0, device="cuda")
+    server.load_model()
+    load_s = time.perf_counter() - t0
+    check(server.is_dummy is False and server.model_loaded, "the server loaded the dummy model")
+    # widen the micro-batch window from 10 ms to 1.5 s, so that the merge of
+    # the concurrent pair does not hang on the second request's condition
+    # encode and HTTP parsing (each alone request then waits out the window)
+    server._batcher.max_wait = 1.5
+    httpd = make_stdlib_server(Api(server), "127.0.0.1", 0)
+    port = httpd.server_address[1]
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    patch = list(server.patch_size)
+
+    def cond(seed):
+        vol = np.random.default_rng(seed).random(patch, dtype=np.float32)
+        return {"data": base64.b64encode(vol.tobytes()).decode("ascii"), "shape": patch}
+
+    cond_a, cond_b = cond(1), cond(2)
+    try:
+        code, _, warm_s = _post(port, {"num_samples": 1, "seed": 0, "condition": cond_a})
+        check(code == 200, f"warm-up request returned {code}")
+        _reset_counts()
+        batches_before = server._batcher.batches_run
+        replies, seconds = {}, {}
+
+        def client(name, body):
+            code, reply, sec = _post(port, body)
+            replies[name], seconds[name] = (code, reply), sec
+
+        pair = [threading.Thread(target=client, args=(name, {"num_samples": 1, "seed": seed,
+                                                             "condition": c}))
+                for name, seed, c in (("a_batched", 11, cond_a), ("b_batched", 22, cond_b))]
+        for t in pair:
+            t.start()
+        for t in pair:
+            t.join()
+        merged_calls = server._batcher.batches_run - batches_before
+        for name, body in (
+                ("a_alone", {"num_samples": 1, "seed": 11, "condition": cond_a}),
+                ("a_alone_repeat", {"num_samples": 1, "seed": 11, "condition": cond_a}),
+                ("dpm", {"num_samples": 1, "seed": 5, "condition": cond_a, "sampler": "dpm",
+                         "inference_steps": SERVE_DPM_STEPS}),
+                ("nii", {"num_samples": 1, "seed": 7, "condition": cond_a,
+                         "output_format": "nii"})):
+            client(name, body)
+        torch.cuda.synchronize()
+        launches, gn_cases = _read_counts(), _read_gn_cases()
+        health = _get(port, "/health")
+        metrics = _get(port, "/metrics")
+        info = _get(port, "/model/info")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        if server._batcher is not None:
+            server._batcher.close()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+
+    vols = {}
+    for name, (code, reply) in replies.items():
+        check(code == 200, f"serve request {name} returned {code}: {reply}")
+        want = ("dpm", SERVE_DPM_STEPS) if name == "dpm" else ("ddim", SERVE_STEPS)
+        check((reply["sampler"], reply["inference_steps"]) == want,
+              f"{name}: served {reply['sampler']}-{reply['inference_steps']}, expected {want}")
+        check(reply["timestep_spacing"] == "leading" and reply["conditioning"] == "provided",
+              f"{name}: spacing {reply['timestep_spacing']}, conditioning "
+              f"{reply['conditioning']}")
+        vols[name] = _served_volume(reply, workdir)
+        check(vols[name].shape == (80, 80, 80) and bool(np.isfinite(vols[name]).all()),
+              f"{name}: volume {vols[name].shape}, finite {np.isfinite(vols[name]).all()}")
+    check(merged_calls == 1, f"the two concurrent requests took {merged_calls} sampler calls, "
+                             f"not one merged batch-{SERVE_BATCH} call")
+    batched_vs_alone = float(np.abs(vols["a_batched"] - vols["a_alone"]).max())
+    same_seed = float(np.abs(vols["a_alone"] - vols["a_alone_repeat"]).max())
+    check(batched_vs_alone <= SERVE_TOL, f"batched and alone differ by {batched_vs_alone}")
+    check(same_seed <= SERVE_TOL, f"a same-seed repeat differs by {same_seed}")
+    check(float(np.abs(vols["a_batched"] - vols["b_batched"]).max()) > 0.01,
+          "two seeds served the same volume")
+    check(health[0] == 200 and json.loads(health[1])["dummy_model"] is False,
+          f"/health: {health}")
+    check(metrics[0] == 200 and b'api_requests_total{method="POST",endpoint="/generate",'
+                                b'status="200"}' in metrics[1], "/metrics lacks the requests")
+    check(info[0] == 200 and json.loads(info[1])["backend"] == "cuda", f"/model/info: {info}")
+
+    # launches: every request encodes its condition; four ddim-50 calls (the
+    # merged pair, alone twice, the NIfTI one) and one dpm-20 call, each
+    # followed by one batch-2 decode
+    encodes, decodes = 6, 5
+    unet_calls = 4 * SERVE_STEPS + SERVE_DPM_STEPS
+    expected = {key: encodes * counts["encoder"][k] + unet_calls * counts["unet"][k]
+                + decodes * counts["decoder"][k]
+                for key, k in (("flash_fwd", "attn"), ("gn_sums", "gn"))}
+    for name, n in expected.items():
+        check(launches[name] == n, f"{name} launched {launches[name]} times serving, expected {n}")
+    check(launches["flash_bwd_dq"] == launches["flash_bwd_dkv"] == launches["gn_bwd_sums"]
+          == launches["conv3d_igemm"] == 0, f"an unexpected kernel ran serving: {launches}")
+    emit({"phase": "serve", "config": "config_train_32g.json", "volume": [80, 80, 80],
+          "dtype": "float32", "batch": SERVE_BATCH, "sampler": f"ddim-{SERVE_STEPS}",
+          "load_s": load_s, "warmup_request_s": warm_s, "request_s": seconds,
+          "merged_sampler_calls": merged_calls, "launches": launches,
+          "expected_launches": expected, "batched_vs_alone_max_abs": batched_vs_alone,
+          "same_seed_max_abs": same_seed, "tol": SERVE_TOL,
+          "peak_device_memory_gib": peak_gib, "card": card, "nvidia_smi": smi_line})
+    del server
+    torch.cuda.empty_cache()
+    shutil.rmtree(model_dir)
+    return {"launches": launches, "gn_cases": gn_cases}
+
+
+def phase_kernel_conv(torch) -> dict:
+    """B6 through its entry point, the A/B tool, at its shapes in bf16 and
+    fp32; returns the records and the tool run's launches."""
+    from ldm3d_torch.ops.conv3d import conv3d_igemm
+    from ldm3d_torch.tools import conv_ab
+
+    for x_shape, w_shape, msg in (((1, 2, 4, 8, 8), (5, 5, 5, 8, 8), "3x3x3"),
+                                  ((1, 2, 4, 8, 128), (3, 3, 3, 128, 128), "C <= 64"),
+                                  ((1, 2, 4, 12, 8), (3, 3, 3, 8, 8), "W % 8")):
+        try:
+            conv3d_igemm(torch.zeros(x_shape, device="cuda"), torch.zeros(w_shape, device="cuda"))
+        except ValueError as e:
+            check(msg in str(e), f"conv3d_igemm raised {e!r} for {x_shape}, {w_shape}")
+        else:
+            check(False, f"conv3d_igemm took the untargeted shape {x_shape}, {w_shape}")
+    _reset_counts()
+    t0 = time.perf_counter()
+    recs = conv_ab.run(emit=lambda rec: emit({"phase": "kernel_conv", **rec}))
+    launches = _read_counts()
+    check(launches["conv3d_igemm"] > 0, "the conv path launched no conv kernel")
+    emit({"phase": "kernel_conv_path", "launches": launches["conv3d_igemm"],
+          "seconds": time.perf_counter() - t0, "cases": len(recs)})
+    return {"records": recs, "launches": launches["conv3d_igemm"]}
 
 
 def phase_card_vs_cpu(torch) -> None:
@@ -950,11 +1175,14 @@ def phase_train_card_vs_cpu(torch) -> None:
 
 
 def _kernel_summary(fwd: dict, bwd: dict, gn: dict, sample_launches: dict,
-                    train: dict) -> list:
+                    train: dict, serve: dict, conv: dict) -> list:
     """The kernels line: each kernel's ms, plain_ms, bound_ms and library_ms
     are summed over the ``launches`` it counts (one flagship sample for
     flash_fwd, the training main path's run for the other four; the
-    GroupNorm kernels also over the sample, as ``sample_*``)."""
+    GroupNorm kernels also over the sample, as ``sample_*``); the served
+    launches of flash_fwd and gn_sums are ``serve_launches``. conv3d_igemm's
+    launches are the A/B tool's run; its times are per call at the tool's
+    headline shape."""
     def per(results, weights, key, by=None, dtype="bfloat16"):
         return sum(n * results[(shape, dtype)][key] for shape, n in weights.items()
                    if by is None or results[(shape, dtype)].get("bound_by", by) == by)
@@ -1011,7 +1239,19 @@ def _kernel_summary(fwd: dict, bwd: dict, gn: dict, sample_launches: dict,
                        sample_host_ms=sa["host_ms"], sample_var_mean_ms=sa["var_mean_ms"])
         return row
 
-    return [
+    head = next(r for r in conv["records"]
+                if tuple(r["shape"]) == (8, 96, 96, 96, 64) and r["dtype"] == "bfloat16")
+    conv_row = {"name": "conv3d_igemm", "route": "cuda",
+                "source": "ldm3d_torch/csrc/conv3d_igemm.cu",
+                "replaces": "ldm3d_tpu/ops/conv3d.py:58", "launches": conv["launches"],
+                "max_abs_err": max(r["max_abs_err"] for r in conv["records"]),
+                "ms": head["kernel_ms"], "plain_ms": head["plain_ms"],
+                "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+                "library_ms": head["library_ms"], "host_ms": head["host_ms"],
+                "library_covers": "F.conv3d (cuDNN) on channels_last_3d, bf16",
+                "per": "one call at (8, 96, 96, 96, 64) bf16; launches: the A/B tool's whole "
+                       "run (checks and timing loops at every shape and dtype)"}
+    rows = [
         {"name": "flash_fwd", "route": "cuda", "source": "ldm3d_torch/csrc/flash_fwd.cu",
          "replaces": "ldm3d_tpu/ops/attention.py:49 and ldm3d_tpu/ops/attention.py:83",
          "launches": sample_launches["flash_fwd"],
@@ -1040,7 +1280,11 @@ def _kernel_summary(fwd: dict, bwd: dict, gn: dict, sample_launches: dict,
                "var_mean_ms"),
         gn_row("gn_bwd_sums", "ldm3d_tpu/ops/groupnorm.py:144",
                "no single PyTorch call returns sum(dy) and sum(dy * x_hat)"),
+        conv_row,
     ]
+    rows[0]["serve_launches"] = serve["launches"]["flash_fwd"]
+    rows[3]["serve_launches"] = serve["launches"]["gn_sums"]
+    return rows
 
 
 def main() -> int:
@@ -1067,12 +1311,15 @@ def main() -> int:
         sample_launches, sample_gn = phase_main_path(torch, ns, counts, Path(workdir), card,
                                                      smi_line)
         train = phase_train(torch, ns, counts, Path(workdir), card, smi_line)
-    gn = phase_kernel_gn(torch, {"sampling": sample_gn, "training": train.pop("gn_cases")})
+        serve = phase_serve(torch, ns, counts, Path(workdir), card, smi_line)
+    gn = phase_kernel_gn(torch, {"sampling": sample_gn, "training": train.pop("gn_cases"),
+                                 "serving": serve.pop("gn_cases")})
+    conv = phase_kernel_conv(torch)
     phase_card_vs_cpu(torch)
     phase_train_card_vs_cpu(torch)
 
     emit({"phase": "done"})
-    emit({"kernels": _kernel_summary(fwd, bwd, gn, sample_launches, train)})
+    emit({"kernels": _kernel_summary(fwd, bwd, gn, sample_launches, train, serve, conv)})
     print(smi_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": card,
                                  "count": torch.cuda.device_count()}})

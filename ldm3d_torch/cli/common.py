@@ -1,9 +1,11 @@
 """Shared CLI plumbing of the port.
 
-The subset of ``ldm3d_tpu/cli/common.py`` that conditional DDIM sampling
-needs: the parser (``-c -e -n --sampler --steps --batch --guidance --amp
---synthetic-data``, plus ``--device``), config merging, the compute dtype,
-the environment seed, the device rule, and the two-stage checkpoints.
+The subset of ``ldm3d_tpu/cli/common.py`` that sampling, serving and
+training need: the parser (``-c -e --amp --synthetic-data``, plus
+``--device``), config merging, the compute dtype, the environment seed, the
+device rule, the two-stage checkpoints (``best``, or the UNet's ``ema``), the
+sampler and grid-spacing registries with ``make_sampling_scheduler``, and the
+decode-chunk choice.
 
 Device rule: entry points run on ``cuda`` unless the caller passes
 ``--device cpu``. Without a CUDA device and without ``--device cpu`` they
@@ -22,6 +24,7 @@ from __future__ import annotations
 import argparse
 import logging
 import sys
+import time
 
 import torch
 
@@ -29,13 +32,17 @@ from ldm3d_torch.ckpt.manager import CheckpointManager
 from ldm3d_torch.configs import define_instance, preset_path
 from ldm3d_torch.utils import merge_configs_onto_args
 
-__all__ = ["SAMPLERS", "build_parser", "setup", "resolve_device", "model_dtype", "env_seed",
-           "save_two_stage", "load_two_stage", "make_sampling_scheduler"]
+__all__ = ["SAMPLERS", "TIMESTEP_SPACINGS", "build_parser", "setup", "resolve_device",
+           "model_dtype", "env_seed", "save_two_stage", "load_two_stage",
+           "make_sampling_scheduler", "default_sampler_steps", "probe_readback_gbps",
+           "resolve_decode_chunk"]
 
 log = logging.getLogger("ldm3d_torch")
 
-# the JAX package's sampler registry; only ddim is ported in this slice
+# the one sampler-name registry and the one grid-spacing registry: the CLIs'
+# argparse choices, serving validation and make_sampling_scheduler share them
 SAMPLERS = ("ddpm", "ddim", "dpm", "dpm3")
+TIMESTEP_SPACINGS = ("leading", "trailing", "karras")
 
 
 def build_parser(description: str) -> argparse.ArgumentParser:
@@ -88,42 +95,102 @@ def save_two_stage(model_dir: str, ae: torch.nn.Module, unet: torch.nn.Module,
         "best", {"state_dict": unet.state_dict()}, {"scale_factor": float(scale_factor)})
 
 
-def load_two_stage(args, device: torch.device, dtype: torch.dtype):
-    """Build AE + UNet from the config on ``device`` and load both checkpoints.
-    Returns ``(ae, unet, latent_shape, scale_factor)``, both models in eval mode
-    with compute dtype ``dtype``."""
+def load_two_stage(args, device: torch.device, dtype: torch.dtype, use_ema: bool = False):
+    """Build AE + UNet from the config on ``device`` and load both checkpoints
+    (the UNet's ``ema`` role when ``use_ema``; it must exist). Returns ``(ae,
+    unet, latent_shape, scale_factor)``, both models in eval mode with compute
+    dtype ``dtype``; the ``scale_factor`` is the ``best`` role's."""
+    u_ckpt = CheckpointManager(args.model_dir, "diffusion")
+    if use_ema and not u_ckpt.exists("ema"):
+        raise FileNotFoundError("no 'ema' checkpoint found; train with --ema-decay first")
     models = []
-    for role, key in (("autoencoder", "autoencoder_def"), ("diffusion", "diffusion_def")):
-        ckpt = CheckpointManager(args.model_dir, role).load("best", map_location=device)
+    for ckpt, role, key in ((CheckpointManager(args.model_dir, "autoencoder"), "best",
+                             "autoencoder_def"),
+                            (u_ckpt, "ema" if use_ema else "best", "diffusion_def")):
+        state = ckpt.load(role, map_location=device)
         with torch.device(device):
             model = define_instance(args, key)
-        model.load_state_dict(ckpt["state_dict"])
+        model.load_state_dict(state["state_dict"])
         model.compute_dtype = dtype
-        models.append((model.eval(), ckpt["meta"]))
-    (ae, _), (unet, u_meta) = models
-    scale_factor = float(u_meta.get("scale_factor", 1.0))
+        models.append(model.eval())
+    ae, unet = models
+    scale_factor = float(u_ckpt.load_meta("best").get("scale_factor", 1.0))
     latent_shape = [p // ae.downsample_factor for p in args.diffusion_train["patch_size"]]
-    log.info("restored two-stage checkpoints from %s (scale_factor=%.6f)", args.model_dir,
-             scale_factor)
+    log.info("restored two-stage checkpoints from %s (unet role=%s, scale_factor=%.6f)",
+             args.model_dir, "ema" if use_ema else "best", scale_factor)
     return ae, unet, latent_shape, scale_factor
 
 
-def make_sampling_scheduler(name: str, steps: int | None, sched_cfg: dict):
-    """The ``ddim`` sampler (default 50 steps, capped by the training schedule).
-    Other samplers are not ported yet and raise ``NotImplementedError``."""
-    from ldm3d_torch.diffusion import DDIMScheduler
+def make_sampling_scheduler(name: str, steps: int | None, sched_cfg: dict,
+                            timestep_spacing: str | None = None):
+    """ddpm (ancestral; full schedule by default, strided when ``steps`` is
+    given) / ddim / dpm (DPM-Solver++ 2M) / dpm3 (3M).
 
-    if name != "ddim":
-        if name in SAMPLERS:
-            raise NotImplementedError(
-                f"sampler {name!r} is not ported yet: ROADMAP.md queue A, "
-                f"'DDPM / DPM-Solver++ / GridDDIM samplers'")
-        raise ValueError(f"unknown sampler {name!r}")
+    ``steps=None`` takes :func:`default_sampler_steps`. ``timestep_spacing``
+    overrides the config's. ``karras`` runs on ddim (as a GridDDIM over the
+    karras grid) and dpm/dpm3; the ddpm sampler rejects it."""
+    from ldm3d_torch.diffusion import (DDIMScheduler, DDPMScheduler, DPMSolverPPScheduler,
+                                       GridDDIMScheduler, karras_timestep_grid)
+
+    spacing = timestep_spacing or sched_cfg.get("timestep_spacing", "leading")
+    common = dict(num_train_timesteps=sched_cfg["num_train_timesteps"],
+                  schedule=sched_cfg.get("schedule", "scaled_linear_beta"),
+                  beta_start=sched_cfg["beta_start"], beta_end=sched_cfg["beta_end"],
+                  prediction_type=sched_cfg["prediction_type"])
     if steps is None:
-        steps = min(50, sched_cfg["num_train_timesteps"])
-    return DDIMScheduler.create(
-        num_train_timesteps=sched_cfg["num_train_timesteps"],
-        schedule=sched_cfg.get("schedule", "scaled_linear_beta"),
-        beta_start=sched_cfg["beta_start"], beta_end=sched_cfg["beta_end"],
-        prediction_type=sched_cfg["prediction_type"], num_inference_steps=steps,
-        timestep_spacing=sched_cfg.get("timestep_spacing", "leading"))
+        steps = default_sampler_steps(name, sched_cfg)
+    if name in ("dpm", "dpm3"):
+        return DPMSolverPPScheduler.create(num_inference_steps=steps,
+                                           solver_order=3 if name == "dpm3" else 2,
+                                           timestep_spacing=spacing, **common)
+    if name == "ddim":
+        if spacing == "karras":
+            grid = karras_timestep_grid(common["num_train_timesteps"], steps, common["schedule"],
+                                        common["beta_start"], common["beta_end"])
+            return GridDDIMScheduler.create(grid, **common)
+        return DDIMScheduler.create(num_inference_steps=steps, timestep_spacing=spacing, **common)
+    if name == "ddpm":
+        if spacing == "karras":
+            raise ValueError("karras timestep_spacing is not available on the "
+                             "ancestral ddpm sampler; use ddim, dpm, or dpm3")
+        n_train = sched_cfg["num_train_timesteps"]
+        return DDPMScheduler.create(num_inference_steps=None if steps == n_train else steps,
+                                    timestep_spacing=spacing, **common)
+    raise ValueError(f"unknown sampler {name!r}")
+
+
+def default_sampler_steps(name: str, sched_cfg: dict) -> int:
+    """Concrete step count ``make_sampling_scheduler(name, None, cfg)`` runs:
+    the full training schedule for ddpm, else 50 capped by it."""
+    n_train = sched_cfg["num_train_timesteps"]
+    return n_train if name == "ddpm" else min(50, n_train)
+
+
+# Decoding a sampled batch whole is the faster device program; decoding it a
+# volume at a time lets each volume's readback overlap the next decode, which
+# wins when the device-to-host link is slow. 1 GB/s separates the regimes.
+READBACK_FAST_GBPS = 1.0
+
+
+def probe_readback_gbps(device, nbytes: int = 16 << 20) -> float:
+    """Device-to-host copy rate in GB/s: one warm copy of ``nbytes`` from
+    ``device`` to the CPU, timed."""
+    x = torch.zeros((nbytes // 4,), dtype=torch.float32, device=device)
+    x.to("cpu", copy=True)  # warm: allocation and first-transfer set-up
+    t0 = time.perf_counter()
+    x.to("cpu", copy=True)
+    return nbytes / max(time.perf_counter() - t0, 1e-9) / 1e9
+
+
+def resolve_decode_chunk(value, logger=None, device="cuda") -> int:
+    """A ``--decode-chunk`` value as a concrete chunk size: ints pass through
+    (0 = the whole batch); ``'auto'`` probes ``device``'s readback rate and
+    takes the whole batch on a fast link, chunks of 1 on a slow one."""
+    if value != "auto":
+        return max(0, int(value))
+    gbps = probe_readback_gbps(device)
+    chunk = 0 if gbps >= READBACK_FAST_GBPS else 1
+    if logger is not None:
+        logger.info("decode-chunk auto: readback %.2f GB/s -> %s",
+                    gbps, "whole batch" if chunk == 0 else "chunk 1")
+    return chunk

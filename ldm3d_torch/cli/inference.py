@@ -1,19 +1,24 @@
 """Inference CLI: generate volumes with the trained two-stage LDM.
 
-The port of ``ldm3d_tpu/cli/inference.py`` for conditional DDIM sampling:
+The port of ``ldm3d_tpu/cli/inference.py``:
 
 1. the VAE encoder turns the low-count volume into the condition latent
    (``encode_stage_2_inputs``, posterior noise from the seeded generator),
-2. the UNet runs the DDIM reverse loop with concat conditioning,
+2. the UNet runs the reverse loop of the chosen sampler (ddpm, the default,
+   over the full training schedule; ddim; dpm; dpm3) with concat
+   conditioning,
 3. the result is divided by ``scale_factor``,
-4. the decoder decodes it, and each volume is written as NIfTI.
+4. the decoder decodes it, whole or in chunks of ``--decode-chunk`` volumes,
+   and each volume is written as NIfTI.
 
 An unconditional UNet (``in_channels == latent_channels``) skips step 1.
-Noise is drawn on the CPU from ``torch.Generator().manual_seed(seed)`` and
-moved to the device, so a seed gives the same noise on every device.
+Noise, the ancestral noise of ddpm included, is drawn on the CPU from
+``torch.Generator().manual_seed(seed)`` and moved to the device, so a seed
+gives the same noise on every device.
 
 Usage: python -m ldm3d_torch.cli.inference -c CONFIG -e ENV [-n NUM]
-       [--sampler ddim] [--steps N] [--batch B] [--guidance W] [--amp]
+       [--sampler ddpm|ddim|dpm|dpm3] [--steps N] [--timestep-spacing S]
+       [--batch B] [--guidance W] [--use-ema] [--decode-chunk N|auto] [--amp]
        [--device cuda|cpu]
 """
 
@@ -29,11 +34,13 @@ import torch
 
 from ldm3d_torch.cli.common import (
     SAMPLERS,
+    TIMESTEP_SPACINGS,
     build_parser,
     env_seed,
     load_two_stage,
     make_sampling_scheduler,
     model_dtype,
+    resolve_decode_chunk,
     setup,
 )
 from ldm3d_torch.data import val_condition_volumes
@@ -63,14 +70,35 @@ def main(argv=None, timings: dict | None = None) -> list[str]:
     parser = build_parser("latent diffusion inference (PyTorch port)")
     parser.add_argument("-n", "--num", type=int, default=1,
                         help="number of generation calls (total volumes = num x batch)")
-    parser.add_argument("--sampler", choices=SAMPLERS, default="ddim",
-                        help="ddim = the ported sampler; ddpm/dpm/dpm3 are not ported yet")
+    parser.add_argument("--sampler", choices=SAMPLERS, default="ddpm",
+                        help="ddpm = the full ancestral loop; ddim = fast; dpm = DPM-Solver++ 2M; "
+                             "dpm3 = DPM-Solver++ 3M (use >= 20 steps)")
+    parser.add_argument("--timestep-spacing", choices=TIMESTEP_SPACINGS, default=None,
+                        help="inference grid (default: the config's, else leading); karras is "
+                             "for ddim/dpm/dpm3 only")
     parser.add_argument("--steps", type=int, default=None,
-                        help="inference steps (default 50, capped by the training schedule)")
+                        help="inference steps (default: 50 capped by the training schedule for "
+                             "ddim/dpm/dpm3, the full schedule for ddpm; a value strides ddpm)")
     parser.add_argument("--batch", type=int, default=1, help="volumes per sample call")
     parser.add_argument("--guidance", type=float, default=1.0,
                         help="classifier-free guidance scale (1.0 = off)")
+    parser.add_argument("--use-ema", action="store_true",
+                        help="sample with the EMA UNet weights (trained with --ema-decay)")
+    parser.add_argument("--decode-chunk", default="0",
+                        help="decode each sampled batch in chunks of this many volumes (0 = "
+                             "whole batch; 'auto' probes the device-to-host rate)")
+    parser.add_argument("--use-distilled", action="store_true",
+                        help="not ported yet (ROADMAP.md queue A, 'Distillation')")
+    parser.add_argument("--fused-decode", action="store_true",
+                        help="not ported: one XLA program for loop and decode has no eager "
+                             "counterpart (ROADMAP.md queue A, 'CUDA graph of the sampler')")
     args = parser.parse_args(argv)
+    if args.use_distilled:
+        raise NotImplementedError("--use-distilled is not ported yet: ROADMAP.md queue A, "
+                                  "'Distillation'")
+    if args.fused_decode:
+        raise NotImplementedError("--fused-decode is not ported: ROADMAP.md queue A, "
+                                  "'CUDA graph of the sampler'")
     args, device = setup(args)
     dt = model_dtype(args)
     if timings is None:
@@ -79,8 +107,11 @@ def main(argv=None, timings: dict | None = None) -> list[str]:
         timings.setdefault(key, [])
 
     scheduler = make_sampling_scheduler(args.sampler, args.steps,
-                                        TrainContext(args).scheduler_config())
-    ae, unet, latent_shape, scale_factor = load_two_stage(args, device, dt)
+                                        TrainContext(args).scheduler_config(),
+                                        timestep_spacing=args.timestep_spacing)
+    ae, unet, latent_shape, scale_factor = load_two_stage(args, device, dt,
+                                                          use_ema=args.use_ema)
+    chunk = resolve_decode_chunk(args.decode_chunk, log, device) or args.batch
     gen = torch.Generator().manual_seed(env_seed(args))
     patch_size = args.diffusion_train["patch_size"]
     latent_batch_shape = (args.batch, *latent_shape, ae.latent_channels)
@@ -102,15 +133,16 @@ def main(argv=None, timings: dict | None = None) -> list[str]:
         noise = torch.randn(latent_batch_shape, generator=gen).to(device, dt)
         t0 = _sync(device)
         latents = inferer.sample_latents(unet, scheduler, noise, condition,
-                                         guidance_scale=args.guidance)
+                                         guidance_scale=args.guidance, generator=gen)
         t1 = _sync(device)
+        latents = latents / torch.tensor(scale_factor, dtype=latents.dtype)
         with torch.no_grad():
-            vols = ae.decode_stage_2_outputs(
-                latents / torch.tensor(scale_factor, dtype=latents.dtype))
+            parts = [ae.decode_stage_2_outputs(latents[s:s + chunk])
+                     for s in range(0, args.batch, chunk)]
         t2 = _sync(device)
         timings["denoise_ms"].append((t1 - t0) * 1e3)
         timings["decode_ms"].append((t2 - t1) * 1e3)
-        vols = vols.float().cpu().numpy()
+        vols = np.concatenate([p.float().cpu().numpy() for p in parts])
         log.info("sample %d: %s in %.2fs (%s, %d steps)", i, vols.shape, t2 - t0,
                  args.sampler, len(scheduler.timesteps))
         for b in range(vols.shape[0]):

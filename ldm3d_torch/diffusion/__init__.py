@@ -1,9 +1,15 @@
 from ldm3d_torch.diffusion.schedulers import (
     DDIMScheduler,
     DDPMScheduler,
+    DPMSolverPPScheduler,
+    GridDDIMScheduler,
+    distillation_grid,
+    karras_timestep_grid,
     make_betas,
     make_timestep_grid,
 )
 from ldm3d_torch.diffusion import inferer
 
-__all__ = ["DDIMScheduler", "DDPMScheduler", "make_betas", "make_timestep_grid", "inferer"]
+__all__ = ["DDIMScheduler", "DDPMScheduler", "DPMSolverPPScheduler", "GridDDIMScheduler",
+           "distillation_grid", "karras_timestep_grid", "make_betas", "make_timestep_grid",
+           "inferer"]

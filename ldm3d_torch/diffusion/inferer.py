@@ -3,8 +3,10 @@ VAE decode.
 
 Counterpart of ``ldm3d_tpu/diffusion/inferer.py``. The JAX package compiles
 the reverse loop as one ``lax.scan``; here it is a Python loop over the
-scheduler's timesteps, one UNet call per step. An ancestral (DDPM) sampler
-draws its per-step noise from the caller's ``generator``.
+scheduler's timesteps, one UNet call per step. A sampler that adds noise
+(DDPM, DDIM with eta > 0) draws it per step from the caller's ``generator``,
+or takes the caller's list of per-step noises. A multistep sampler
+(DPM-Solver++) carries the last two x0 predictions from step to step.
 
 Conditioning: ``condition=None`` samples unconditionally; a
 ``(B, d, h, w, C_cond)`` condition is channel-concatenated every step
@@ -14,7 +16,7 @@ unconditional branches (zero null condition) as one 2B-batch UNet call.
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence
 
 import torch
 
@@ -67,13 +69,34 @@ def guided_model_pred(unet_apply: UNetApply, x: torch.Tensor, t_b: torch.Tensor,
 def sample_latents(unet_apply: UNetApply, scheduler, noise: torch.Tensor,
                    condition: Optional[torch.Tensor] = None,
                    guidance_scale: float = 1.0,
-                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    """Run the reverse loop in latent space from ``noise`` ``(B, d, h, w, C)``."""
+                   generator: Optional[torch.Generator] = None,
+                   step_noises: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+    """Run the reverse loop in latent space from ``noise`` ``(B, d, h, w, C)``.
+
+    ``step_noises``, when given, holds one standard-normal tensor of
+    ``noise``'s shape per step, used in place of draws from ``generator``."""
+    timesteps = scheduler.timesteps
+    if step_noises is not None and len(step_noises) != len(timesteps):
+        raise ValueError(f"{len(step_noises)} step noises for {len(timesteps)} steps")
     x = noise
-    for t in scheduler.timesteps:
+
+    def model_pred(x, t):
         t_b = torch.full((noise.shape[0],), t, dtype=torch.int32, device=noise.device)
-        pred = guided_model_pred(unet_apply, x, t_b, condition, guidance_scale)
-        x = scheduler.step(pred, t, x, generator)
+        return guided_model_pred(unet_apply, x, t_b, condition, guidance_scale)
+
+    if getattr(scheduler, "multistep", False):
+        # the zero inits never contribute: c2[0] = c3[0] = c3[1] = 0
+        x0_prev, x0_prev2 = torch.zeros_like(noise), torch.zeros_like(noise)
+        for i, t in enumerate(timesteps):
+            x, x0 = scheduler.step_multistep(model_pred(x, t), i, t, x, x0_prev, x0_prev2)
+            x0_prev, x0_prev2 = x0, x0_prev
+        return x
+    for i, t in enumerate(timesteps):
+        pred = model_pred(x, t)
+        if step_noises is not None:
+            x = scheduler.step_with_noise(pred, t, x, step_noises[i].to(x.device))
+        else:
+            x = scheduler.step(pred, t, x, generator)
     return x
 
 
@@ -81,7 +104,9 @@ def sample_latents(unet_apply: UNetApply, scheduler, noise: torch.Tensor,
 def sample(unet_apply: UNetApply, decode_apply: Callable[[torch.Tensor], torch.Tensor],
            scheduler, noise: torch.Tensor, condition: Optional[torch.Tensor] = None,
            scale_factor: float = 1.0, guidance_scale: float = 1.0,
-           generator: Optional[torch.Generator] = None) -> torch.Tensor:
+           generator: Optional[torch.Generator] = None,
+           step_noises: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
     """Reverse loop, then divide by ``scale_factor`` and decode."""
-    latents = sample_latents(unet_apply, scheduler, noise, condition, guidance_scale, generator)
+    latents = sample_latents(unet_apply, scheduler, noise, condition, guidance_scale, generator,
+                             step_noises)
     return decode_apply(latents / torch.tensor(scale_factor, dtype=latents.dtype))

@@ -1,21 +1,25 @@
-"""Noise schedule tables, the DDPM noiser/sampler and the DDIM sampler.
+"""Noise schedule tables and the samplers.
 
 Counterpart of ``ldm3d_tpu/diffusion/schedulers.py``: ``make_betas``,
-``make_timestep_grid`` (leading and trailing), ``DDPMScheduler`` (the
-training noiser ``add_noise``/``velocity`` and the ancestral ``step``, whose
-noise comes from a caller's ``torch.Generator``) and the deterministic
-(eta 0) ``DDIMScheduler``. Step math runs in fp32 whatever the compute dtype.
-DPM-Solver++ and the grid (distilled) DDIM are not ported yet (ROADMAP.md
-queue A).
+``make_timestep_grid`` (leading and trailing), ``karras_timestep_grid``,
+``distillation_grid``, ``DDPMScheduler`` (the training noiser
+``add_noise``/``velocity`` and the ancestral ``step``, full or strided),
+``DDIMScheduler`` (with ``eta``), ``GridDDIMScheduler`` (DDIM over an explicit
+grid) and ``DPMSolverPPScheduler`` (2M/3M multistep). Step math runs in fp32
+whatever the compute dtype. A step that adds noise (DDPM, DDIM with eta > 0)
+draws it from a caller's ``torch.Generator`` in ``step``, or takes it as an
+argument in ``step_with_noise``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
-__all__ = ["DDIMScheduler", "DDPMScheduler", "make_betas", "make_timestep_grid"]
+__all__ = ["DDIMScheduler", "DDPMScheduler", "DPMSolverPPScheduler", "GridDDIMScheduler",
+           "make_betas", "make_timestep_grid", "distillation_grid", "karras_timestep_grid"]
 
 
 def make_betas(num_train_timesteps: int, schedule: str, beta_start: float,
@@ -44,10 +48,47 @@ def make_timestep_grid(num_train_timesteps: int, n: int, spacing: str) -> list[i
         return [i * stride for i in range(n - 1, -1, -1)]
     if spacing == "trailing":
         return [(num_train_timesteps - 1) - i * stride for i in range(n)]
-    if spacing == "karras":
-        raise NotImplementedError("karras timestep spacing is not ported yet: "
-                                  "ROADMAP.md queue A, 'DDPM / DPM-Solver++ / GridDDIM samplers'")
-    raise ValueError(f"timestep_spacing must be 'leading' or 'trailing', got {spacing!r}")
+    raise ValueError(
+        f"timestep_spacing must be 'leading' or 'trailing', got {spacing!r}"
+        + (" ('karras' spacing is grid-based: available on the dpm/dpm3 samplers and on "
+           "ddim via make_sampling_scheduler/GridDDIMScheduler)" if spacing == "karras" else ""))
+
+
+def karras_timestep_grid(num_train_timesteps: int, n: int, schedule: str = "scaled_linear_beta",
+                         beta_start: float = 0.0015, beta_end: float = 0.0195,
+                         rho: float = 7.0) -> np.ndarray:
+    """Descending timesteps whose noise levels follow the Karras et al. (EDM)
+    sigma spacing, each mapped to the discrete timestep of nearest
+    sigma(t) = sqrt((1 - abar_t) / abar_t). Anchored at t = T-1 and t = 0.
+    Raises when ``n`` is too large for the mapped timesteps to stay distinct."""
+    if not (2 <= n <= num_train_timesteps):
+        raise ValueError(f"karras grid needs 2 <= steps <= {num_train_timesteps}, got {n}")
+    betas = make_betas(num_train_timesteps, schedule, beta_start, beta_end).numpy().astype(np.float64)
+    abar = np.cumprod(1.0 - betas)
+    sig = np.sqrt((1.0 - abar) / abar)  # ascending in t
+    smin, smax = float(sig[0]), float(sig[-1])
+    frac = np.linspace(0.0, 1.0, n)
+    sigmas = (smax ** (1.0 / rho) + frac * (smin ** (1.0 / rho) - smax ** (1.0 / rho))) ** rho
+    hi = np.clip(np.searchsorted(sig, sigmas), 1, num_train_timesteps - 1)
+    ts = np.where(np.abs(sigmas - sig[hi - 1]) <= np.abs(sig[hi] - sigmas), hi - 1, hi)
+    ts = ts.astype(np.int32)
+    if len(np.unique(ts)) != n:
+        raise ValueError(f"{n}-step karras grid over {num_train_timesteps} timesteps maps "
+                         f"multiple steps onto the same timestep; reduce the step count")
+    return ts
+
+
+def distillation_grid(num_train_timesteps: int, n: int) -> np.ndarray:
+    """N+1 descending boundary timesteps ``round(linspace(T-1, 0, N+1))`` of
+    an N-step grid; the visited timesteps are ``grid[:-1]`` and the last jump
+    goes to the terminal state."""
+    if not (1 <= n <= num_train_timesteps):
+        raise ValueError(f"grid steps must be in [1, {num_train_timesteps}], got {n}")
+    b = np.round(np.linspace(num_train_timesteps - 1, 0, n + 1)).astype(np.int32)
+    if len(np.unique(b)) != n + 1:
+        raise ValueError(f"{n}-step grid over {num_train_timesteps} timesteps "
+                         f"has duplicate entries; reduce the step count")
+    return b
 
 
 def _check_trailing_divisible(num_train_timesteps: int, n: int, spacing: str) -> None:
@@ -84,9 +125,18 @@ def _pred_x0_and_eps(pred, x_t, a_t, prediction_type: str):
     raise ValueError(f"unknown prediction_type {prediction_type!r}")
 
 
+def _draw(x_t: torch.Tensor, generator: torch.Generator | None) -> torch.Tensor:
+    """Standard-normal fp32 noise of ``x_t``'s shape, drawn on the generator's
+    device and moved to ``x_t``'s."""
+    device = generator.device if generator is not None else x_t.device
+    z = torch.randn(x_t.shape, generator=generator, device=device, dtype=torch.float32)
+    return z.to(x_t.device)
+
+
 @dataclasses.dataclass
 class DDIMScheduler:
-    """Deterministic (eta 0) DDIM over a strided timestep subsequence."""
+    """DDIM over a strided timestep subsequence; deterministic at ``eta`` 0,
+    with fresh noise of scale ``eta * sigma_t`` a step otherwise."""
 
     betas: torch.Tensor
     alphas_cumprod: torch.Tensor
@@ -95,6 +145,7 @@ class DDIMScheduler:
     prediction_type: str = "epsilon"
     clip_sample: bool = True
     clip_range: float = 1.0
+    eta: float = 0.0
     timestep_spacing: str = "leading"
 
     @classmethod
@@ -111,9 +162,6 @@ class DDIMScheduler:
         eta: float = 0.0,
         timestep_spacing: str = "leading",
     ) -> "DDIMScheduler":
-        if eta != 0.0:
-            raise NotImplementedError("DDIM with eta > 0 is not ported yet: ROADMAP.md "
-                                      "queue A, 'DDPM / DPM-Solver++ / GridDDIM samplers'")
         if not (1 <= num_inference_steps <= num_train_timesteps):
             raise ValueError(f"num_inference_steps must be in [1, {num_train_timesteps}], "
                              f"got {num_inference_steps}")
@@ -123,7 +171,7 @@ class DDIMScheduler:
         return cls(betas=betas, alphas_cumprod=torch.cumprod(1.0 - betas, dim=0),
                    num_train_timesteps=num_train_timesteps,
                    num_inference_steps=num_inference_steps, prediction_type=prediction_type,
-                   clip_sample=clip_sample, clip_range=clip_range,
+                   clip_sample=clip_sample, clip_range=clip_range, eta=eta,
                    timestep_spacing=timestep_spacing)
 
     @property
@@ -131,11 +179,21 @@ class DDIMScheduler:
         return make_timestep_grid(self.num_train_timesteps, self.num_inference_steps,
                                   self.timestep_spacing)
 
+    def add_noise(self, x0: torch.Tensor, noise: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        sqrt_a, sqrt_1ma = _noise_coeffs(self.alphas_cumprod, t, x0)
+        return sqrt_a * x0 + sqrt_1ma * noise
+
     def step(self, model_output: torch.Tensor, t: int, x_t: torch.Tensor,
              generator: torch.Generator | None = None) -> torch.Tensor:
-        """One reverse step x_t -> x_{t - stride}, in fp32, returned in x_t's
-        dtype. Deterministic: ``generator`` is taken for the sampler loop's
-        sake and draws nothing."""
+        """One reverse step x_t -> x_{t - stride}. At eta > 0 its noise is a
+        standard normal drawn from ``generator``; at eta 0 nothing is drawn."""
+        z = _draw(x_t, generator) if self.eta > 0 else None
+        return self.step_with_noise(model_output, t, x_t, z)
+
+    def step_with_noise(self, model_output: torch.Tensor, t: int, x_t: torch.Tensor,
+                        z: torch.Tensor | None) -> torch.Tensor:
+        """:meth:`step` with its standard-normal noise ``z`` given (unused at
+        eta 0), in fp32, returned in x_t's dtype."""
         stride = self.num_train_timesteps // self.num_inference_steps
         x32 = x_t.float()
         pred = model_output.float()
@@ -147,8 +205,13 @@ class DDIMScheduler:
         if self.clip_sample:
             x0 = torch.clamp(x0, -self.clip_range, self.clip_range)
             eps = (x32 - torch.sqrt(a_t) * x0) / torch.sqrt(1.0 - a_t)
-        dir_xt = torch.sqrt(torch.clamp(1.0 - a_prev, min=0.0)) * eps
-        return (torch.sqrt(a_prev) * x0 + dir_xt).to(x_t.dtype)
+        sigma = self.eta * torch.sqrt(torch.clamp((1 - a_prev) / (1 - a_t), min=1e-20)
+                                      * (1 - a_t / a_prev))
+        dir_xt = torch.sqrt(torch.clamp(1.0 - a_prev - sigma**2, min=0.0)) * eps
+        sample = torch.sqrt(a_prev) * x0 + dir_xt
+        if self.eta > 0 and t_prev >= 0:
+            sample = sample + sigma * z.float()
+        return sample.to(x_t.dtype)
 
 
 @dataclasses.dataclass
@@ -219,9 +282,7 @@ class DDPMScheduler:
              generator: torch.Generator | None = None) -> torch.Tensor:
         """One reverse step x_t -> x_{t - stride}; the ancestral noise is a
         standard normal drawn from ``generator`` (on the generator's device)."""
-        device = generator.device if generator is not None else x_t.device
-        z = torch.randn(x_t.shape, generator=generator, device=device, dtype=torch.float32)
-        return self.step_with_noise(model_output, t, x_t, z.to(x_t.device))
+        return self.step_with_noise(model_output, t, x_t, _draw(x_t, generator))
 
     def step_with_noise(self, model_output: torch.Tensor, t: int, x_t: torch.Tensor,
                         z: torch.Tensor) -> torch.Tensor:
@@ -247,3 +308,193 @@ class DDPMScheduler:
         var = torch.clamp((1.0 - a_prev) / (1.0 - a_t) * beta_t, min=1e-20)
         sample = mean + torch.sqrt(var) * z.float() if t > 0 else mean
         return sample.to(x_t.dtype)
+
+
+@dataclasses.dataclass
+class GridDDIMScheduler:
+    """Deterministic DDIM over an explicit strictly descending timestep grid
+    (a distillation grid or a karras grid); the last visited timestep jumps
+    to the terminal state (alpha_bar = 1). ``next_abar[t]`` is the successor
+    state's alpha_bar at each visited t."""
+
+    betas: torch.Tensor
+    alphas_cumprod: torch.Tensor
+    grid: list[int]
+    next_abar: torch.Tensor
+    num_train_timesteps: int = 1000
+    prediction_type: str = "epsilon"
+    clip_sample: bool = True
+    clip_range: float = 1.0
+
+    @classmethod
+    def create(
+        cls,
+        timesteps,
+        num_train_timesteps: int = 1000,
+        schedule: str = "scaled_linear_beta",
+        beta_start: float = 0.0015,
+        beta_end: float = 0.0195,
+        prediction_type: str = "epsilon",
+        clip_sample: bool = True,
+        clip_range: float = 1.0,
+    ) -> "GridDDIMScheduler":
+        ts = np.asarray(timesteps, dtype=np.int64)
+        if ts.ndim != 1 or len(ts) < 1:
+            raise ValueError("timesteps must be a 1-D sequence")
+        if np.any(np.diff(ts) >= 0):
+            raise ValueError("timesteps must be strictly descending")
+        if ts[0] >= num_train_timesteps or ts[-1] < 0:
+            raise ValueError(f"timesteps out of range [0, {num_train_timesteps})")
+        betas = make_betas(num_train_timesteps, schedule, beta_start, beta_end)
+        abar = torch.cumprod(1.0 - betas, dim=0)
+        succ = torch.ones((num_train_timesteps,), dtype=torch.float32)
+        succ[torch.from_numpy(ts[:-1])] = abar[torch.from_numpy(ts[1:])]
+        return cls(betas=betas, alphas_cumprod=abar, grid=[int(t) for t in ts], next_abar=succ,
+                   num_train_timesteps=num_train_timesteps, prediction_type=prediction_type,
+                   clip_sample=clip_sample, clip_range=clip_range)
+
+    @property
+    def num_inference_steps(self) -> int:
+        return len(self.grid)
+
+    @property
+    def timesteps(self) -> list[int]:
+        return self.grid
+
+    def add_noise(self, x0: torch.Tensor, noise: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        sqrt_a, sqrt_1ma = _noise_coeffs(self.alphas_cumprod, t, x0)
+        return sqrt_a * x0 + sqrt_1ma * noise
+
+    def step(self, model_output: torch.Tensor, t: int, x_t: torch.Tensor,
+             generator: torch.Generator | None = None) -> torch.Tensor:
+        """One deterministic step from ``t`` to its grid successor; draws nothing."""
+        return self.step_with_noise(model_output, t, x_t, None)
+
+    def step_with_noise(self, model_output: torch.Tensor, t: int, x_t: torch.Tensor,
+                        z: torch.Tensor | None) -> torch.Tensor:
+        x32 = x_t.float()
+        pred = model_output.float()
+        a_t = self.alphas_cumprod[t]
+        a_prev = self.next_abar[t]
+        x0, eps = _pred_x0_and_eps(pred, x32, a_t, self.prediction_type)
+        if self.clip_sample:
+            x0 = torch.clamp(x0, -self.clip_range, self.clip_range)
+            eps = (x32 - torch.sqrt(a_t) * x0) / torch.sqrt(1.0 - a_t)
+        sample = torch.sqrt(a_prev) * x0 + torch.sqrt(torch.clamp(1.0 - a_prev, min=0.0)) * eps
+        return sample.to(x_t.dtype)
+
+
+@dataclasses.dataclass
+class DPMSolverPPScheduler:
+    """DPM-Solver++ 2M (``solver_order=2``) or 3M: a deterministic multistep
+    ODE solver with lower-order warm-up and a first-order terminal step.
+
+    Every coefficient is a precomputed fp32 table indexed by the step, as in
+    the JAX package (whose docstring derives them):
+
+        x_{i+1} = c_x[i] x_i + c_d[i] x0_i + c2[i] (x0_i - x0_{i-1})
+                  + c3[i] (x0_{i-1} - x0_{i-2})
+
+    The caller carries the last two x0 predictions (``multistep`` is True)."""
+
+    betas: torch.Tensor
+    alphas_cumprod: torch.Tensor
+    c_x: torch.Tensor
+    c_d: torch.Tensor
+    c2: torch.Tensor
+    c3: torch.Tensor
+    grid: list[int]
+    num_train_timesteps: int = 1000
+    num_inference_steps: int = 20
+    prediction_type: str = "epsilon"
+    clip_sample: bool = True
+    clip_range: float = 1.0
+    multistep: bool = True
+    solver_order: int = 2
+    timestep_spacing: str = "leading"
+
+    @classmethod
+    def create(
+        cls,
+        num_train_timesteps: int = 1000,
+        schedule: str = "scaled_linear_beta",
+        beta_start: float = 0.0015,
+        beta_end: float = 0.0195,
+        num_inference_steps: int = 20,
+        prediction_type: str = "epsilon",
+        clip_sample: bool = True,
+        clip_range: float = 1.0,
+        solver_order: int = 2,
+        timestep_spacing: str = "leading",
+    ) -> "DPMSolverPPScheduler":
+        if not (1 <= num_inference_steps <= num_train_timesteps):
+            raise ValueError(f"num_inference_steps must be in [1, {num_train_timesteps}], "
+                             f"got {num_inference_steps}")
+        if solver_order not in (2, 3):
+            raise ValueError(f"solver_order must be 2 or 3, got {solver_order}")
+        betas = make_betas(num_train_timesteps, schedule, beta_start, beta_end)
+        a_bar = torch.cumprod(1.0 - betas, dim=0)
+        if timestep_spacing == "karras":
+            ts = [int(t) for t in karras_timestep_grid(num_train_timesteps, num_inference_steps,
+                                                       schedule, beta_start, beta_end)]
+        else:
+            ts = make_timestep_grid(num_train_timesteps, num_inference_steps, timestep_spacing)
+        # (alpha, sigma) at each visited state, then the terminal x0 state
+        a_grid = torch.cat([a_bar[torch.tensor(ts)], torch.ones((1,), dtype=torch.float32)])
+        alpha, sigma = torch.sqrt(a_grid), torch.sqrt(1.0 - a_grid)
+        c_x = sigma[1:] / torch.clamp(sigma[:-1], min=1e-12)
+        exp_neg_h = (sigma[1:] * alpha[:-1]) / torch.clamp(sigma[:-1] * alpha[1:], min=1e-12)
+        c_d = alpha[1:] * (1.0 - exp_neg_h)
+        lam = (torch.log(torch.clamp(alpha[:-1], min=1e-12))
+               - torch.log(torch.clamp(sigma[:-1], min=1e-12)))
+        h = lam[1:] - lam[:-1]  # h_i for i in [0, N-2]
+        n = num_inference_steps
+        c2 = torch.zeros((n,), dtype=torch.float32)
+        c3 = torch.zeros((n,), dtype=torch.float32)
+        if n > 2:
+            ratio = h[1:] / torch.clamp(h[:-1], min=1e-12)
+            c2[1:n - 1] = 0.5 * c_d[1:n - 1] * ratio
+        if solver_order == 3 and n > 3:
+            # steps i in [2, N-2]: the full 3M update (step 1 keeps its 2M c2)
+            i = torch.arange(2, n - 1)
+            h_i, h_p, h_pp = h[i], h[i - 1], h[i - 2]
+            r0 = h_p / torch.clamp(h_i, min=1e-12)
+            r1 = h_pp / torch.clamp(h_i, min=1e-12)
+            u, v = 1.0 / torch.clamp(r0, min=1e-12), 1.0 / torch.clamp(r1, min=1e-12)
+            w = r0 / torch.clamp(r0 + r1, min=1e-12)
+            phi1 = 1.0 - exp_neg_h[i]
+            a_next = alpha[i + 1]
+            p1 = a_next * (1.0 - phi1 / h_i)
+            p2 = a_next * (0.5 - (h_i - phi1) / (h_i * h_i))
+            c2[i] = p1 * (1.0 + w) * u + p2 * u / (r0 + r1)
+            c3[i] = -(p1 * w * v + p2 * v / (r0 + r1))
+        return cls(betas=betas, alphas_cumprod=a_bar, c_x=c_x, c_d=c_d, c2=c2, c3=c3, grid=ts,
+                   num_train_timesteps=num_train_timesteps,
+                   num_inference_steps=num_inference_steps, prediction_type=prediction_type,
+                   clip_sample=clip_sample, clip_range=clip_range, solver_order=solver_order,
+                   timestep_spacing=timestep_spacing)
+
+    @property
+    def timesteps(self) -> list[int]:
+        return self.grid
+
+    def add_noise(self, x0: torch.Tensor, noise: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        sqrt_a, sqrt_1ma = _noise_coeffs(self.alphas_cumprod, t, x0)
+        return sqrt_a * x0 + sqrt_1ma * noise
+
+    def step_multistep(self, model_output: torch.Tensor, i: int, t: int, x_t: torch.Tensor,
+                       x0_prev: torch.Tensor, x0_prev2: torch.Tensor | None = None
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+        """One 2M/3M update at step index ``i`` (timestep ``t``); returns
+        ``(x_next, x0_current)``, both in x_t's dtype."""
+        x32 = x_t.float()
+        pred = model_output.float()
+        x0, _ = _pred_x0_and_eps(pred, x32, self.alphas_cumprod[t], self.prediction_type)
+        if self.clip_sample:
+            x0 = torch.clamp(x0, -self.clip_range, self.clip_range)
+        x_next = self.c_x[i] * x32 + self.c_d[i] * x0 + self.c2[i] * (x0 - x0_prev.float())
+        if self.solver_order >= 3:
+            if x0_prev2 is None:
+                raise ValueError("solver_order=3 requires the x0_prev2 carry")
+            x_next = x_next + self.c3[i] * (x0_prev.float() - x0_prev2.float())
+        return x_next.to(x_t.dtype), x0.to(x_t.dtype)

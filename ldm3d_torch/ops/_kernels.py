@@ -21,11 +21,12 @@ import subprocess
 from pathlib import Path
 
 __all__ = ["BUILD_DIR", "CSRC_DIR", "SOURCES", "build_library", "build_libraries",
-           "flash_fwd_library", "flash_bwd_library", "groupnorm_library", "nvcc_path"]
+           "flash_fwd_library", "flash_bwd_library", "groupnorm_library", "conv3d_library",
+           "nvcc_path"]
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ldm3d_torch"
-SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "groupnorm_sums.cu")
+SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "groupnorm_sums.cu", "conv3d_igemm.cu")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -121,4 +122,13 @@ def groupnorm_library() -> ctypes.CDLL:
     lib.ldm3d_gn_bwd_sums.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _STRIDES,
                                       _I, _P]
     lib.ldm3d_gn_bwd_sums.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def conv3d_library() -> ctypes.CDLL:
+    """The implicit-GEMM 3x3x3 convolution library, built on first call."""
+    lib = ctypes.CDLL(str(build_library("conv3d_igemm.cu")))
+    lib.ldm3d_conv3d_igemm.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
+    lib.ldm3d_conv3d_igemm.restype = ctypes.c_int
     return lib

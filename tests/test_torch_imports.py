@@ -50,11 +50,16 @@ def test_port_imports_without_nvcc_gpu_or_triton(tmp_path):
     code = (
         "import sys\n"
         "import ldm3d_torch.ops.attention, ldm3d_torch.ops.groupnorm, ldm3d_torch.nn\n"
+        "import ldm3d_torch.ops.conv3d, ldm3d_torch.tools.conv_ab\n"
         "import ldm3d_torch.cli.inference, ldm3d_torch.cli.train_diffusion\n"
+        "import ldm3d_torch.serving.api_server, ldm3d_torch.serving.score\n"
+        "import ldm3d_torch.serving.health_check\n"
         "import ldm3d_torch.ops._kernels as k\n"
-        "bad = [m for m in ('jax', 'flax', 'triton', 'ldm3d_tpu') if m in sys.modules]\n"
+        "bad = [m for m in ('jax', 'flax', 'triton', 'ldm3d_tpu', 'psutil', 'fastapi')\n"
+        "       if m in sys.modules]\n"
         "assert not bad, bad\n"
-        "libs = (k.flash_fwd_library, k.flash_bwd_library, k.groupnorm_library)\n"
+        "libs = (k.flash_fwd_library, k.flash_bwd_library, k.groupnorm_library,\n"
+        "        k.conv3d_library)\n"
         "assert all(lib.cache_info().currsize == 0 for lib in libs)\n"
         "print('ok')\n"
     )

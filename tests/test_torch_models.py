@@ -30,6 +30,12 @@ from ldm3d_tpu.diffusion import DDIMScheduler as JaxDDIM
 
 ATOL = 1e-4
 
+# One intra-op thread in every test process that imports the port's tests:
+# the suite runs in several worker processes at once, and torch's default of
+# one thread per core in each of them oversubscribes the machine (the port's
+# training tests ran 8x slower in the parallel suite than alone).
+torch.set_num_threads(1)
+
 
 def jax_models(preset: str, seed: int = 0):
     """Flax AE + UNet of ``preset`` with initialised params; the UNet's
@@ -133,12 +139,16 @@ def test_ddim_tables_and_step_match_jax(spacing, steps, n_train):
 
 
 def test_ddim_rejects_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PortDDIM.create(eta=0.5)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PortDDIM.create(timestep_spacing="karras")
-    with pytest.raises(ValueError):
-        PortDDIM.create(num_train_timesteps=16, num_inference_steps=5, timestep_spacing="trailing")
+    """DDIM takes eta > 0 now; it rejects, as the JAX scheduler does, the
+    karras spacing (a grid, for GridDDIM) and a trailing grid that does not
+    divide the schedule."""
+    sched = PortDDIM.create(eta=0.5)
+    assert sched.eta == 0.5 and JaxDDIM.create(eta=0.5).eta == 0.5
+    for cls in (PortDDIM, JaxDDIM):
+        with pytest.raises(ValueError, match="karras"):
+            cls.create(timestep_spacing="karras")
+        with pytest.raises(ValueError, match="trailing"):
+            cls.create(num_train_timesteps=16, num_inference_steps=5, timestep_spacing="trailing")
 
 
 def test_unet_mid_depth_names_the_roadmap_item():

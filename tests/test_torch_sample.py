@@ -92,7 +92,8 @@ def test_cli_matches_jax_pipeline(tiny, tmp_path):
     env = _env(tmp_path, tmp_path / "ckpt")
     timings = {}
     written = port_inference(["-c", port_preset_path("config_tiny_cpu.json"), "-e", env,
-                              "--steps", "2", "--device", "cpu"], timings=timings)
+                              "--sampler", "ddim", "--steps", "2", "--device", "cpu"],
+                             timings=timings)
     assert len(written) == 1 and written[0].endswith(".nii.gz")
     vol, _ = read_nifti(written[0])
     assert vol.shape == (32, 32, 32) and np.isfinite(vol).all()
@@ -138,9 +139,51 @@ def test_cli_needs_cuda_unless_cpu_is_asked_for(tiny, tmp_path):
 
 @pytest.mark.parametrize("sampler", ["ddpm", "dpm", "dpm3"])
 def test_cli_unported_samplers_name_the_roadmap(sampler, tiny, tmp_path):
+    """Every sampler runs now; the options still unported (the distilled
+    student, the one-program fused decode) raise naming their ROADMAP item."""
     _, _, _, _, _, tae, tunet = tiny
     save_two_stage(str(tmp_path / "ckpt"), tae, tunet, 1.0)
     env = _env(tmp_path, tmp_path / "ckpt")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_inference(["-c", port_preset_path("config_tiny_cpu.json"), "-e", env,
-                        "--sampler", sampler, "--device", "cpu"])
+    for flag in ("--use-distilled", "--fused-decode"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            port_inference(["-c", port_preset_path("config_tiny_cpu.json"), "-e", env,
+                            "--sampler", sampler, flag, "--device", "cpu"])
+
+
+def _cli_volume(env, *extra):
+    written = port_inference(["-c", port_preset_path("config_tiny_cpu.json"), "-e", env,
+                              "--steps", "4", "--device", "cpu", *extra])
+    return np.stack([read_nifti(p)[0] for p in written])
+
+
+def test_cli_default_sampler_is_ddpm(tiny, tmp_path):
+    """As in the JAX CLI, --sampler defaults to ddpm: the same seed gives the
+    explicit ddpm volume, not the ddim one."""
+    _, _, _, _, _, tae, tunet = tiny
+    save_two_stage(str(tmp_path / "ckpt"), tae, tunet, SCALE_FACTOR)
+    env = _env(tmp_path, tmp_path / "ckpt")
+    default = _cli_volume(env)
+    np.testing.assert_array_equal(default, _cli_volume(env, "--sampler", "ddpm"))
+    assert np.abs(default - _cli_volume(env, "--sampler", "ddim")).max() > 1e-3
+
+
+def test_cli_use_ema_and_decode_chunk(tiny, tmp_path):
+    """--use-ema samples with the 'ema' UNet role (and raises without one);
+    --decode-chunk 1 decodes a batch of 2 a volume at a time, to the same
+    volumes up to fp32 summation order (the CPU's convolutions pick their
+    algorithm by batch size)."""
+    from ldm3d_torch.ckpt import CheckpointManager
+
+    _, _, _, _, _, tae, tunet = tiny
+    model_dir = tmp_path / "ckpt"
+    save_two_stage(str(model_dir), tae, tunet, SCALE_FACTOR)
+    env = _env(tmp_path, model_dir)
+    base = ("--sampler", "dpm", "--batch", "2")
+    whole = _cli_volume(env, *base)
+    np.testing.assert_allclose(_cli_volume(env, *base, "--decode-chunk", "1"), whole,
+                               atol=1e-5, rtol=0)
+    with pytest.raises(FileNotFoundError, match="ema"):
+        _cli_volume(env, *base, "--use-ema")
+    ema = {k: v * 0.9 if k.endswith("weight") else v for k, v in tunet.state_dict().items()}
+    CheckpointManager(str(model_dir), "diffusion").save("ema", {"state_dict": ema})
+    assert np.abs(_cli_volume(env, *base, "--use-ema") - whole).max() > 1e-3
