@@ -8,12 +8,16 @@ printing JSON lines:
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: compile the CUDA kernels from ``ldm3d_torch/csrc`` (one nvcc per
-   source, all at once, sm_90a);
+   source, all at once, sm_90a); ``ptxas``'s registers, shared memory and
+   spills for each kernel instantiation; fails if a bf16 instantiation of
+   the attention forward spills;
 3. kernel: the flash-attention forward kernel against its plain PyTorch
    version on the card, at the attention shapes of the flagship model
-   (``config_train_32g.json``) at 80^3 and 96^3, in bf16 and fp32, and at
-   its training shapes (batch 20) in bf16, on strided views of a fused qkv
-   as the attention block gives them;
+   (``config_train_32g.json``) at 80^3 and 96^3, in bf16 (the tensor-core
+   route) and fp32 (the scalar route), at its training shapes (batch 20) in
+   bf16, and at the edge shapes of the ``cuda`` tests in bf16 (every head
+   width instantiation, ragged token counts, kv_len != n), on strided views
+   of fused projections as the attention block gives them;
 4. kernel_bwd: the flash-attention backward kernels (dQ, dK/dV) against
    their plain versions, at the training shapes, a ragged case and a d = 256
    case, bf16 and fp32; ``library_ms`` is the backward of
@@ -116,6 +120,13 @@ SHAPES = MAIN_SHAPES + [(1, 1728, 8, 64), (1, 216, 16, 64), (1, 13824, 1, 256),
 # launches of each MAIN_SHAPES entry in one flagship sample (batch 1, DDIM-50):
 # 5 UNet level-1 and 6 level-2 attentions per step, 2 in the encoder, 2 in the decoder
 LAUNCHES_PER_SAMPLE = {MAIN_SHAPES[0]: 250, MAIN_SHAPES[1]: 300, MAIN_SHAPES[2]: 4}
+# (B, n, h, d[, kv_len]): the edge cases of the ``cuda`` tests, bf16 only:
+# head widths of each instantiation (d <= 64, 128, 256; d not a multiple of
+# 16), token counts off the 128-row query and 64-key kv tiles, kv_len != n
+EDGE_SHAPES = [(2, 63, 3, 8), (1, 1, 2, 64), (3, 129, 2, 72), (2, 65, 2, 136),
+               (1, 63, 1, 256, 65), (1, 1, 1, 256, 8000), (2, 100, 4, 64, 37)]
+# the attention forward's route for each dtype (csrc/flash_fwd.cu)
+FWD_ROUTES = {"bf16": "mma.sync tensor cores", "fp32": "scalar fp32"}
 DDIM_STEPS = 50
 
 # Training main path: the config's batch 20 at its 80^3 patch; 90 synthetic
@@ -218,9 +229,9 @@ def bound_of(flops: float, nbytes: float, dtype: str) -> tuple[float, str]:
 
 def bound(shape, dtype: str, itemsize: int) -> tuple[float, str]:
     """Flash forward: 4 n kv d flops per head; q, k, v, O once and the LSE."""
-    b, n, h, d = shape
-    return bound_of(4.0 * b * h * n * n * d,
-                    4.0 * b * n * h * d * itemsize + 4.0 * b * h * n, dtype)
+    b, n, h, d, kv = (*shape, shape[1])[:5]
+    return bound_of(4.0 * b * h * n * kv * d,
+                    (2.0 * n + 2.0 * kv) * b * h * d * itemsize + 4.0 * b * h * n, dtype)
 
 
 def bound_bwd(shape, dtype: str, itemsize: int, kind: str) -> tuple[float, str]:
@@ -254,17 +265,30 @@ def phase_build() -> None:
     _kernels.conv3d_library()
     ptxas = {}
     for path in paths:
-        log = path.with_suffix(".log").read_text() if path.with_suffix(".log").exists() else ""
-        ptxas[path.name] = [ln.strip() for ln in log.splitlines()
-                            if "registers" in ln or "spill" in ln]
+        log = path.with_suffix(".log")
+        ptxas[path.name] = _kernels.ptxas_report(log.read_text() if log.exists() else "")
+    fwd = next(report for name, report in ptxas.items() if name.startswith("libflash_fwd-"))
+    bf16 = {name: r for name, r in fwd.items() if name.startswith("flash_fwd_bf16_mma_kernel<")}
+    check(len(bf16) == 3, f"expected three bf16 attention-forward instantiations, ptxas "
+                          f"reports {sorted(fwd)}")
+    spilled = {name: r for name, r in bf16.items()
+               if r.get("spill_stores", 1) or r.get("spill_loads", 1)}
+    check(not spilled, f"bf16 attention-forward instantiations spill: {spilled}")
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
           "libraries": [str(p.relative_to(ROOT)) for p in paths], "ptxas": ptxas})
 
 
 def _fused_qkv(torch, shape, dt, gen):
-    b, n, h, d = shape
-    qkv = torch.randn((b, n, 3 * h * d), generator=gen, device="cuda").to(dt)
-    return qkv, tuple(t.unflatten(-1, (h, d)) for t in qkv.chunk(3, dim=-1))
+    """q, k, v as views of one fused (b, n, 3hd) qkv, or for a (b, n, h, d,
+    kv_len) shape a (b, n, hd) q and views of a fused (b, kv_len, 2hd) kv;
+    returns the fused tensor and the views."""
+    b, n, h, d = shape[:4]
+    if len(shape) == 4:
+        qkv = torch.randn((b, n, 3 * h * d), generator=gen, device="cuda").to(dt)
+        return qkv, tuple(t.unflatten(-1, (h, d)) for t in qkv.chunk(3, dim=-1))
+    q = torch.randn((b, n, h * d), generator=gen, device="cuda").to(dt)
+    kv = torch.randn((b, shape[4], 2 * h * d), generator=gen, device="cuda").to(dt)
+    return kv, (q.unflatten(-1, (h, d)), *(t.unflatten(-1, (h, d)) for t in kv.chunk(2, dim=-1)))
 
 
 def phase_kernel(torch, F) -> dict:
@@ -276,11 +300,11 @@ def phase_kernel(torch, F) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = {}
-    cases = ([("bfloat16", s) for s in SHAPES + TRAIN_SHAPES]
+    cases = ([("bfloat16", s) for s in SHAPES + TRAIN_SHAPES + EDGE_SHAPES]
              + [("float32", s) for s in SHAPES])
     for dtype, shape in cases:
         dt = getattr(torch, dtype)
-        b, n, h, d = shape
+        b, n, h, d = shape[:4]
         qkv, (q, k, v) = _fused_qkv(torch, shape, dt, gen)
         out, lse = flash_attention_fwd(q, k, v)
         torch.cuda.synchronize()
@@ -294,7 +318,7 @@ def phase_kernel(torch, F) -> dict:
         check(math.isfinite(lse_err) and lse_err <= TOL_FP32,
               f"kernel LSE differs from plain by {lse_err} at {shape} {dtype}")
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        loop = loop_size(4.0 * b * h * n * n * d)
+        loop = loop_size(4.0 * b * h * n * k.shape[1] * d)
         row = {
             "kernel_ms": cuda_ms(torch, lambda: flash_attention_fwd(q, k, v), **loop),
             "kernel_host_ms": host_ms(torch, lambda: flash_attention_fwd(q, k, v)),
@@ -305,8 +329,10 @@ def phase_kernel(torch, F) -> dict:
         }
         row["bound_ms"], row["bound_by"] = bound(shape, dtype, qkv.element_size())
         results[(shape, dtype)] = row
-        emit({"phase": "kernel", "kernel": "flash_fwd", "shape_bnhd": list(shape),
-              "dtype": dtype, **row, "out_tol": tol, "lse_tol": TOL_FP32})
+        emit({"phase": "kernel", "kernel": "flash_fwd", "shape_bnhd": list(shape[:4]),
+              "kv_len": k.shape[1], "dtype": dtype,
+              "route": FWD_ROUTES["bf16" if dtype == "bfloat16" else "fp32"], **row,
+              "out_tol": tol, "lse_tol": TOL_FP32})
         del qkv, q, k, v, out, lse
     torch.cuda.empty_cache()
     return results
@@ -656,7 +682,7 @@ OP_CATEGORIES = (
 # Any other kernel (the port's own kernels, launched through ctypes outside
 # any aten op, among them) by its name; first match wins.
 KERNEL_CATEGORIES = (
-    ("attention forward (flash_fwd)", ("flash_fwd_kernel",)),
+    ("attention forward (flash_fwd)", ("flash_fwd_",)),
     ("attention backward (flash_bwd)", ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")),
     ("GroupNorm sums (groupnorm_sums)", ("partial_sums", "combine(")),
     ("convolution", ("fprop", "dgrad", "wgrad", "conv", "winograd", "implicit")),
@@ -1253,6 +1279,7 @@ def _kernel_summary(fwd: dict, bwd: dict, gn: dict, sample_launches: dict,
                        "run (checks and timing loops at every shape and dtype)"}
     rows = [
         {"name": "flash_fwd", "route": "cuda", "source": "ldm3d_torch/csrc/flash_fwd.cu",
+         "routes": FWD_ROUTES,
          "replaces": "ldm3d_tpu/ops/attention.py:49 and ldm3d_tpu/ops/attention.py:83",
          "launches": sample_launches["flash_fwd"],
          "max_abs_err": max(r["max_abs_err"] for r in fwd.values()),

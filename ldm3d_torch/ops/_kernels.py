@@ -4,7 +4,8 @@ Each source under ``ldm3d_torch/csrc`` has a plain C interface. It is compiled
 with ``nvcc`` for ``sm_90a`` into a shared library under ``build/ldm3d_torch/``
 at the root of the checkout, at first use, and loaded with ``ctypes``. The
 library's file name carries a hash of the source, so an edited source is
-rebuilt and a stale library is never loaded. :func:`build_libraries` starts
+rebuilt and a stale library is never loaded; the hash also covers every
+header (``csrc/*.cuh``), which any source may include. :func:`build_libraries` starts
 one ``nvcc`` per source, all at once. Nothing here runs at import time: a
 machine without ``nvcc`` or a GPU imports the port and uses the kernels'
 plain PyTorch versions on CPU tensors.
@@ -16,13 +17,14 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
 
 __all__ = ["BUILD_DIR", "CSRC_DIR", "SOURCES", "build_library", "build_libraries",
            "flash_fwd_library", "flash_bwd_library", "groupnorm_library", "conv3d_library",
-           "nvcc_path"]
+           "nvcc_path", "ptxas_report"]
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ldm3d_torch"
@@ -46,9 +48,14 @@ def nvcc_path() -> str:
 
 
 def _library_path(source: str) -> Path:
+    """The library of ``csrc/<source>``, named by a hash of the source and of
+    every header under ``csrc/``."""
     src = CSRC_DIR / source
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{src.stem}-{digest}.so"
+    digest = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.name.encode())
+        digest.update(header.read_bytes())
+    return BUILD_DIR / f"lib{src.stem}-{digest.hexdigest()[:16]}.so"
 
 
 def build_libraries(sources) -> list[Path]:
@@ -78,6 +85,65 @@ def build_libraries(sources) -> list[Path]:
     if failures:
         raise RuntimeError("\n".join(failures))
     return outs
+
+
+_BUILTIN_TYPES = {"b": "bool", "c": "char", "d": "double", "f": "float", "h": "unsigned char",
+                  "i": "int", "j": "unsigned int", "l": "long", "m": "unsigned long",
+                  "s": "short", "x": "long long", "y": "unsigned long long"}
+_LENGTH = re.compile(r"\d+")
+_LITERAL = re.compile(r"L[a-z](n?)(\d+)E")
+
+
+def _kernel_name(mangled: str) -> str:
+    """``name<arg, ...>`` from the Itanium-mangled name of a kernel in a
+    namespace, templated on integers and on named or builtin types; any other
+    name as it is."""
+    if not mangled.startswith("_ZN"):
+        return mangled
+    parts, i = [], 3
+    while m := _LENGTH.match(mangled, i):
+        i = m.end() + int(m.group())
+        parts.append(mangled[m.end():i])
+    if not parts or not mangled.startswith("I", i):
+        return parts[-1] if parts else mangled
+    args, i = [], i + 1
+    while i < len(mangled) and mangled[i] != "E":
+        if m := _LITERAL.match(mangled, i):
+            args.append(("-" if m.group(1) else "") + m.group(2))
+            i = m.end()
+        elif m := _LENGTH.match(mangled, i):
+            i = m.end() + int(m.group())
+            args.append(mangled[m.end():i])
+        elif mangled[i] in _BUILTIN_TYPES:
+            args.append(_BUILTIN_TYPES[mangled[i]])
+            i += 1
+        else:
+            return mangled
+    return f"{parts[-1]}<{', '.join(args)}>"
+
+
+def ptxas_report(log: str) -> dict:
+    """Each kernel's registers, shared memory and spills from ``nvcc -Xptxas
+    -v`` output: ``{name<ints>: {"registers", "smem_bytes", "stack_bytes",
+    "spill_stores", "spill_loads"}}`` (dynamic shared memory is not in it)."""
+    report: dict[str, dict] = {}
+    entry = props = None
+    for line in log.splitlines():
+        if m := re.search(r"Compiling entry function '([^']+)'", line):
+            entry = _kernel_name(m.group(1))
+            report.setdefault(entry, {})
+        elif m := re.search(r"Function properties for (\S+)", line):
+            props = _kernel_name(m.group(1))
+        elif m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                            r"(\d+) bytes spill loads", line):
+            if props in report:
+                report[props].update(stack_bytes=int(m.group(1)), spill_stores=int(m.group(2)),
+                                     spill_loads=int(m.group(3)))
+        elif (m := re.search(r"Used (\d+) registers", line)) and entry is not None:
+            smem = re.search(r"(\d+) bytes smem", line)
+            report[entry].update(registers=int(m.group(1)),
+                                 smem_bytes=int(smem.group(1)) if smem else 0)
+    return report
 
 
 def build_library(source: str) -> Path:

@@ -18,16 +18,20 @@ Any other device raises. There is no switch between the two. Each wrapper
 counts its kernel launches in ``<wrapper>.launches``.
 
 Kernel notes. ``flash_fwd.cu`` replaces the TPU's ``_flash_kernel_mono`` and
-``_flash_kernel`` (``ldm3d_tpu/ops/attention.py:49`` and ``:83``) with one
-kernel; ``flash_bwd.cu`` replaces ``_flash_dq_kernel`` (``:122``) and
+``_flash_kernel`` (``ldm3d_tpu/ops/attention.py:49`` and ``:83``);
+``flash_bwd.cu`` replaces ``_flash_dq_kernel`` (``:122``) and
 ``_flash_dkv_kernel`` (``:150``). At the shapes that carry the models'
 attention time the work (4, 6 and 8 n·kv·d flops) is compute-bound on the
-H100; the kernels are scalar-fp32 FMA designs that stream tiles through
-shared memory with fp32 accumulators in registers, exact to fp32 summation
-order, and far from the bf16 tensor-core bound (see the sources' headers and
-``PERF.md``). The TPU path's ``_pad_heads`` lane padding has no counterpart:
-the kernels take any head_dim that is a multiple of 8 up to 256 at the true
-1/sqrt(d) scale, and any token count.
+H100. The forward takes one route per dtype: bf16 runs a FlashAttention-2
+kernel on the tensor cores (``mma.sync``, fp32 accumulators; P is rounded to
+bf16 before P·V), fp32 a scalar-fp32 FMA kernel (tensor cores would mean
+TF32). The backward kernels are scalar-fp32 FMA in both dtypes. See the
+sources' headers and ``PERF.md``. The TPU path's ``_pad_heads`` lane padding
+has no counterpart: the kernels take any head_dim that is a multiple of 8 up
+to 256 at the true 1/sqrt(d) scale, and any token count. The bf16 forward
+copies rows in 16-byte pieces, so its q, k and v must start on 16 bytes and
+have strides of whole 16 bytes: views of a fused qkv with such a head_dim
+do; anything else raises (:func:`check_16_byte_rows`), and nothing is copied.
 """
 
 from __future__ import annotations
@@ -39,7 +43,7 @@ import torch
 
 __all__ = ["FlashAttention", "attention_reference", "attention_bwd_reference",
            "attention_bwd_dq_reference", "attention_bwd_dkv_reference", "attention_bwd_dvec",
-           "flash_attention_fwd",
+           "check_16_byte_rows", "flash_attention_fwd",
            "flash_attention_bwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
            "volumetric_attention"]
 
@@ -74,8 +78,24 @@ def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"q, k, v devices differ: {q.device}, {k.device}, {v.device}")
 
 
+def check_16_byte_rows(name: str, t: torch.Tensor) -> None:
+    """Raise ``ValueError`` naming ``t`` unless its data pointer, and the
+    stride in bytes of each of its (batch, tokens, heads) dims longer than
+    one, are multiples of 16: the bf16 forward kernel copies head_dim rows to
+    shared memory in 16-byte pieces (``cp.async``)."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must start on a 16-byte boundary for the bf16 flash kernel; "
+                         f"its data pointer is {t.data_ptr() % 16} bytes past one")
+    for dim, (size, stride) in enumerate(zip(t.shape[:3], t.stride()[:3])):
+        if size > 1 and (stride * t.element_size()) % 16:
+            raise ValueError(f"{name} must have strides of whole 16 bytes for the bf16 flash "
+                             f"kernel; dim {dim} has {stride * t.element_size()} bytes "
+                             f"(strides {t.stride()})")
+
+
 def _flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
-    """Launch ``csrc/flash_fwd.cu`` on the current stream."""
+    """Launch ``csrc/flash_fwd.cu`` on the current stream: the tensor-core
+    kernel for bf16, the scalar one for fp32."""
     from ldm3d_torch.ops._kernels import flash_fwd_library
 
     b, n, h, d = q.shape
@@ -89,6 +109,8 @@ def _flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(-1) != 1:
             raise ValueError(f"{name} must have unit stride on head_dim, got strides {t.stride()}")
+        if q.dtype == torch.bfloat16:
+            check_16_byte_rows(name, t)
     out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b * h, n), dtype=torch.float32, device=q.device)
     strides = (ctypes.c_int64 * 9)(q.stride(0), q.stride(1), q.stride(2),

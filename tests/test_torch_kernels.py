@@ -6,8 +6,10 @@ version (``python -m pytest --noconftest -m cuda tests/test_torch_kernels.py``;
 the repo's ``conftest.py`` imports JAX). Tolerances on the card: the kernel
 and the plain version both compute in fp32 from the same inputs, so the fp32
 O and the LSE of either dtype agree to 1e-4 (summation order only); a bf16 O
-is that result rounded once, so it may differ by one bf16 ulp of an element,
-at most 2^-7 of the largest |O|.
+may differ by one bf16 ulp of an element, at most 2^-7 of the largest |O|:
+the plain version rounds its fp32 result once, and the bf16 tensor-core
+kernel also rounds P to bf16 before P·V (about 2^-9 of |O|; the rounding is
+emulated on the CPU in ``tests/test_torch_attention.py``).
 """
 
 import numpy as np
@@ -63,26 +65,199 @@ def test_non_cpu_non_cuda_device_raises():
         tattn.flash_attention_fwd(q, q, q)
 
 
+def _attn_views(b, n, h, d, kv_len, dtype, gen):
+    """q, k, v as strided views of fused projections, as the attention block
+    gives them: one (b, n, 3hd) qkv, or with kv_len a (b, n, hd) q beside a
+    fused (b, kv_len, 2hd) kv."""
+    if kv_len is None:
+        qkv = torch.randn((b, n, 3 * h * d), generator=gen, device="cuda").to(dtype)
+        return tuple(t.unflatten(-1, (h, d)) for t in qkv.chunk(3, dim=-1))
+    q = torch.randn((b, n, h * d), generator=gen, device="cuda").to(dtype).unflatten(-1, (h, d))
+    kv = torch.randn((b, kv_len, 2 * h * d), generator=gen, device="cuda").to(dtype)
+    return (q, *(t.unflatten(-1, (h, d)) for t in kv.chunk(2, dim=-1)))
+
+
+# (b, n, h, d, kv_len or None for a fused qkv): every bf16 instantiation
+# (d <= 64, <= 128, <= 256), d not a multiple of 16, token counts that are
+# not multiples of the 128-row query tile or the 64-key kv tile, and
+# batch x heads > 1
+CARD_CASES = [
+    (2, 125, 3, 40, None),
+    (2, 63, 3, 8, None),
+    (1, 1, 2, 64, None),
+    (3, 129, 2, 72, None),
+    (2, 65, 2, 136, None),
+    (1, 63, 1, 256, 65),
+    (1, 1, 1, 256, 8000),
+    (2, 100, 4, 64, 37),
+    (2, 8000, 1, 256, None),
+    (1, 1000, 8, 64, None),
+]
+
+
+@pytest.mark.parametrize("case", ["aligned", "offset", "pitch", "size_one_dim"])
+def test_16_byte_rows_check_names_the_tensor(case):
+    """The bf16 kernel's copy rule, checked on CPU tensors (the check reads
+    only pointers and strides): a fused-qkv view with d a multiple of 8
+    passes; a view 2 bytes off, or with a token stride of 776 bytes, raises
+    naming the tensor; the stride of a dim of size one is never used."""
+    h, d = 2, 64
+    if case == "offset":
+        base = torch.zeros((1, 5, 3 * h * d + 1), dtype=torch.bfloat16)[..., 1:]
+    elif case == "pitch":
+        base = torch.zeros((2, 5, 3 * h * d + 4), dtype=torch.bfloat16)[..., :3 * h * d]
+    else:
+        base = torch.zeros((2, 5, 3 * h * d), dtype=torch.bfloat16)
+    k = base.chunk(3, dim=-1)[1].unflatten(-1, (h, d))
+    if case == "size_one_dim":
+        k = torch.as_strided(k, (1, 5, h, d), (7, 3 * h * d, d, 1), k.storage_offset())
+    if case in ("offset", "pitch"):
+        with pytest.raises(ValueError, match="^k must"):
+            tattn.check_16_byte_rows("k", k)
+    else:
+        tattn.check_16_byte_rows("k", k)
+
+
+def test_library_path_changes_with_a_header(tmp_path, monkeypatch):
+    """A source's library is named by a hash of the source and of every
+    ``csrc/*.cuh``: an edited header gives a new library, never a stale one."""
+    from ldm3d_torch.ops import _kernels
+
+    monkeypatch.setattr(_kernels, "CSRC_DIR", tmp_path)
+    (tmp_path / "k.cu").write_text('#include "blocks.cuh"\n')
+    (tmp_path / "blocks.cuh").write_text("// v1\n")
+    first = _kernels._library_path("k.cu")
+    assert first == _kernels._library_path("k.cu")
+    assert first.name.startswith("libk-") and first.parent == _kernels.BUILD_DIR
+    (tmp_path / "blocks.cuh").write_text("// v2\n")
+    second = _kernels._library_path("k.cu")
+    assert second != first
+    (tmp_path / "other.cuh").write_text("// new header\n")
+    assert _kernels._library_path("k.cu") not in (first, second)
+
+
+PTXAS_LOG = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_125flash_fwd_bf16_mma_kernelILi256ELi32EEEvPK13__nv_bfloat16S3_S3_PS1_Pfiiiillllllllllf' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_125flash_fwd_bf16_mma_kernelILi256ELi32EEEvPK13__nv_bfloat16S3_S3_PS1_Pfiiiillllllllllf
+    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers, 488 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_121flash_fwd_fp32_kernelILi64EEEvPKfS2_S2_PfS3_iiiillllllllllf' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_121flash_fwd_fp32_kernelILi64EEEvPKfS2_S2_PfS3_iiiillllllllllf
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 80 registers, used 1 barriers, 2048 bytes smem, 488 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_120flash_bwd_dkv_kernelI13__nv_bfloat16Li64EEEvPKT_S4_S4_S4_PKfS6_PS2_S7_iiiiilllllllllllf' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_120flash_bwd_dkv_kernelI13__nv_bfloat16Li64EEEvPKT_S4_S4_S4_PKfS6_PS2_S7_iiiiilllllllllllf
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 125 registers, used 1 barriers, 488 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_120flash_bwd_dkv_kernelIfLi64EEEvPKT_S2_S2_S2_PKfS4_PS0_S5_iiiiilllllllllllf' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_120flash_bwd_dkv_kernelIfLi64EEEvPKT_S2_S2_S2_PKfS4_PS0_S5_iiiiilllllllllllf
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 127 registers, used 1 barriers, 488 bytes cmem[0]
+ptxas info    : Compiling entry function 'ldm3d_plain_c' for 'sm_90a'
+ptxas info    : Function properties for ldm3d_plain_c
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 32 registers, used 1 barriers, 400 bytes cmem[0]
+"""
+
+
+def test_ptxas_report_names_each_instantiation():
+    from ldm3d_torch.ops._kernels import ptxas_report
+
+    report = ptxas_report(PTXAS_LOG)
+    assert report == {
+        "flash_fwd_bf16_mma_kernel<256, 32>": {"registers": 255, "smem_bytes": 0,
+                                               "stack_bytes": 0, "spill_stores": 8,
+                                               "spill_loads": 4},
+        "flash_fwd_fp32_kernel<64>": {"registers": 80, "smem_bytes": 2048, "stack_bytes": 0,
+                                      "spill_stores": 0, "spill_loads": 0},
+        "flash_bwd_dkv_kernel<__nv_bfloat16, 64>": {"registers": 125, "smem_bytes": 0,
+                                                    "stack_bytes": 0, "spill_stores": 0,
+                                                    "spill_loads": 0},
+        "flash_bwd_dkv_kernel<float, 64>": {"registers": 127, "smem_bytes": 0, "stack_bytes": 0,
+                                            "spill_stores": 0, "spill_loads": 0},
+        "ldm3d_plain_c": {"registers": 32, "smem_bytes": 0, "stack_bytes": 0,
+                          "spill_stores": 0, "spill_loads": 0},
+    }
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", CARD_CASES, ids=lambda c: "x".join(map(str, c[:4])) + (
+    "" if c[4] is None else f"-kv{c[4]}"))
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_kernel_matches_plain_on_card(dtype):
-    """The CUDA kernel against its plain version on the card, on strided
-    views of a fused qkv as the attention block gives them (ragged n, d 40)."""
+def test_kernel_matches_plain_on_card(dtype, case):
+    """The CUDA kernel of each dtype's route against its plain version on the
+    card, on strided views of fused projections."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
     dt = getattr(torch, dtype)
-    b, n, h, d = 2, 125, 3, 40
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    qkv = torch.randn((b, n, 3 * h * d), generator=gen, device="cuda").to(dt)
-    q, k, v = (t.unflatten(-1, (h, d)) for t in qkv.chunk(3, dim=-1))
+    b, n, h, d, kv_len = case
+    gen = torch.Generator(device="cuda").manual_seed(sum(case[:4]))
+    q, k, v = _attn_views(b, n, h, d, kv_len, dt, gen)
+    before = tattn.flash_attention_fwd.launches
     out, lse = tattn.flash_attention_fwd(q, k, v)
     torch.cuda.synchronize()
+    assert tattn.flash_attention_fwd.launches == before + 1
+    assert out.shape == (b, n, h, d) and out.dtype == dt and lse.shape == (b * h, n)
     ref, ref_lse = tattn.attention_reference(q, k, v)
     ref_max = ref.float().abs().max().item()
     tol = 1e-4 if dt == torch.float32 else 2.0**-7 * ref_max
     assert (out.float() - ref.float()).abs().max().item() <= tol
     assert (lse - ref_lse).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_bf16_kernel_raises_on_misaligned_views_and_fp32_takes_them():
+    """The bf16 route copies rows in 16-byte pieces: a view that starts off
+    16 bytes, or whose token stride is not whole 16 bytes, raises naming the
+    tensor, without a launch and without a copy. The fp32 route reads element
+    by element and takes the same views."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    b, n, h, d = 1, 70, 2, 64
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    for dtype in (torch.bfloat16, torch.float32):
+        off = torch.randn((b, n, 3 * h * d + 1), generator=gen, device="cuda").to(dtype)[..., 1:]
+        pitch = torch.randn((b, n, 3 * h * d + 4), generator=gen, device="cuda").to(dtype)
+        for base in (off, pitch[..., :3 * h * d]):
+            q, k, v = (t.unflatten(-1, (h, d)) for t in base.chunk(3, dim=-1))
+            before = tattn.flash_attention_fwd.launches
+            if dtype == torch.bfloat16:
+                with pytest.raises(ValueError, match="^q must"):
+                    tattn.flash_attention_fwd(q, k, v)
+                assert tattn.flash_attention_fwd.launches == before
+            else:
+                out, lse = tattn.flash_attention_fwd(q, k, v)
+                torch.cuda.synchronize()
+                ref, ref_lse = tattn.attention_reference(q, k, v)
+                assert (out - ref).abs().max().item() <= 1e-4
+                assert (lse - ref_lse).abs().max().item() <= 1e-4
+                assert tattn.flash_attention_fwd.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_kernel_routes_by_dtype_on_card():
+    """bf16 runs the tensor-core kernel and fp32 the scalar one, by the
+    kernels' names in the profiler's trace."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    names = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = _attn_views(1, 200, 2, 64, None, dtype, gen)
+        tattn.flash_attention_fwd(q, k, v)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            tattn.flash_attention_fwd(q, k, v)
+            torch.cuda.synchronize()
+        names[dtype] = {ev.key for ev in prof.key_averages() if "flash_fwd" in ev.key}
+    assert any("flash_fwd_bf16_mma_kernel" in name for name in names[torch.bfloat16])
+    assert not any("fp32" in name for name in names[torch.bfloat16])
+    assert any("flash_fwd_fp32_kernel" in name for name in names[torch.float32])
+    assert not any("mma" in name for name in names[torch.float32])
 
 
 @pytest.mark.cuda
