@@ -9,8 +9,9 @@ printing JSON lines:
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: compile the CUDA kernels from ``ldm3d_torch/csrc`` (one nvcc per
    source, all at once, sm_90a); ``ptxas``'s registers, shared memory and
-   spills for each kernel instantiation; fails if a bf16 instantiation of
-   the attention forward spills;
+   spills for each kernel instantiation; fails if a bf16 (tensor-core)
+   instantiation of the attention forward or of either backward kernel
+   spills;
 3. kernel: the flash-attention forward kernel against its plain PyTorch
    version on the card, at the attention shapes of the flagship model
    (``config_train_32g.json``) at 80^3 and 96^3, in bf16 (the tensor-core
@@ -20,8 +21,12 @@ printing JSON lines:
    of fused projections as the attention block gives them;
 4. kernel_bwd: the flash-attention backward kernels (dQ, dK/dV) against
    their plain versions, at the training shapes, a ragged case and a d = 256
-   case, bf16 and fp32; ``library_ms`` is the backward of
-   ``scaled_dot_product_attention`` (its forward + backward less its forward);
+   case, bf16 (the tensor-core route) and fp32 (the scalar route), and at
+   the edge shapes of the ``cuda`` tests in bf16 (every head width
+   instantiation, ragged token counts, kv_len != n, the training shapes at
+   batch 2); each row carries its route and its largest error over its
+   limit; ``library_ms`` is the backward of ``scaled_dot_product_attention``
+   (its forward + backward less its forward);
 5. main path, sampling: conditional DDIM-50 sampling of the full-width
    ``config_train_32g.json`` models (random weights from a seed) through
    ``ldm3d_torch.cli.inference.main`` with ``--amp``, one 80^3 volume; the
@@ -127,6 +132,8 @@ EDGE_SHAPES = [(2, 63, 3, 8), (1, 1, 2, 64), (3, 129, 2, 72), (2, 65, 2, 136),
                (1, 63, 1, 256, 65), (1, 1, 1, 256, 8000), (2, 100, 4, 64, 37)]
 # the attention forward's route for each dtype (csrc/flash_fwd.cu)
 FWD_ROUTES = {"bf16": "mma.sync tensor cores", "fp32": "scalar fp32"}
+# the attention backward's (csrc/flash_bwd.cu), both kernels
+BWD_ROUTES = {"bf16": "mma.sync tensor cores, P/dS hi-lo split", "fp32": "scalar fp32"}
 DDIM_STEPS = 50
 
 # Training main path: the config's batch 20 at its 80^3 patch; 90 synthetic
@@ -141,6 +148,16 @@ TRAIN_SHAPES = [(20, 1000, 8, 64), (20, 125, 16, 64), (20, 8000, 1, 256)]
 TRAIN_FWD_PER_STEP = {TRAIN_SHAPES[0]: 5, TRAIN_SHAPES[1]: 6, TRAIN_SHAPES[2]: 4}
 TRAIN_BWD_PER_STEP = {TRAIN_SHAPES[0]: 5, TRAIN_SHAPES[1]: 6}
 BWD_SHAPES = TRAIN_SHAPES[:2] + [(2, 100, 3, 40), (1, 8000, 1, 256)]
+# (B, n, h, d[, kv_len]): the backward edge cases of the ``cuda`` tests, bf16
+# only: every instantiation (DMAX 64, 128, 256, and dK/dV's head-dim split
+# at d > 128), token counts off the 128-row and 64- and 32-key tiles, n = 1
+# (beside more than one key: with one, dQ and dK are 0), kv_len != n, the
+# training shapes at batch 2
+BWD_EDGE_SHAPES = [(2, 63, 3, 8), (1, 1, 2, 64, 37), (3, 129, 2, 72), (2, 65, 2, 136),
+                   (1, 63, 1, 256, 65), (1, 1, 1, 256, 8000), (2, 100, 4, 64, 37),
+                   (2, 1000, 8, 64), (2, 125, 16, 64)]
+# the tensor-core kernels of csrc/flash_bwd.cu, one instantiation per DMAX
+BWD_MMA_KERNELS = ("flash_bwd_dq_bf16_mma_kernel<", "flash_bwd_dkv_bf16_mma_kernel<")
 # card-vs-CPU train step: loss relative 1e-5; each gradient leaf within 1e-3
 # of its largest |g| (fp32 convolutions summed in other orders through the
 # whole UNet forward and back); parameters within 2 lr + 1e-6: Adam's first
@@ -235,12 +252,14 @@ def bound(shape, dtype: str, itemsize: int) -> tuple[float, str]:
 
 
 def bound_bwd(shape, dtype: str, itemsize: int, kind: str) -> tuple[float, str]:
-    """dQ: 6 n kv d flops per head, reads q, k, v, dO, LSE, D, writes dQ;
-    dK/dV: 8 n kv d flops, the same reads, writes dK and dV."""
-    b, n, h, d = shape
-    outs = 1 if kind == "dq" else 2
-    return bound_of((6.0 if kind == "dq" else 8.0) * b * h * n * n * d,
-                    (4.0 + outs) * b * n * h * d * itemsize + 8.0 * b * h * n, dtype)
+    """dQ: 6 n kv d flops per head, reads q, dO (n rows), k, v (kv rows), LSE,
+    D, writes dQ (n rows); dK/dV: 8 n kv d flops, the same reads, writes dK
+    and dV (kv rows). The bf16 kernels' hi-lo split (20 units of n kv d
+    where the algorithm needs 14) is not counted."""
+    b, n, h, d, kv = (*shape, shape[1])[:5]
+    rows = 3.0 * n + 2.0 * kv if kind == "dq" else 2.0 * n + 4.0 * kv
+    return bound_of((6.0 if kind == "dq" else 8.0) * b * h * n * kv * d,
+                    rows * b * h * d * itemsize + 8.0 * b * h * n, dtype)
 
 
 def phase_device(torch) -> tuple[str, str]:
@@ -267,13 +286,16 @@ def phase_build() -> None:
     for path in paths:
         log = path.with_suffix(".log")
         ptxas[path.name] = _kernels.ptxas_report(log.read_text() if log.exists() else "")
-    fwd = next(report for name, report in ptxas.items() if name.startswith("libflash_fwd-"))
-    bf16 = {name: r for name, r in fwd.items() if name.startswith("flash_fwd_bf16_mma_kernel<")}
-    check(len(bf16) == 3, f"expected three bf16 attention-forward instantiations, ptxas "
-                          f"reports {sorted(fwd)}")
-    spilled = {name: r for name, r in bf16.items()
-               if r.get("spill_stores", 1) or r.get("spill_loads", 1)}
-    check(not spilled, f"bf16 attention-forward instantiations spill: {spilled}")
+    for lib, prefixes in (("libflash_fwd-", ("flash_fwd_bf16_mma_kernel<",)),
+                          ("libflash_bwd-", BWD_MMA_KERNELS)):
+        report = next(r for name, r in ptxas.items() if name.startswith(lib))
+        for prefix in prefixes:
+            bf16 = {name: r for name, r in report.items() if name.startswith(prefix)}
+            check(len(bf16) == 3, f"expected three {prefix}DMAX> instantiations, ptxas "
+                                  f"reports {sorted(report)}")
+            spilled = {name: r for name, r in bf16.items()
+                       if r.get("spill_stores", 1) or r.get("spill_loads", 1)}
+            check(not spilled, f"bf16 tensor-core instantiations spill: {spilled}")
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
           "libraries": [str(p.relative_to(ROOT)) for p in paths], "ptxas": ptxas})
 
@@ -345,62 +367,65 @@ def phase_kernel_bwd(torch, F) -> dict:
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     results = {}
-    for dtype in ("bfloat16", "float32"):
+    cases = ([("bfloat16", s) for s in BWD_SHAPES + BWD_EDGE_SHAPES]
+             + [("float32", s) for s in BWD_SHAPES])
+    for dtype, shape in cases:
         dt = getattr(torch, dtype)
-        for shape in BWD_SHAPES:
-            b, n, h, d = shape
-            qkv, (q, k, v) = _fused_qkv(torch, shape, dt, gen)
-            do = torch.randn((b, n, h, d), generator=gen, device="cuda").to(dt)
-            out, lse = A.flash_attention_fwd(q, k, v)
-            dvec = A.attention_bwd_dvec(do, out)
-            grads = A.flash_attention_bwd(q, k, v, out, lse, do)
-            torch.cuda.synchronize()
-            refs = A.attention_bwd_reference(q, k, v, out, lse, do)
-            errs, tols = {}, {}
-            for name, got, want in zip(("dq", "dk", "dv"), grads, refs):
-                errs[name] = (got.float() - want.float()).abs().max().item()
-                tols[name] = grad_tol(dtype, want.float().abs().max().item())
-                check(math.isfinite(errs[name]) and errs[name] <= tols[name],
-                      f"flash_bwd {name} differs from plain by {errs[name]} (limit "
-                      f"{tols[name]}) at {shape} {dtype}")
-            del grads, refs
-            loop = loop_size(8.0 * b * h * n * n * d)
-            qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
-            dot = do.transpose(1, 2)
+        b, n, h, d = shape[:4]
+        qkv, (q, k, v) = _fused_qkv(torch, shape, dt, gen)
+        do = torch.randn((b, n, h, d), generator=gen, device="cuda").to(dt)
+        out, lse = A.flash_attention_fwd(q, k, v)
+        dvec = A.attention_bwd_dvec(do, out)
+        grads = A.flash_attention_bwd(q, k, v, out, lse, do)
+        torch.cuda.synchronize()
+        refs = A.attention_bwd_reference(q, k, v, out, lse, do)
+        errs, tols = {}, {}
+        for name, got, want in zip(("dq", "dk", "dv"), grads, refs):
+            errs[name] = (got.float() - want.float()).abs().max().item()
+            tols[name] = grad_tol(dtype, want.float().abs().max().item())
+            check(math.isfinite(errs[name]) and errs[name] <= tols[name],
+                  f"flash_bwd {name} differs from plain by {errs[name]} (limit "
+                  f"{tols[name]}) at {shape} {dtype}")
+        del grads, refs
+        loop = loop_size(8.0 * b * h * n * k.shape[1] * d)
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+        dot = do.transpose(1, 2)
 
-            def sdpa_fwd_bwd():
-                o = F.scaled_dot_product_attention(qt, kt, vt)
-                torch.autograd.grad(o, (qt, kt, vt), dot)
+        def sdpa_fwd_bwd():
+            o = F.scaled_dot_product_attention(qt, kt, vt)
+            torch.autograd.grad(o, (qt, kt, vt), dot)
 
-            def sdpa_fwd():
-                with torch.no_grad():
-                    F.scaled_dot_product_attention(qt, kt, vt)
+        def sdpa_fwd():
+            with torch.no_grad():
+                F.scaled_dot_product_attention(qt, kt, vt)
 
-            row = {
-                "dq_ms": cuda_ms(torch, lambda: A.flash_attention_bwd_dq(q, k, v, do, lse, dvec),
-                                 **loop),
-                "dkv_ms": cuda_ms(torch, lambda: A.flash_attention_bwd_dkv(q, k, v, do, lse,
-                                                                           dvec), **loop),
-                "dq_host_ms": host_ms(torch, lambda: A.flash_attention_bwd_dq(q, k, v, do, lse,
-                                                                              dvec)),
-                "dkv_host_ms": host_ms(torch, lambda: A.flash_attention_bwd_dkv(q, k, v, do, lse,
-                                                                                dvec)),
-                "dq_plain_ms": cuda_ms(torch, lambda: A.attention_bwd_dq_reference(
-                    q, k, v, do, lse, dvec), **loop),
-                "dkv_plain_ms": cuda_ms(torch, lambda: A.attention_bwd_dkv_reference(
-                    q, k, v, do, lse, dvec), **loop),
-                "sdpa_bwd_ms": cuda_ms(torch, sdpa_fwd_bwd, **loop) - cuda_ms(torch, sdpa_fwd,
-                                                                              **loop),
-                "max_abs_err": errs, "tol": tols,
-            }
-            for kind in ("dq", "dkv"):
-                row[f"{kind}_bound_ms"], row[f"{kind}_bound_by"] = bound_bwd(
-                    shape, dtype, qkv.element_size(), kind)
-            results[(shape, dtype)] = row
-            emit({"phase": "kernel_bwd", "kernel": "flash_bwd", "shape_bnhd": list(shape),
-                  "dtype": dtype, **row})
-            del qkv, q, k, v, do, out, lse, dvec, qt, kt, vt
-            torch.cuda.empty_cache()
+        row = {
+            "dq_ms": cuda_ms(torch, lambda: A.flash_attention_bwd_dq(q, k, v, do, lse, dvec),
+                             **loop),
+            "dkv_ms": cuda_ms(torch, lambda: A.flash_attention_bwd_dkv(q, k, v, do, lse,
+                                                                       dvec), **loop),
+            "dq_host_ms": host_ms(torch, lambda: A.flash_attention_bwd_dq(q, k, v, do, lse,
+                                                                          dvec)),
+            "dkv_host_ms": host_ms(torch, lambda: A.flash_attention_bwd_dkv(q, k, v, do, lse,
+                                                                            dvec)),
+            "dq_plain_ms": cuda_ms(torch, lambda: A.attention_bwd_dq_reference(
+                q, k, v, do, lse, dvec), **loop),
+            "dkv_plain_ms": cuda_ms(torch, lambda: A.attention_bwd_dkv_reference(
+                q, k, v, do, lse, dvec), **loop),
+            "sdpa_bwd_ms": cuda_ms(torch, sdpa_fwd_bwd, **loop) - cuda_ms(torch, sdpa_fwd,
+                                                                          **loop),
+            "max_abs_err": errs, "tol": tols,
+            "max_err_over_tol": max(errs[x] / tols[x] for x in errs),
+        }
+        for kind in ("dq", "dkv"):
+            row[f"{kind}_bound_ms"], row[f"{kind}_bound_by"] = bound_bwd(
+                shape, dtype, qkv.element_size(), kind)
+        results[(shape, dtype)] = row
+        emit({"phase": "kernel_bwd", "kernel": "flash_bwd", "shape_bnhd": list(shape[:4]),
+              "kv_len": k.shape[1], "dtype": dtype,
+              "route": BWD_ROUTES["bf16" if dtype == "bfloat16" else "fp32"], **row})
+        del qkv, q, k, v, do, out, lse, dvec, qt, kt, vt
+        torch.cuda.empty_cache()
     return results
 
 
@@ -683,7 +708,7 @@ OP_CATEGORIES = (
 # any aten op, among them) by its name; first match wins.
 KERNEL_CATEGORIES = (
     ("attention forward (flash_fwd)", ("flash_fwd_",)),
-    ("attention backward (flash_bwd)", ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")),
+    ("attention backward (flash_bwd)", ("flash_bwd_dq_", "flash_bwd_dkv_")),
     ("GroupNorm sums (groupnorm_sums)", ("partial_sums", "combine(")),
     ("convolution", ("fprop", "dgrad", "wgrad", "conv", "winograd", "implicit")),
     ("matmul (Dense)", ("gemm", "gemv", "nvjet", "cublas", "cutlass", "splitk")),
@@ -1228,14 +1253,18 @@ def _kernel_summary(fwd: dict, bwd: dict, gn: dict, sample_launches: dict,
                 "sum over its launches")
     bwd_err = {kind: max(max(r["max_abs_err"][k] for k in keys) for r in bwd.values())
                for kind, keys in (("dq", ("dq",)), ("dkv", ("dk", "dv")))}
+    bwd_ratio = {kind: max(max(r["max_abs_err"][k] / r["tol"][k] for k in keys)
+                           for r in bwd.values())
+                 for kind, keys in (("dq", ("dq",)), ("dkv", ("dk", "dv")))}
     sdpa = per_bwd("sdpa_bwd_ms")
 
     def flash_bwd(name, kind, replaces, library_covers):
         check(train["launches"][name] == steps * sum(TRAIN_BWD_PER_STEP.values()),
               f"{name} launches {train['launches'][name]} are not {steps} steps' worth")
         return {"name": name, "route": "cuda", "source": "ldm3d_torch/csrc/flash_bwd.cu",
-                "replaces": replaces, "launches": train["launches"][name],
-                "max_abs_err": bwd_err[kind], "ms": steps * per_bwd(f"{kind}_ms"),
+                "routes": BWD_ROUTES, "replaces": replaces, "launches": train["launches"][name],
+                "max_abs_err": bwd_err[kind], "max_err_over_tol": bwd_ratio[kind],
+                "ms": steps * per_bwd(f"{kind}_ms"),
                 "plain_ms": steps * per_bwd(f"{kind}_plain_ms"),
                 "bound_ms": steps * per_bwd(f"{kind}_bound_ms"),
                 "bound_by": larger(lambda by: per_bwd(f"{kind}_bound_ms", f"{kind}_bound_by", by)),

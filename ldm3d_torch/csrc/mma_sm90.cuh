@@ -1,7 +1,7 @@
 // Warp-level tensor-core building blocks for sm_90a, shared by the port's
-// hand-written kernels: 16-byte cp.async copies into shared memory (with
-// zero-fill), ldmatrix fragment loads, and the bf16 m16n8k16 mma.sync with
-// fp32 accumulators.
+// hand-written kernels: cp.async copies into shared memory (with zero-fill),
+// ldmatrix fragment loads, the bf16 m16n8k16 mma.sync with fp32
+// accumulators, and the packing of fp32 accumulators into bf16 operands.
 //
 // Fragment layouts of mma.sync.m16n8k16.row.col (lane = 4 * g + t, g the
 // group of four lanes, t the lane within it):
@@ -29,6 +29,14 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 __device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src, bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
                "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// 4 bytes, asynchronously through L1 (for fp32 rows with no 16-byte
+// alignment); `valid` false writes 4 zero bytes and reads nothing.
+__device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 4 : 0)
                : "memory");
 }
 
@@ -72,6 +80,17 @@ __device__ __forceinline__ void mma_bf16_16816(float (&c)[4], const uint32_t (&a
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Two floats as two packed bf16 pairs whose sum carries each to about 2^-16
+// of itself: `hi` rounded to nearest, `lo` the remainder x - hi (exact in
+// fp32) rounded to nearest. An mma with `hi` and one with `lo` on the same B
+// operand give the product of the fp32 values to that precision.
+__device__ __forceinline__ void pack_bf16_split(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(x0 - hf.x, x1 - hf.y);
 }
 
 }  // namespace ldm3d

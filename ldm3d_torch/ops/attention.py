@@ -22,16 +22,18 @@ Kernel notes. ``flash_fwd.cu`` replaces the TPU's ``_flash_kernel_mono`` and
 ``flash_bwd.cu`` replaces ``_flash_dq_kernel`` (``:122``) and
 ``_flash_dkv_kernel`` (``:150``). At the shapes that carry the models'
 attention time the work (4, 6 and 8 n·kv·d flops) is compute-bound on the
-H100. The forward takes one route per dtype: bf16 runs a FlashAttention-2
-kernel on the tensor cores (``mma.sync``, fp32 accumulators; P is rounded to
-bf16 before P·V), fp32 a scalar-fp32 FMA kernel (tensor cores would mean
-TF32). The backward kernels are scalar-fp32 FMA in both dtypes. See the
-sources' headers and ``PERF.md``. The TPU path's ``_pad_heads`` lane padding
-has no counterpart: the kernels take any head_dim that is a multiple of 8 up
-to 256 at the true 1/sqrt(d) scale, and any token count. The bf16 forward
-copies rows in 16-byte pieces, so its q, k and v must start on 16 bytes and
-have strides of whole 16 bytes: views of a fused qkv with such a head_dim
-do; anything else raises (:func:`check_16_byte_rows`), and nothing is copied.
+H100. Each kernel takes one route per dtype. bf16 runs FlashAttention-2 on
+the tensor cores (``mma.sync``, fp32 accumulators): the forward rounds P to
+bf16 before P·V; the backward splits P and dS into two bf16 parts (hi and
+the rounded remainder lo) and multiplies each, so that its gradients stay
+within one bf16 ulp of the largest |grad|. fp32 runs scalar-fp32 FMA kernels
+(tensor cores would mean TF32). See the sources' headers and ``PERF.md``.
+The TPU path's ``_pad_heads`` lane padding has no counterpart: the kernels
+take any head_dim that is a multiple of 8 up to 256 at the true 1/sqrt(d)
+scale, and any token count. The bf16 kernels copy rows in 16-byte pieces, so
+their q, k, v (and dO) must start on 16 bytes and have strides of whole 16
+bytes: views of a fused qkv with such a head_dim do; anything else raises
+(:func:`check_16_byte_rows`), and nothing is copied.
 """
 
 from __future__ import annotations
@@ -81,8 +83,8 @@ def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 def check_16_byte_rows(name: str, t: torch.Tensor) -> None:
     """Raise ``ValueError`` naming ``t`` unless its data pointer, and the
     stride in bytes of each of its (batch, tokens, heads) dims longer than
-    one, are multiples of 16: the bf16 forward kernel copies head_dim rows to
-    shared memory in 16-byte pieces (``cp.async``)."""
+    one, are multiples of 16: the bf16 kernels copy head_dim rows to shared
+    memory in 16-byte pieces (``cp.async``)."""
     if t.data_ptr() % 16:
         raise ValueError(f"{name} must start on a 16-byte boundary for the bf16 flash kernel; "
                          f"its data pointer is {t.data_ptr() % 16} bytes past one")
@@ -206,7 +208,8 @@ def _check_bwd_inputs(q, k, v, do, lse, dvec) -> None:
 
 
 def _bwd_kernel_args(q, k, v, do, lse, dvec):
-    """Checks shared by the two backward kernels; returns their ctypes strides."""
+    """Checks shared by the two backward kernels (in bf16, the 16-byte rows
+    of q, k, v and dO); returns their ctypes strides."""
     b, n, h, d = q.shape
     if q.dtype not in _KERNEL_DTYPES:
         raise ValueError(f"flash backward kernels take float32 or bfloat16, got {q.dtype}")
@@ -217,6 +220,8 @@ def _bwd_kernel_args(q, k, v, do, lse, dvec):
     for name, t in (("q", q), ("k", k), ("v", v), ("dO", do)):
         if t.stride(-1) != 1:
             raise ValueError(f"{name} must have unit stride on head_dim, got strides {t.stride()}")
+        if q.dtype == torch.bfloat16:
+            check_16_byte_rows(name, t)
     for name, t in (("lse", lse), ("D", dvec)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")

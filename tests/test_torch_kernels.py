@@ -280,9 +280,12 @@ def test_kernel_counts_launches_and_rejects_what_it_cannot_take():
 # --- flash-attention backward (csrc/flash_bwd.cu) and GroupNorm sums
 # (csrc/groupnorm_sums.cu). Tolerances on the card: the kernels and their
 # plain versions compute in fp32 from the same inputs and differ by summation
-# order only. Attention gradients: fp32 within 1e-4 of the largest |grad| of
-# each output; bf16 within one bf16 ulp of it (2^-7 of the largest |grad|),
-# as each is the fp32 result rounded once. GroupNorm sums: within 1e-5 of the
+# order only, except that the bf16 tensor-core backward splits P and dS into
+# two bf16 parts (hi and the rounded remainder) before its products.
+# Attention gradients: fp32 within 1e-4 of the largest |grad| of each output;
+# bf16 within one bf16 ulp of it (2^-7 of the largest |grad|), as each is the
+# fp32 result rounded once (the split's own error is emulated on the CPU in
+# ``tests/test_torch_attention_grad.py``). GroupNorm sums: within 1e-5 of the
 # sum of the absolute terms of each (batch, channel) (sum |x| for the plain
 # sums, sum x^2 or |dy * x_hat| for the others), from fp32 sums of up to
 # 10^5 terms in different orders.
@@ -358,20 +361,52 @@ def test_gn_kernel_x_must_be_channels_minor():
         tgn._x_strides(x)
 
 
+@pytest.mark.parametrize("name", ["q", "k", "v", "dO"])
+def test_bwd_kernel_args_check_16_byte_rows_in_bf16(name):
+    """The backward kernels' checks, on CPU tensors (they read only shapes,
+    pointers and strides): in bf16 a q, k, v or dO view 2 bytes off 16
+    raises naming that tensor; the same views in fp32 pass, as the scalar
+    route reads element by element."""
+    b, n, h, d = 1, 6, 2, 16
+    for dtype in (torch.bfloat16, torch.float32):
+        qkv = torch.zeros((b, n, 3 * h * d), dtype=dtype)
+        t = dict(zip(("q", "k", "v"), (x.unflatten(-1, (h, d)) for x in qkv.chunk(3, dim=-1))))
+        t["dO"] = torch.zeros((b, n, h, d), dtype=dtype)
+        t[name] = torch.zeros((b, n, h * d + 1), dtype=dtype)[..., 1:].unflatten(-1, (h, d))
+        lse, dvec = torch.zeros((b * h, n)), torch.zeros((b * h, n))
+        args = (t["q"], t["k"], t["v"], t["dO"], lse, dvec)
+        if dtype == torch.bfloat16:
+            with pytest.raises(ValueError, match=f"^{name} must start on a 16-byte boundary"):
+                tattn._bwd_kernel_args(*args)
+        else:
+            assert len(tattn._bwd_kernel_args(*args)) == 12
+
+
 def _attn_case(shape, dtype, seed):
-    """q, k, v as strided views of a fused qkv, dO, and the kernel forward's O, LSE."""
-    b, n, h, d = shape
+    """q, k, v as strided views of fused projections (a fused qkv, or for a
+    (b, n, h, d, kv_len) shape a q beside a fused kv), dO, and the kernel
+    forward's O, LSE."""
+    b, n, h, d = shape[:4]
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    qkv = torch.randn((b, n, 3 * h * d), generator=gen, device="cuda").to(dtype)
-    q, k, v = (t.unflatten(-1, (h, d)) for t in qkv.chunk(3, dim=-1))
+    q, k, v = _attn_views(b, n, h, d, shape[4] if len(shape) > 4 else None, dtype, gen)
     do = torch.randn((b, n, h, d), generator=gen, device="cuda").to(dtype)
     out, lse = tattn.flash_attention_fwd(q, k, v)
     return q, k, v, out, lse, do
 
 
+# (b, n, h, d[, kv_len]): every instantiation (DMAX 64, 128, 256; d = 8, 40,
+# 72, 136 not multiples of 16; d = 136 and 256 take dK/dV's head-dim split),
+# token counts off the 128-row and 64-, 32-key tiles, n = 1 (beside 37 or
+# 8000 keys: with one key dQ and dK are 0 and a relative limit means
+# nothing), kv_len != n, and the two UNet training shapes at batch 2
+BWD_CARD_CASES = [(2, 100, 3, 40), (2, 125, 4, 64), (1, 300, 1, 256), (2, 63, 3, 8),
+                  (1, 1, 2, 64, 37), (3, 129, 2, 72), (2, 65, 2, 136), (1, 63, 1, 256, 65),
+                  (1, 1, 1, 256, 8000), (2, 100, 4, 64, 37), (2, 1000, 8, 64), (2, 125, 16, 64)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("shape", [(2, 100, 3, 40), (2, 125, 4, 64), (1, 300, 1, 256)])
+@pytest.mark.parametrize("shape", BWD_CARD_CASES)
 def test_flash_bwd_kernels_match_plain_on_card(dtype, shape):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
@@ -389,6 +424,83 @@ def test_flash_bwd_kernels_match_plain_on_card(dtype, shape):
         ref_max = want.float().abs().max().item()
         err = (got.float() - want.float()).abs().max().item()
         assert err <= grad_tol(dt, ref_max), (name, err, ref_max)
+
+
+@pytest.mark.cuda
+def test_flash_bwd_raises_on_misaligned_bf16_views_and_fp32_takes_them():
+    """The bf16 backward copies rows in 16-byte pieces: a q, k, v or dO view
+    that starts 2 bytes off 16 raises naming it, without a launch and
+    without a copy; the fp32 route takes the same views."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b, n, h, d = 1, 70, 2, 64
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for dtype in (torch.bfloat16, torch.float32):
+        for name in ("q", "k", "v", "dO"):
+            t = dict(zip(("q", "k", "v"), _attn_views(b, n, h, d, None, dtype, gen)))
+            t["dO"] = torch.randn((b, n, h, d), generator=gen, device="cuda").to(dtype)
+            off = torch.randn((b, n, h * d + 1), generator=gen, device="cuda").to(dtype)
+            t[name] = off[..., 1:].unflatten(-1, (h, d))
+            q, k, v, do = t["q"], t["k"], t["v"], t["dO"]
+            out, lse = tattn.attention_reference(q, k, v)
+            dvec = tattn.attention_bwd_dvec(do, out)
+            before = (tattn.flash_attention_bwd_dq.launches,
+                      tattn.flash_attention_bwd_dkv.launches)
+            if dtype == torch.bfloat16:
+                with pytest.raises(ValueError, match=f"^{name} must"):
+                    tattn.flash_attention_bwd_dq(q, k, v, do, lse, dvec)
+                with pytest.raises(ValueError, match=f"^{name} must"):
+                    tattn.flash_attention_bwd_dkv(q, k, v, do, lse, dvec)
+                assert (tattn.flash_attention_bwd_dq.launches,
+                        tattn.flash_attention_bwd_dkv.launches) == before
+                continue
+            grads = (tattn.flash_attention_bwd_dq(q, k, v, do, lse, dvec),
+                     *tattn.flash_attention_bwd_dkv(q, k, v, do, lse, dvec))
+            torch.cuda.synchronize()
+            refs = tattn.attention_bwd_reference(q, k, v, out, lse, do)
+            for got, want in zip(grads, refs):
+                assert (got - want).abs().max().item() <= grad_tol(dtype, want.abs().max().item())
+            assert (tattn.flash_attention_bwd_dq.launches,
+                    tattn.flash_attention_bwd_dkv.launches) == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.cuda
+def test_flash_bwd_routes_by_dtype_and_counts_exact_launches_on_card():
+    """One backward through autograd launches exactly one dQ and one dK/dV
+    kernel: the tensor-core kernels in bf16 and the scalar ones in fp32, by
+    the kernels' names in the profiler's trace. A head_dim the kernels do
+    not take raises on the card and launches nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    names = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = (t.detach().requires_grad_() for t in _attn_views(1, 200, 2, 64, None, dtype,
+                                                                    gen))
+        tattn.volumetric_attention(q, k, v).float().square().sum().backward()
+        torch.cuda.synchronize()
+        before = (tattn.flash_attention_bwd_dq.launches, tattn.flash_attention_bwd_dkv.launches)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            tattn.volumetric_attention(q, k, v).float().square().sum().backward()
+            torch.cuda.synchronize()
+        assert (tattn.flash_attention_bwd_dq.launches,
+                tattn.flash_attention_bwd_dkv.launches) == (before[0] + 1, before[1] + 1)
+        names[dtype] = {ev.key for ev in prof.key_averages() if "flash_bwd" in ev.key}
+    for kind in ("dq", "dkv"):
+        assert any(f"flash_bwd_{kind}_bf16_mma_kernel" in x for x in names[torch.bfloat16])
+        assert any(f"flash_bwd_{kind}_fp32_kernel" in x for x in names[torch.float32])
+    assert not any("fp32" in x for x in names[torch.bfloat16])
+    assert not any("mma" in x for x in names[torch.float32])
+    bad = torch.randn((1, 16, 2, 12), device="cuda", dtype=torch.bfloat16, requires_grad=True)
+    before = (tattn.flash_attention_bwd_dq.launches, tattn.flash_attention_bwd_dkv.launches)
+    lse = torch.zeros((2, 16), device="cuda")
+    with pytest.raises(ValueError, match="multiple of 8"):
+        tattn.flash_attention_bwd_dq(bad, bad, bad, bad, lse, lse)
+    assert (tattn.flash_attention_bwd_dq.launches,
+            tattn.flash_attention_bwd_dkv.launches) == before
 
 
 def _sum_tol(terms: torch.Tensor) -> torch.Tensor:
