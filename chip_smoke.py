@@ -9,24 +9,30 @@ printing JSON lines:
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: compile the CUDA kernels from ``ldm3d_torch/csrc`` (one nvcc per
    source, all at once, sm_90a); ``ptxas``'s registers, shared memory and
-   spills for each kernel instantiation; fails if a bf16 (tensor-core)
-   instantiation of the attention forward or of either backward kernel
-   spills;
+   spills for each kernel instantiation; fails if an instantiation of the
+   tensor-core attention kernels (bf16 forward and backward, the 3xTF32
+   fp32 forward), of the wide (d > 256) attention kernels or of the
+   one-launch GroupNorm sums spills;
 3. kernel: the flash-attention forward kernel against its plain PyTorch
    version on the card, at the attention shapes of the flagship model
-   (``config_train_32g.json``) at 80^3 and 96^3, in bf16 (the tensor-core
-   route) and fp32 (the scalar route), at its training shapes (batch 20) in
-   bf16, and at the edge shapes of the ``cuda`` tests in bf16 (every head
-   width instantiation, ragged token counts, kv_len != n), on strided views
-   of fused projections as the attention block gives them;
+   (``config_train_32g.json``) at 80^3 and 96^3 and at the edge shapes of
+   the ``cuda`` tests (every head width instantiation, ragged token counts,
+   kv_len != n), in bf16 (the bf16 tensor-core route) and fp32 (the 3xTF32
+   tensor-core route), at its training shapes (batch 20) in bf16, and at
+   the head widths and head counts the kernels once refused (d = 36, 320,
+   512; batch * heads = 70,000) in both dtypes, on strided views of fused
+   projections as the attention block gives them; each fp32 row beside
+   SDPA (TF32 off), the plain version and the bound;
 4. kernel_bwd: the flash-attention backward kernels (dQ, dK/dV) against
    their plain versions, at the training shapes, a ragged case and a d = 256
-   case, bf16 (the tensor-core route) and fp32 (the scalar route), and at
-   the edge shapes of the ``cuda`` tests in bf16 (every head width
+   case, bf16 (the tensor-core route) and fp32 (the scalar route), at the
+   edge shapes of the ``cuda`` tests in bf16 (every head width
    instantiation, ragged token counts, kv_len != n, the training shapes at
-   batch 2); each row carries its route and its largest error over its
-   limit; ``library_ms`` is the backward of ``scaled_dot_product_attention``
-   (its forward + backward less its forward);
+   batch 2), and at the d = 36, 320, 512 and batch * heads = 70,000 cases in
+   both dtypes through ``volumetric_attention``'s autograd (kernel_c2 rows);
+   each row carries its route and its largest error over its limit;
+   ``library_ms`` is the backward of ``scaled_dot_product_attention`` (its
+   forward + backward less its forward);
 5. main path, sampling: conditional DDIM-50 sampling of the full-width
    ``config_train_32g.json`` models (random weights from a seed) through
    ``ldm3d_torch.cli.inference.main`` with ``--amp``, one 80^3 volume; the
@@ -41,10 +47,13 @@ printing JSON lines:
    exact launch count of each of the five kernels; then one step under
    ``torch.profiler``;
 7. kernel_gn: the GroupNorm voxel-sums kernels (forward and backward sums)
-   against their plain versions at every input the two main paths gave
+   against their plain versions at every input the three main paths gave
    them: the wrappers record each launch's (shape, dtype, strides of x and
    dy), and each recorded input is rebuilt with those strides, checked in
-   bf16 and fp32 and timed; the times are summed over each path's launches;
+   bf16 and fp32 (the forward sums also for the same bits on two runs) and
+   timed; the device and host times are summed over each path's launches
+   and set beside PR 5's; gn_host: what the forward wrapper's host time a
+   call goes to, piece by piece;
 8. main path, serving: ``ModelServer`` on the full-width
    ``config_train_32g.json`` models (random weights from a seed), 80^3,
    fp32, DDIM-50, batch 2, behind the port's stdlib HTTP server on
@@ -54,7 +63,8 @@ printing JSON lines:
    a dpm-20 override, a NIfTI output, GET /health, /metrics and /model/info;
    every response 200, a real (not dummy) model, finite 80^3 volumes, the
    echoed sampler and spacing, and the exact attention and GroupNorm-sums
-   launches the served calls imply;
+   launches the served calls imply; then one more request under
+   ``torch.profiler`` gives the device time by category;
 9. kernel_conv: the implicit-GEMM conv kernel (B6) through its entry point
    ``ldm3d_torch.tools.conv_ab`` at its L0 shapes in bf16 and fp32: held
    against its plain version, timed beside cuDNN; the untargeted shapes raise
@@ -69,9 +79,11 @@ inputs of all three main paths.
 Times are device ms per call (CUDA events around back-to-back calls, median
 of 5 loops); ``*_host_ms`` is the host's cost to issue one call;
 ``bound_ms`` is the larger of the bytes over 3.35 TB/s and the flops over
-the peak for the inputs' type (989 TFLOP/s bf16 tensor cores, 67 TFLOP/s
-fp32). The last three lines are the kernels' summary JSON, the
-``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.
+the peak for the inputs' type (989 TFLOP/s bf16 tensor cores; fp32 at
+495 / 3 = 165 TFLOP/s, the rate of fp32-accurate products on the TF32
+tensor cores, three TF32 products each). The last three lines are the
+kernels' summary JSON, the ``nvidia-smi`` line, and ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -115,7 +127,9 @@ def grad_tol(dtype: str, ref_max: float) -> float:
     return (GRAD_FP32_REL if dtype == "float32" else BF16_OUT_REL) * ref_max
 
 
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+# dense peaks of the H100 SXM: bf16 tensor cores; fp32 as 3xTF32 on the TF32
+# tensor cores (495 TFLOP/s over three products), above the CUDA cores' 67
+PEAK_FLOPS = {"float32": 495e12 / 3, "bfloat16": 989e12}
 HBM_BYTES_PER_S = 3.35e12
 # (B, n, h, d): UNet level 1 and 2 and VAE level 2 at 80^3 (the CLI's patch)
 # and at 96^3 (BASELINE.json's size); a batch-2 case; a ragged odd case
@@ -130,10 +144,26 @@ LAUNCHES_PER_SAMPLE = {MAIN_SHAPES[0]: 250, MAIN_SHAPES[1]: 300, MAIN_SHAPES[2]:
 # 16), token counts off the 128-row query and 64-key kv tiles, kv_len != n
 EDGE_SHAPES = [(2, 63, 3, 8), (1, 1, 2, 64), (3, 129, 2, 72), (2, 65, 2, 136),
                (1, 63, 1, 256, 65), (1, 1, 1, 256, 8000), (2, 100, 4, 64, 37)]
-# the attention forward's route for each dtype (csrc/flash_fwd.cu)
-FWD_ROUTES = {"bf16": "mma.sync tensor cores", "fp32": "scalar fp32"}
+# (B, n, h, d): head widths the kernels once refused (36: not a multiple of
+# 8, padded; 320 and 512: above 256, the wide route) and batch * heads past
+# 65,535, at small n, in both dtypes
+C2_SHAPES = [(2, 70, 3, 36), (1, 150, 2, 320), (2, 70, 1, 512), (1, 1000, 1, 512),
+             (35000, 8, 2, 16)]
+# the attention forward's route for each dtype (csrc/flash_fwd.cu) up to
+# d = 256, and for d > 256 in both
+FWD_ROUTES = {"bf16": "mma.sync bf16 tensor cores", "fp32": "mma.sync tf32 tensor cores, 3xTF32 split",
+              "wide": "scalar FMA, head dims of O over grid.y (d > 256)"}
 # the attention backward's (csrc/flash_bwd.cu), both kernels
-BWD_ROUTES = {"bf16": "mma.sync tensor cores, P/dS hi-lo split", "fp32": "scalar fp32"}
+BWD_ROUTES = {"bf16": "mma.sync tensor cores, P/dS hi-lo split", "fp32": "scalar fp32",
+              "wide": "scalar FMA, head dims of dQ and dK/dV over grid.y (d > 256)"}
+
+
+def fwd_route(dtype: str, d: int) -> str:
+    return FWD_ROUTES["wide" if d > 256 else "bf16" if dtype == "bfloat16" else "fp32"]
+
+
+def bwd_route(dtype: str, d: int) -> str:
+    return BWD_ROUTES["wide" if d > 256 else "bf16" if dtype == "bfloat16" else "fp32"]
 DDIM_STEPS = 50
 
 # Training main path: the config's batch 20 at its 80^3 patch; 90 synthetic
@@ -156,8 +186,24 @@ BWD_SHAPES = TRAIN_SHAPES[:2] + [(2, 100, 3, 40), (1, 8000, 1, 256)]
 BWD_EDGE_SHAPES = [(2, 63, 3, 8), (1, 1, 2, 64, 37), (3, 129, 2, 72), (2, 65, 2, 136),
                    (1, 63, 1, 256, 65), (1, 1, 1, 256, 8000), (2, 100, 4, 64, 37),
                    (2, 1000, 8, 64), (2, 125, 16, 64)]
-# the tensor-core kernels of csrc/flash_bwd.cu, one instantiation per DMAX
-BWD_MMA_KERNELS = ("flash_bwd_dq_bf16_mma_kernel<", "flash_bwd_dkv_bf16_mma_kernel<")
+# kernel instantiations that must not spill, by library: (name prefix, count)
+NO_SPILL = {
+    "libflash_fwd-": (("flash_fwd_bf16_mma_kernel<", 3), ("flash_fwd_tf32x3_mma_kernel<", 3),
+                      ("flash_fwd_wide_kernel<", 2)),
+    "libflash_bwd-": (("flash_bwd_dq_bf16_mma_kernel<", 3), ("flash_bwd_dkv_bf16_mma_kernel<", 3),
+                      ("flash_bwd_dq_wide_kernel<", 2), ("flash_bwd_dkv_wide_kernel<", 2)),
+    "libgroupnorm_sums-": (("gn_sums_onepass<", 8),),  # 2 dtypes x 2 load widths x 2 combines
+}
+# launches of each fp32 attention shape in one merged batch-2 DDIM-50 serving
+# call: the two requests' conditions encoded at batch 1 (2 encoder attentions
+# each), 50 UNet steps at batch 2 (5 level-1, 6 level-2), one batch-2 decode
+SERVE_FWD_PER_CALL = {(1, 8000, 1, 256): 4, (2, 1000, 8, 64): 250, (2, 125, 16, 64): 300,
+                      (2, 8000, 1, 256): 2}
+# PR 5's B4 figures (PERF.md, H100 80GB HBM3 at 700 W): device and host ms
+# summed over each path's launches, and the host ms of one call
+PR5_GN_SUMS = {"sampling": {"ms": 15.96, "host_ms": 209.0}, "serving": {"ms": 79.84,
+               "host_ms": 777.9}, "training": {"ms": 36.73, "host_ms": 33.20},
+               "host_ms_per_call": 0.090}
 # card-vs-CPU train step: loss relative 1e-5; each gradient leaf within 1e-3
 # of its largest |g| (fp32 convolutions summed in other orders through the
 # whole UNet forward and back); parameters within 2 lr + 1e-6: Adam's first
@@ -286,16 +332,15 @@ def phase_build() -> None:
     for path in paths:
         log = path.with_suffix(".log")
         ptxas[path.name] = _kernels.ptxas_report(log.read_text() if log.exists() else "")
-    for lib, prefixes in (("libflash_fwd-", ("flash_fwd_bf16_mma_kernel<",)),
-                          ("libflash_bwd-", BWD_MMA_KERNELS)):
+    for lib, kernels in NO_SPILL.items():
         report = next(r for name, r in ptxas.items() if name.startswith(lib))
-        for prefix in prefixes:
-            bf16 = {name: r for name, r in report.items() if name.startswith(prefix)}
-            check(len(bf16) == 3, f"expected three {prefix}DMAX> instantiations, ptxas "
-                                  f"reports {sorted(report)}")
-            spilled = {name: r for name, r in bf16.items()
+        for prefix, count in kernels:
+            found = {name: r for name, r in report.items() if name.startswith(prefix)}
+            check(len(found) == count, f"expected {count} {prefix}...> instantiations, ptxas "
+                                       f"reports {sorted(report)}")
+            spilled = {name: r for name, r in found.items()
                        if r.get("spill_stores", 1) or r.get("spill_loads", 1)}
-            check(not spilled, f"bf16 tensor-core instantiations spill: {spilled}")
+            check(not spilled, f"kernel instantiations spill: {spilled}")
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
           "libraries": [str(p.relative_to(ROOT)) for p in paths], "ptxas": ptxas})
 
@@ -322,8 +367,8 @@ def phase_kernel(torch, F) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = {}
-    cases = ([("bfloat16", s) for s in SHAPES + TRAIN_SHAPES + EDGE_SHAPES]
-             + [("float32", s) for s in SHAPES])
+    cases = ([("bfloat16", s) for s in SHAPES + TRAIN_SHAPES + EDGE_SHAPES + C2_SHAPES]
+             + [("float32", s) for s in SHAPES + EDGE_SHAPES + C2_SHAPES])
     for dtype, shape in cases:
         dt = getattr(torch, dtype)
         b, n, h, d = shape[:4]
@@ -352,8 +397,8 @@ def phase_kernel(torch, F) -> dict:
         row["bound_ms"], row["bound_by"] = bound(shape, dtype, qkv.element_size())
         results[(shape, dtype)] = row
         emit({"phase": "kernel", "kernel": "flash_fwd", "shape_bnhd": list(shape[:4]),
-              "kv_len": k.shape[1], "dtype": dtype,
-              "route": FWD_ROUTES["bf16" if dtype == "bfloat16" else "fp32"], **row,
+              "kv_len": k.shape[1], "dtype": dtype, "route": fwd_route(dtype, d), **row,
+              "tflops": 4.0 * b * h * n * k.shape[1] * d / row["kernel_ms"] / 1e9,
               "out_tol": tol, "lse_tol": TOL_FP32})
         del qkv, q, k, v, out, lse
     torch.cuda.empty_cache()
@@ -422,11 +467,67 @@ def phase_kernel_bwd(torch, F) -> dict:
                 shape, dtype, qkv.element_size(), kind)
         results[(shape, dtype)] = row
         emit({"phase": "kernel_bwd", "kernel": "flash_bwd", "shape_bnhd": list(shape[:4]),
-              "kv_len": k.shape[1], "dtype": dtype,
-              "route": BWD_ROUTES["bf16" if dtype == "bfloat16" else "fp32"], **row})
+              "kv_len": k.shape[1], "dtype": dtype, "route": bwd_route(dtype, d), **row})
         del qkv, q, k, v, do, out, lse, dvec, qt, kt, vt
         torch.cuda.empty_cache()
     return results
+
+
+def phase_kernel_c2(torch) -> None:
+    """Forward and backward through ``volumetric_attention``'s autograd at
+    the C2 shapes in both dtypes, against the plain versions: O and each
+    gradient within its limit, one launch of each kernel; then the forward
+    and backward kernels and their plain versions timed."""
+    from ldm3d_torch.ops import attention as A
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        for shape in C2_SHAPES:
+            b, n, h, d = shape
+            qkv, views = _fused_qkv(torch, shape, dt, gen)
+            q, k, v = (t.detach().requires_grad_() for t in views)
+            do = torch.randn((b, n, h, d), generator=gen, device="cuda").to(dt)
+            before = _read_counts()
+            out = A.volumetric_attention(q, k, v)
+            grads = torch.autograd.grad(out, (q, k, v), do)
+            torch.cuda.synchronize()
+            after = _read_counts()
+            check(all(after[name] == before[name] + 1
+                      for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
+                  f"C2 case {shape} {dtype}: launches {before} -> {after}")
+            qd, kd, vd = q.detach(), k.detach(), v.detach()
+            ref, lse = A.attention_reference(qd, kd, vd)
+            refs = A.attention_bwd_reference(qd, kd, vd, ref, lse, do)
+            errs = {"o": (out.float() - ref.float()).abs().max().item()}
+            tols = {"o": out_tol(dtype, ref.float().abs().max().item())}
+            for name, got, want in zip(("dq", "dk", "dv"), grads, refs):
+                errs[name] = (got.float() - want.float()).abs().max().item()
+                tols[name] = grad_tol(dtype, want.float().abs().max().item())
+            for name in errs:
+                check(math.isfinite(errs[name]) and errs[name] <= tols[name],
+                      f"C2 {name} differs from plain by {errs[name]} (limit {tols[name]}) at "
+                      f"{shape} {dtype}")
+            del grads, refs
+
+            def fwd_bwd():
+                torch.autograd.grad(A.volumetric_attention(q, k, v), (q, k, v), do)
+
+            def plain_fwd_bwd():
+                o, l = A.attention_reference(qd, kd, vd)
+                A.attention_bwd_reference(qd, kd, vd, o, l, do)
+
+            emit({"phase": "kernel_c2", "shape_bnhd": list(shape), "dtype": dtype,
+                  "route": {"fwd": fwd_route(dtype, d), "bwd": bwd_route(dtype, d)},
+                  "fwd_ms": cuda_ms(torch, lambda: A.volumetric_attention(qd, kd, vd)),
+                  "fwd_plain_ms": cuda_ms(torch, lambda: A.attention_reference(qd, kd, vd)),
+                  "fwd_bwd_ms": cuda_ms(torch, fwd_bwd),
+                  "fwd_bwd_plain_ms": cuda_ms(torch, plain_fwd_bwd),
+                  "fwd_bound_ms": bound(shape, dtype, qkv.element_size())[0],
+                  "max_abs_err": errs, "tol": tols,
+                  "max_err_over_tol": max(errs[x] / tols[x] for x in errs)})
+            del qkv, views, q, k, v, do, out, ref, lse
+            torch.cuda.empty_cache()
 
 
 def _flagship_models(torch, ns, gen):
@@ -476,7 +577,10 @@ def _gn_check(torch, G, kernel: str, x, dy, mean, inv) -> tuple[float, float]:
     dims = tuple(range(2, x.dim()))
     if kernel == "gn_sums":
         got = G.gn_sums(x)
+        again = G.gn_sums(x)
         torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"gn_sums gave other sums on a second run at {tuple(x.shape)} {x.dtype}")
         want = G.gn_sums_reference(x)
         xf = x.float()
         terms = (xf, xf * xf)
@@ -566,12 +670,82 @@ def phase_kernel_gn(torch, paths: dict) -> dict:
                    for k in ("ms", "host_ms", "plain_ms", "bound_ms", "var_mean_ms")
                    if k in rows[0][1]}
             tot["launches"] = sum(cases.values())
+            tot["ms_per_call"] = tot["ms"] / tot["launches"]
+            tot["host_ms_per_call"] = tot["host_ms"] / tot["launches"]
+            if kernel == "gn_sums":
+                tot["pr5"] = PR5_GN_SUMS[path]
             totals[(path, kernel)] = tot
             emit({"phase": "kernel_gn_path", "path": path, "kernel": kernel, **tot,
                   "distinct_inputs": len(cases), "x_layouts": _layout_tally(torch, cases, 2),
                   **({"dy_layouts": _layout_tally(torch, cases, 3)}
                      if kernel == "gn_bwd_sums" else {})})
     return {"totals": totals, "max_abs_err": errs}
+
+
+def _host_us(fn, calls: int = 200, reps: int = 5) -> float:
+    """Host microseconds per call of ``fn``, the median of ``reps`` loops."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        times.append((time.perf_counter() - t0) * 1e6 / calls)
+    return statistics.median(times)
+
+
+def phase_gn_host(torch) -> dict:
+    """What the forward GroupNorm wrapper's host time a call goes to, piece by
+    piece, at a batch-1 UNet input (1, 1024, 5, 5, 5) fp32: the whole call,
+    then each step it takes alone, and the steps PR 5's wrapper took that
+    this one does not (a device guard around the current stream, a ctypes
+    stride array)."""
+    import ctypes
+
+    from ldm3d_torch.ops import groupnorm as G
+    from ldm3d_torch.ops._kernels import groupnorm_library
+
+    x = torch.randn((1, 1024, 5, 5, 5), device="cuda").contiguous(
+        memory_format=torch.channels_last_3d)
+    G.gn_sums(x)
+    b, v, c = G._check(x)
+    key = (x.shape, x.stride(), x.dtype, x.data_ptr() % 16)
+    plan = G._PLANS[key]
+    out = torch.empty((2, b, c), device="cuda")
+    partials, counters = G._WS.get(x.device, plan)
+    fn = groupnorm_library().ldm3d_gn_sums
+    stream = torch._C._cuda_getCurrentRawStream(0)
+    dev = x.device
+    torch.cuda.synchronize()
+
+    def launch():
+        fn(x.data_ptr(), out.data_ptr(), partials.data_ptr(), counters.data_ptr(), 0, b, v, c,
+           plan.sb, plan.sv, plan.vec, plan.ct, plan.nsplit, plan.chunk, int(plan.cluster),
+           stream)
+
+    def old_guard_and_stream():
+        with torch.cuda.device(dev):
+            torch.cuda.current_stream(dev).cuda_stream
+
+    pieces = {
+        "whole_call": lambda: G.gn_sums(x),
+        "plan_lookup": lambda: G._PLANS.get((x.shape, x.stride(), x.dtype, x.data_ptr() % 16)),
+        "checks_and_plan_on_a_new_input": lambda: G.gn_sums_plan(*G._check(x), x.dtype,
+                                                                 G._x_strides(x), 0),
+        "output_allocation": lambda: torch.empty((2, b, c), device=dev),
+        "workspace": lambda: G._WS.get(dev, plan),
+        "current_stream": lambda: torch._C._cuda_getCurrentRawStream(dev.index),
+        "current_device_check": lambda: dev.index != torch.cuda.current_device(),
+        "ctypes_call_and_launch": launch,
+        "cases_key": lambda: (tuple(x.shape), "float32", x.stride()),
+        "output_unbind": lambda: out.unbind(0),
+        "pr5_device_guard_and_current_stream": old_guard_and_stream,
+        "pr5_ctypes_stride_array": lambda: (ctypes.c_int64 * 3)(*x.stride()[:3]),
+    }
+    rec = {name: _host_us(f) for name, f in pieces.items()}
+    torch.cuda.synchronize()
+    emit({"phase": "gn_host", "shape_bcdhw": list(x.shape), "dtype": "float32",
+          "host_us": rec, "pr5_host_us_per_call": PR5_GN_SUMS["host_ms_per_call"] * 1e3})
+    return rec
 
 
 def _write_env(model_dir: Path, **extra) -> Path:
@@ -709,7 +883,7 @@ OP_CATEGORIES = (
 KERNEL_CATEGORIES = (
     ("attention forward (flash_fwd)", ("flash_fwd_",)),
     ("attention backward (flash_bwd)", ("flash_bwd_dq_", "flash_bwd_dkv_")),
-    ("GroupNorm sums (groupnorm_sums)", ("partial_sums", "combine(")),
+    ("GroupNorm sums (groupnorm_sums)", ("gn_sums_onepass", "partial_sums", "combine(")),
     ("convolution", ("fprop", "dgrad", "wgrad", "conv", "winograd", "implicit")),
     ("matmul (Dense)", ("gemm", "gemv", "nvjet", "cublas", "cutlass", "splitk")),
     ("reduction", ("reduce",)),
@@ -1024,6 +1198,16 @@ def phase_serve(torch, ns, counts, workdir: Path, card: str, smi_line: str) -> d
             client(name, body)
         torch.cuda.synchronize()
         launches, gn_cases = _read_counts(), _read_gn_cases()
+        # the device profile of one served call, a request alone (it waits
+        # out the batching window, which the profiled window holds)
+        prof, (code, _, prof_s) = _profiled(torch, lambda: _post(
+            port, {"num_samples": 1, "seed": 3, "condition": cond_b}))
+        check(code == 200, f"the profiled request returned {code}")
+        emit({"phase": "profile", "path": f"serving request (fp32, ddim-{SERVE_STEPS}, batch "
+                                          f"{SERVE_BATCH} call, over HTTP)",
+              "request_s": prof_s, "batch_window_s": server._batcher.max_wait,
+              **_profile_summary(torch, prof, prof_s * 1e3)})
+        del prof
         health = _get(port, "/health")
         metrics = _get(port, "/metrics")
         info = _get(port, "/model/info")
@@ -1284,6 +1468,14 @@ def _kernel_summary(fwd: dict, bwd: dict, gn: dict, sample_launches: dict,
                "library_note": library_note, "host_ms": tr["host_ms"], "per": run_note}
         if "var_mean_ms" in tr:
             row["var_mean_ms"] = tr["var_mean_ms"]
+        se = gn["totals"].get(("serving", name))
+        if se is not None:
+            check(se["launches"] == serve["launches"][name],
+                  f"{name}: recorded inputs cover {se['launches']} of "
+                  f"{serve['launches'][name]} serving launches")
+            row.update(serve_launches=se["launches"], serve_ms=se["ms"],
+                       serve_plain_ms=se["plain_ms"], serve_bound_ms=se["bound_ms"],
+                       serve_host_ms=se["host_ms"])
         sa = gn["totals"].get(("sampling", name))
         if sa is not None:
             check(sa["launches"] == sample_launches[name],
@@ -1324,7 +1516,14 @@ def _kernel_summary(fwd: dict, bwd: dict, gn: dict, sample_launches: dict,
          "train_step_ms": per(fwd, TRAIN_FWD_PER_STEP, "kernel_ms"),
          "train_step_plain_ms": per(fwd, TRAIN_FWD_PER_STEP, "plain_ms"),
          "train_step_bound_ms": per(fwd, TRAIN_FWD_PER_STEP, "bound_ms"),
-         "train_step_library_ms": per(fwd, TRAIN_FWD_PER_STEP, "library_ms")},
+         "train_step_library_ms": per(fwd, TRAIN_FWD_PER_STEP, "library_ms"),
+         "serve_call_fp32_ms": per(fwd, SERVE_FWD_PER_CALL, "kernel_ms", dtype="float32"),
+         "serve_call_fp32_plain_ms": per(fwd, SERVE_FWD_PER_CALL, "plain_ms", dtype="float32"),
+         "serve_call_fp32_bound_ms": per(fwd, SERVE_FWD_PER_CALL, "bound_ms", dtype="float32"),
+         "serve_call_fp32_library_ms": per(fwd, SERVE_FWD_PER_CALL, "library_ms",
+                                           dtype="float32"),
+         "serve_call_note": "fp32, one merged batch-2 DDIM-50 serving call: the sum over its "
+                            "556 launches (SERVE_FWD_PER_CALL)"},
         flash_bwd("flash_bwd_dq", "dq", "ldm3d_tpu/ops/attention.py:122",
                   "dQ, dK and dV together: the backward of scaled_dot_product_attention (its "
                   "forward + backward less its forward)"),
@@ -1339,7 +1538,6 @@ def _kernel_summary(fwd: dict, bwd: dict, gn: dict, sample_launches: dict,
         conv_row,
     ]
     rows[0]["serve_launches"] = serve["launches"]["flash_fwd"]
-    rows[3]["serve_launches"] = serve["launches"]["gn_sums"]
     return rows
 
 
@@ -1361,6 +1559,7 @@ def main() -> int:
     phase_build()
     fwd = phase_kernel(torch, F)
     bwd = phase_kernel_bwd(torch, F)
+    phase_kernel_c2(torch)
     workdir_root = ROOT / "build" / "chip_smoke"
     workdir_root.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=workdir_root) as workdir:
@@ -1370,6 +1569,7 @@ def main() -> int:
         serve = phase_serve(torch, ns, counts, Path(workdir), card, smi_line)
     gn = phase_kernel_gn(torch, {"sampling": sample_gn, "training": train.pop("gn_cases"),
                                  "serving": serve.pop("gn_cases")})
+    phase_gn_host(torch)
     conv = phase_kernel_conv(torch)
     phase_card_vs_cpu(torch)
     phase_train_card_vs_cpu(torch)

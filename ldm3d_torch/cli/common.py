@@ -1,8 +1,9 @@
 """Shared CLI plumbing of the port.
 
 The subset of ``ldm3d_tpu/cli/common.py`` that sampling, serving and
-training need: the parser (``-c -e --amp --synthetic-data``, plus
-``--device``), config merging, the compute dtype, the environment seed, the
+training need: the parser (every flag of the JAX ``build_parser``, plus
+``--device``) with :func:`reject_unported` for the flags whose paths are
+not ported, config merging, the compute dtype, the environment seed, the
 device rule, the two-stage checkpoints (``best``, or the UNet's ``ema``), the
 sampler and grid-spacing registries with ``make_sampling_scheduler``, and the
 decode-chunk choice.
@@ -32,7 +33,8 @@ from ldm3d_torch.ckpt.manager import CheckpointManager
 from ldm3d_torch.configs import define_instance, preset_path
 from ldm3d_torch.utils import merge_configs_onto_args
 
-__all__ = ["SAMPLERS", "TIMESTEP_SPACINGS", "build_parser", "setup", "resolve_device",
+__all__ = ["SAMPLERS", "TIMESTEP_SPACINGS", "UNPORTED", "build_parser", "reject_unported",
+           "setup", "resolve_device",
            "model_dtype", "env_seed", "save_two_stage", "load_two_stage",
            "make_sampling_scheduler", "default_sampler_steps", "probe_readback_gbps",
            "resolve_decode_chunk"]
@@ -46,17 +48,81 @@ TIMESTEP_SPACINGS = ("leading", "trailing", "karras")
 
 
 def build_parser(description: str) -> argparse.ArgumentParser:
+    """The JAX ``build_parser``'s flags, with the same names and defaults,
+    plus ``--device``. Both CLIs take all of them, as in JAX; the flags
+    whose paths are not ported parse and then raise in
+    :func:`reject_unported`."""
     p = argparse.ArgumentParser(description=description)
     p.add_argument("-e", "--environment-file", default=preset_path("environment.json"),
                    help="environment json file that stores environment paths")
     p.add_argument("-c", "--config-file", default=preset_path("config_train_32g.json"),
                    help="config json file that stores hyper-parameters")
+    p.add_argument("-g", "--gpus", default=0, type=int,
+                   help="number of cards: 0 or 1 run on the one card; more are not ported")
     p.add_argument("--amp", action="store_true", help="bf16 compute (parameters stay fp32)")
+    p.add_argument("--compile", action="store_true",
+                   help="accepted for reference parity; the port runs eager PyTorch and its own "
+                        "CUDA kernels, with no torch.compile")
+    p.add_argument("--profile", action="store_true", help="not ported (torch.profiler window)")
+    p.add_argument("--no-images", action="store_true",
+                   help="no slice images and no periodic sample for TensorBoard (training)")
+    p.add_argument("--max-epochs", type=int, default=None,
+                   help="override config max_epochs (training)")
     p.add_argument("--synthetic-data", action="store_true",
                    help="use generated synthetic pairs when no NPZ dirs are set")
+    p.add_argument("--track", action="store_true", help="not ported (experiment tracker)")
+    p.add_argument("--experiment", default="ldm3d-tpu",
+                   help="experiment name, read only by --track")
+    p.add_argument("--debug-nans", action="store_true", help="not ported")
+    p.add_argument("--grad-accum", type=int, default=1, help="not ported (must be 1)")
+    p.add_argument("--remat", nargs="?", const="full", default=None,
+                   choices=["full", "convs"], help="not ported")
+    p.add_argument("--spatial", type=int, default=1, help="not ported (must be 1)")
+    p.add_argument("--ema-decay", type=float, default=0.0,
+                   help="keep an EMA of the UNet params (e.g. 0.9999), saved as 'ema' (training)")
+    p.add_argument("--multihost", action="store_true", help="not ported")
+    p.add_argument("--tensor", type=int, default=1, help="not ported (must be 1)")
+    p.add_argument("--zero", action="store_true", help="not ported")
+    p.add_argument("--fsdp", action="store_true", help="not ported")
+    p.add_argument("--pipeline", type=int, default=1, help="not ported (must be 1)")
+    p.add_argument("--pipeline-microbatches", type=int, default=0,
+                   help="not ported (must be 0)")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default cuda; pass cpu to run on the CPU)")
     return p
+
+
+# flags of the JAX parser whose paths are not ported: (attribute, the values
+# the port runs, ROADMAP.md queue A item); any other value raises
+_PARALLEL = "'Parallelism'"
+_PIPELINE = "'UNet mid_depth stack, then pipeline parallelism'"
+_FOLLOW_UPS = "'Stage-2 training follow-ups'"
+UNPORTED = (
+    ("gpus", (0, 1), _PARALLEL),
+    ("multihost", (False,), _PARALLEL),
+    ("spatial", (1,), _PARALLEL),
+    ("tensor", (1,), _PARALLEL),
+    ("fsdp", (False,), _PARALLEL),
+    ("zero", (False,), _PARALLEL),
+    ("pipeline", (1,), _PIPELINE),
+    ("pipeline_microbatches", (0,), _PIPELINE),
+    ("remat", (None,), _FOLLOW_UPS),
+    ("grad_accum", (1,), _FOLLOW_UPS),
+    ("profile", (False,), _FOLLOW_UPS),
+    ("track", (False,), _FOLLOW_UPS),
+    ("debug_nans", (False,), _FOLLOW_UPS),
+)
+
+
+def reject_unported(args) -> None:
+    """Raise ``NotImplementedError`` naming its ROADMAP item for the first
+    flag set to a value whose path is not ported."""
+    for attr, ported, item in UNPORTED:
+        value = getattr(args, attr)
+        if value not in ported:
+            flag = "--" + attr.replace("_", "-")
+            raise NotImplementedError(f"{flag} {value} is not ported yet: ROADMAP.md queue A, "
+                                      f"{item}")
 
 
 def setup(args) -> tuple:

@@ -19,7 +19,11 @@ gives the same noise on every device.
 Usage: python -m ldm3d_torch.cli.inference -c CONFIG -e ENV [-n NUM]
        [--sampler ddpm|ddim|dpm|dpm3] [--steps N] [--timestep-spacing S]
        [--batch B] [--guidance W] [--use-ema] [--decode-chunk N|auto] [--amp]
-       [--device cuda|cpu]
+       [--device cuda|cpu] [-g 0|1] [--compile]
+It takes every flag of the JAX parser, as the JAX CLI does; the training
+options among them are read by the trainer only, and the flags whose paths
+are not ported raise ``NotImplementedError`` naming their ROADMAP item
+(``ldm3d_torch.cli.common.UNPORTED``).
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ from ldm3d_torch.cli.common import (
     load_two_stage,
     make_sampling_scheduler,
     model_dtype,
+    reject_unported,
     resolve_decode_chunk,
     setup,
 )
@@ -93,6 +98,7 @@ def main(argv=None, timings: dict | None = None) -> list[str]:
                         help="not ported: one XLA program for loop and decode has no eager "
                              "counterpart (ROADMAP.md queue A, 'CUDA graph of the sampler')")
     args = parser.parse_args(argv)
+    reject_unported(args)
     if args.use_distilled:
         raise NotImplementedError("--use-distilled is not ported yet: ROADMAP.md queue A, "
                                   "'Distillation'")

@@ -17,6 +17,9 @@ generator with the same seed.
 Usage: python -m ldm3d_torch.cli.train_diffusion -c CONFIG -e ENV [--amp]
        [--device cuda|cpu] [--max-epochs N] [--cache-latents] [--ema-decay D]
        [--min-snr-gamma G] [--cond-dropout P] [--unconditional] [--no-images]
+       [-g 0|1] [--compile] [--experiment NAME]
+Every other flag of the JAX parser parses and raises ``NotImplementedError``
+naming its ROADMAP item (``ldm3d_torch.cli.common.UNPORTED``).
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ import numpy as np
 import torch
 
 from ldm3d_torch.ckpt import CheckpointManager
-from ldm3d_torch.cli.common import build_parser, env_seed, model_dtype, setup
+from ldm3d_torch.cli.common import build_parser, env_seed, model_dtype, reject_unported, setup
 from ldm3d_torch.configs import define_instance
 from ldm3d_torch.data import LatentCache, prepare_dataloader
 from ldm3d_torch.diffusion import DDPMScheduler, inferer
@@ -48,26 +51,6 @@ from ldm3d_torch.training import (
 from ldm3d_torch.utils import TrainContext
 
 log = logging.getLogger("train_diffusion")
-
-# flags of the JAX trainer whose paths are not ported, each with its ROADMAP
-# item: (attribute, value that means "off", ROADMAP.md queue A item)
-UNPORTED = (
-    ("spatial", 1, "'Parallelism'"),
-    ("tensor", 1, "'Parallelism'"),
-    ("fsdp", False, "'Parallelism'"),
-    ("zero", False, "'Parallelism'"),
-    ("pipeline", 1, "'UNet mid_depth stack, then pipeline parallelism'"),
-    ("remat", None, "'Stage-2 training follow-ups'"),
-    ("grad_accum", 1, "'Stage-2 training follow-ups'"),
-)
-
-
-def _reject_unported(args) -> None:
-    for attr, off, item in UNPORTED:
-        if getattr(args, attr) != off:
-            flag = "--" + attr.replace("_", "-")
-            raise NotImplementedError(f"{flag} is not ported yet: ROADMAP.md queue A, {item}")
-
 
 def load_frozen_autoencoder(args, device: torch.device, dtype: torch.dtype):
     """The stage-1 VAE with its ``best`` params, frozen, in eval mode."""
@@ -106,20 +89,6 @@ def build_parser_train():
                         help="Min-SNR loss weighting gamma (0 = off; the paper recommends 5.0)")
     parser.add_argument("--cache-latents", action="store_true",
                         help="encode the dataset's posteriors once and train in latent space")
-    parser.add_argument("--ema-decay", type=float, default=0.0,
-                        help="keep an EMA of the UNet params (e.g. 0.9999), saved as 'ema'")
-    parser.add_argument("--max-epochs", type=int, default=None, help="override config max_epochs")
-    parser.add_argument("--no-images", action="store_true",
-                        help="no slice images and no periodic sample for TensorBoard")
-    # flags of the JAX trainer whose paths are not ported: they raise
-    parser.add_argument("--grad-accum", type=int, default=1, help="not ported (must be 1)")
-    parser.add_argument("--remat", nargs="?", const="full", default=None,
-                        choices=["full", "convs"], help="not ported")
-    parser.add_argument("--spatial", type=int, default=1, help="not ported (must be 1)")
-    parser.add_argument("--tensor", type=int, default=1, help="not ported (must be 1)")
-    parser.add_argument("--fsdp", action="store_true", help="not ported")
-    parser.add_argument("--zero", action="store_true", help="not ported")
-    parser.add_argument("--pipeline", type=int, default=1, help="not ported (must be 1)")
     return parser
 
 
@@ -130,7 +99,7 @@ def main(argv=None, timings: dict | None = None) -> float:
     per validation pass; ``diffusion_loss`` per step; ``val_batches``, the
     batch count of each validation pass; and ``scale_factor``."""
     args = build_parser_train().parse_args(argv)
-    _reject_unported(args)
+    reject_unported(args)
     args, device = setup(args)
     dt = model_dtype(args)
     train_cfg = args.diffusion_train

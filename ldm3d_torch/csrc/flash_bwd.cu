@@ -21,17 +21,20 @@
 // flagship's d = 64 and n = 1000 both are bound by the bf16 tensor cores
 // (989 TFLOP/s); the 125-token level is bound by its bytes.
 //
-// Two routes, by dtype, in each entry point; no switch and no fallback:
+// Three routes, by dtype and head_dim, in each entry point; no switch and no
+// fallback. Each grid puts batch * heads and the row tiles on grid.x (tiles
+// of one (batch, head) side by side), where the limit is 2^31 - 1 blocks:
 //
-// * bf16: flash_bwd_dq_bf16_mma_kernel and flash_bwd_dkv_bf16_mma_kernel,
-//   FlashAttention-2's backward on the warp-level tensor cores (mma.sync
-//   m16n8k16, bf16 in, fp32 accumulators; mma_sm90.cuh), as two kernels.
-//   - dQ: grid = (ceil(n / 128), batch * heads); 8 warps own 16 query rows
+// * bf16, d <= 256: flash_bwd_dq_bf16_mma_kernel and
+//   flash_bwd_dkv_bf16_mma_kernel, FlashAttention-2's backward on the
+//   warp-level tensor cores (mma.sync m16n8k16, bf16 in, fp32 accumulators;
+//   mma_sm90.cuh), as two kernels.
+//   - dQ: grid = (batch * heads * ceil(n / 128)); 8 warps own 16 query rows
 //     each. Q and dO stay in shared memory; the K and V tiles (32 keys, 64
 //     at DMAX = 128) stream through a cp.async ring of (K, V) slots, one
 //     barrier a tile. S = Q K^T and dP = dO V^T take K and V through
 //     ldmatrix; dQ += dS K takes K through ldmatrix.trans.
-//   - dK/dV: grid = (ceil(kv_len / 128), batch * heads, head-dim halves);
+//   - dK/dV: grid = (batch * heads * ceil(kv_len / 128), head-dim halves);
 //     8 warps own 16 keys each. K and V stay in shared memory; the Q and dO
 //     tiles (32 queries) with their LSE and D stream through the ring.
 //     S^T = K Q^T and dP^T = V dO^T take Q and dO through ldmatrix;
@@ -63,9 +66,9 @@
 //   - bf16 tiles stay bf16 in shared memory, rows padded by 16 bytes so the
 //     8 rows of an ldmatrix fall in 8 different bank groups.
 //
-// * fp32: flash_bwd_dq_fp32_kernel and flash_bwd_dkv_fp32_kernel, scalar
-//   fp32 FMA fed from shared memory. Tensor cores in fp32 would mean TF32,
-//   which the fp32 limit (1e-4 of the largest |grad|) does not allow.
+// * fp32, d <= 256: flash_bwd_dq_fp32_kernel and flash_bwd_dkv_fp32_kernel,
+//   scalar fp32 FMA fed from shared memory (not yet redesigned: the
+//   forward's 3xTF32 split on the tensor cores is queued for them).
 //   - dQ: one block of 256 threads owns BM query rows and loops over kv
 //     tiles of BN keys. q (pre-scaled), dO, the k tile and the v tile sit in
 //     shared memory as fp32 with a row pitch of d+1 floats (16 threads
@@ -79,11 +82,18 @@
 //   - tiles by DMAX: BM = BN = 64 up to d = 128; at d = 256, dQ takes
 //     BN = 32 and dK/dV BM = BN = 32 (201 KB and 137 KB of shared memory).
 //
-// Both routes mask the ragged edges without copies: rows past n and keys
+// * d > 256, either dtype: flash_bwd_dq_wide_kernel and
+//   flash_bwd_dkv_wide_kernel, scalar FMA. grid.y splits the head dims of dQ
+//   (blocks of 128) and of dK and dV (blocks of 64); each block recomputes S
+//   and dP over the whole d, streaming 16-dim chunks of Q, dO, K and V
+//   through shared memory, and takes its own output dims. A plain route
+//   that is right; its times are in PERF.md.
+//
+// Every route masks the ragged edges without copies: rows past n and keys
 // past kv_len load zeros (cp.async with src-size 0 on the bf16 route), P is
-// 0 past either edge, and nothing is stored past it; head dims past d (any
-// multiple of 8 up to 256) are zero in shared memory, skipped as k-steps and
-// not stored. q, k, v and dO are read through their (B, n, h, d) strides:
+// 0 past either edge, and nothing is stored past it; head dims past d (a
+// multiple of 8: the wrapper zero-pads other widths) are zero in shared
+// memory, skipped as k-steps and not stored. q, k, v and dO are read through their (B, n, h, d) strides:
 // the attention block's q, k, v are strided views of one fused qkv
 // projection. The bf16 route needs their base pointers and strides on 16
 // bytes (the wrapper checks). Every instantiation's shared memory is
@@ -97,6 +107,7 @@
 #include <stdint.h>
 
 #include "mma_sm90.cuh"
+#include "scalar_tiles.cuh"
 
 namespace {
 
@@ -220,7 +231,7 @@ __device__ __forceinline__ void store_rows(const float (&acc)[NTILES][4], float 
   }
 }
 
-// dQ. Grid (ceil(n / BM), batch * heads). The K and V tiles stream through a
+// dQ. Grid (batch * heads * ceil(n / BM)). The K and V tiles stream through a
 // ring of SLOTS (K_j, V_j) pairs: while one pair is multiplied, the copies
 // of the next SLOTS - 1 are in flight. The accumulators of S, dP and dQ take
 // BN / 2 + DMAX / 2 fp32 registers a thread: 48 at DMAX = 64, two blocks an
@@ -250,10 +261,11 @@ __global__ void __launch_bounds__(MMA_NT, DMAX <= 64 ? 2 : 1) flash_bwd_dq_bf16_
   const int lane = threadIdx.x % 32;
   const int g = lane / 4;  // C rows g and g + 8
   const int t = lane % 4;  // C columns 2t and 2t + 1
-  const int bh = blockIdx.y;
+  const int q_tiles = (n + BM - 1) / BM;
+  const int bh = blockIdx.x / q_tiles;
   const int b = bh / H;
   const int h = bh - b * H;
-  const int row0 = blockIdx.x * BM;
+  const int row0 = (blockIdx.x - bh * q_tiles) * BM;
   const int n_tiles = (kv_len + BN - 1) / BN;
 
   const bf16* qb = q + b * st.q_sb + h * st.q_sh;
@@ -376,7 +388,7 @@ __global__ void __launch_bounds__(MMA_NT, DMAX <= 64 ? 2 : 1) flash_bwd_dq_bf16_
                      0);
 }
 
-// dK and dV. Grid (ceil(kv_len / BN), batch * heads, ceil(d / DOUT)). The Q
+// dK and dV. Grid (batch * heads * ceil(kv_len / BN), ceil(d / DOUT)). The Q
 // and dO tiles, with their LSE and D, stream through a ring of SLOTS slots.
 // The accumulators of S^T, dP^T, dK and dV take BM + DOUT fp32 registers a
 // thread: 96 at DMAX = 64, two blocks an SM; 160 above, one block.
@@ -405,11 +417,12 @@ __global__ void __launch_bounds__(MMA_NT, DMAX <= 64 ? 2 : 1) flash_bwd_dkv_bf16
   const int lane = threadIdx.x % 32;
   const int g = lane / 4;  // C rows (keys) g and g + 8
   const int t = lane % 4;  // C columns (queries) 2t and 2t + 1
-  const int bh = blockIdx.y;
+  const int k_tiles = (kv_len + BN - 1) / BN;
+  const int bh = blockIdx.x / k_tiles;
   const int b = bh / H;
   const int h = bh - b * H;
-  const int key0 = blockIdx.x * BN;
-  const int col0 = blockIdx.z * T::DOUT;
+  const int key0 = (blockIdx.x - bh * k_tiles) * BN;
+  const int col0 = blockIdx.y * T::DOUT;
   const int n_tiles = (n + BM - 1) / BM;
 
   const bf16* qb = q + b * st.q_sb + h * st.q_sh;
@@ -557,7 +570,7 @@ cudaError_t launch_dq_bf16(const void* q, const void* k, const void* v, const vo
   static std::atomic<unsigned long long> opted_in{0};
   cudaError_t err = opt_in_once(kernel, T::SMEM, opted_in);
   if (err != cudaSuccess) return err;
-  const dim3 grid((n + T::BM - 1) / T::BM, B * H);
+  const dim3 grid((unsigned)((n + T::BM - 1) / T::BM * (int64_t)B * H));
   kernel<<<grid, MMA_NT, T::SMEM, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(dout), static_cast<const float*>(lse),
@@ -577,7 +590,8 @@ cudaError_t launch_dkv_bf16(const void* q, const void* k, const void* v, const v
   static std::atomic<unsigned long long> opted_in{0};
   cudaError_t err = opt_in_once(kernel, T::SMEM, opted_in);
   if (err != cudaSuccess) return err;
-  const dim3 grid((kv_len + T::BN - 1) / T::BN, B * H, (d + T::DOUT - 1) / T::DOUT);
+  const dim3 grid((unsigned)((kv_len + T::BN - 1) / T::BN * (int64_t)B * H),
+                  (d + T::DOUT - 1) / T::DOUT);
   kernel<<<grid, MMA_NT, T::SMEM, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(dout), static_cast<const float*>(lse),
@@ -647,10 +661,11 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_fp32_kernel(
 
   const int tx = threadIdx.x % TX;
   const int ty = threadIdx.x / TX;
-  const int bh = blockIdx.y;
+  const int q_tiles = (n + BM - 1) / BM;
+  const int bh = blockIdx.x / q_tiles;
   const int b = bh / H;
   const int h = bh - b * H;
-  const int row0 = blockIdx.x * BM;
+  const int row0 = (blockIdx.x - bh * q_tiles) * BM;
 
   const float* qb = q + b * st.q_sb + h * st.q_sh;
   const float* kb = k + b * st.k_sb + h * st.k_sh;
@@ -769,10 +784,11 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_fp32_kernel(
 
   const int tx = threadIdx.x % TX;
   const int ty = threadIdx.x / TX;
-  const int bh = blockIdx.y;
+  const int k_tiles = (kv_len + BN - 1) / BN;
+  const int bh = blockIdx.x / k_tiles;
   const int b = bh / H;
   const int h = bh - b * H;
-  const int key0 = blockIdx.x * BN;
+  const int key0 = (blockIdx.x - bh * k_tiles) * BN;
 
   const float* qb = q + b * st.q_sb + h * st.q_sh;
   const float* kb = k + b * st.k_sb + h * st.k_sh;
@@ -893,7 +909,7 @@ cudaError_t launch_dq_fp32(const void* q, const void* k, const void* v, const vo
   static std::atomic<unsigned long long> opted_in{0};
   cudaError_t err = opt_in_once(kernel, dq_smem_bytes(DMAX, BM, BN), opted_in);
   if (err != cudaSuccess) return err;
-  const dim3 grid((n + BM - 1) / BM, B * H);
+  const dim3 grid((unsigned)((n + BM - 1) / BM * (int64_t)B * H));
   kernel<<<grid, NT, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(dout), static_cast<const float*>(lse),
@@ -916,7 +932,7 @@ cudaError_t launch_dkv_fp32(const void* q, const void* k, const void* v, const v
   static std::atomic<unsigned long long> opted_in{0};
   cudaError_t err = opt_in_once(kernel, dkv_smem_bytes(DMAX, BM, BN), opted_in);
   if (err != cudaSuccess) return err;
-  const dim3 grid((kv_len + BN - 1) / BN, B * H);
+  const dim3 grid((unsigned)((kv_len + BN - 1) / BN * (int64_t)B * H));
   kernel<<<grid, NT, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(dout), static_cast<const float*>(lse),
@@ -925,9 +941,300 @@ cudaError_t launch_dkv_fp32(const void* q, const void* k, const void* v, const v
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// head_dim > 256, either dtype: scalar FMA, the output's head dims over grid.y
+
+constexpr int W_T = 16;     // the block is W_T x W_T threads
+constexpr int W_NT = W_T * W_T;
+constexpr int W_DC = 16;    // head dims per chunk of S and dP
+
+// dQ, d > 256. Grid (batch * heads * ceil(n / BM), ceil(d / DOUT)). Each
+// block owns BM query rows and DOUT head dims of dQ; for each tile of BN keys
+// it recomputes S and dP over the whole d, streaming W_DC-dim chunks of Q,
+// dO, K and V through shared memory, puts dS in shared memory and adds
+// dS K for its DOUT columns. Thread (ty, tx) owns rows ty + 16i, keys
+// tx + 16j and head dims tx + 16c.
+template <typename T>
+__global__ void __launch_bounds__(W_NT) flash_bwd_dq_wide_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ dvec,
+    T* __restrict__ dq, int H, int n, int kv_len, int d, Strides st, float scale) {
+  constexpr int BM = 64, BN = 32, DOUT = 128;
+  constexpr int RM = BM / W_T, RN = BN / W_T, RD = DOUT / W_T;
+  __shared__ float qc[BM][W_DC + 1];
+  __shared__ float oc[BM][W_DC + 1];
+  __shared__ float kc[BN][W_DC + 1];
+  __shared__ float vc[BN][W_DC + 1];
+  __shared__ float dss[BM][BN + 1];
+  __shared__ float kt[BN][DOUT + 1];
+
+  const int tx = threadIdx.x % W_T;
+  const int ty = threadIdx.x / W_T;
+  const int q_tiles = (n + BM - 1) / BM;
+  const int bh = blockIdx.x / q_tiles;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int row0 = (blockIdx.x - bh * q_tiles) * BM;
+  const int col0 = blockIdx.y * DOUT;
+  const T* qb = q + b * st.q_sb + h * st.q_sh;
+  const T* kb = k + b * st.k_sb + h * st.k_sh;
+  const T* vb = v + b * st.v_sb + h * st.v_sh;
+  const T* ob = dout + b * st.o_sb + h * st.o_sh;
+
+  float row_lse[RM], row_d[RM], acc[RM][RD];
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    const int row = row0 + ty + W_T * i;
+    row_lse[i] = row < n ? lse[(int64_t)bh * n + row] : 0.f;
+    row_d[i] = row < n ? dvec[(int64_t)bh * n + row] : 0.f;
+#pragma unroll
+    for (int c = 0; c < RD; ++c) acc[i][c] = 0.f;
+  }
+
+  for (int kv0 = 0; kv0 < kv_len; kv0 += BN) {
+    float s[RM][RN], dp[RM][RN];
+#pragma unroll
+    for (int i = 0; i < RM; ++i)
+#pragma unroll
+      for (int j = 0; j < RN; ++j) s[i][j] = dp[i][j] = 0.f;
+    for (int c0 = 0; c0 < d; c0 += W_DC) {
+      __syncthreads();  // the previous chunk, dS and the K tile are no longer read
+      ldm3d::load_chunk<BM, W_DC, W_NT>(qc, qb, st.q_sn, row0, n, c0, d);
+      ldm3d::load_chunk<BM, W_DC, W_NT>(oc, ob, st.o_sn, row0, n, c0, d);
+      ldm3d::load_chunk<BN, W_DC, W_NT>(kc, kb, st.k_sn, kv0, kv_len, c0, d);
+      ldm3d::load_chunk<BN, W_DC, W_NT>(vc, vb, st.v_sn, kv0, kv_len, c0, d);
+      __syncthreads();
+#pragma unroll
+      for (int c = 0; c < W_DC; ++c) {
+        float qv[RM], ov[RM], kv[RN], vv[RN];
+#pragma unroll
+        for (int i = 0; i < RM; ++i) {
+          qv[i] = qc[ty + W_T * i][c];
+          ov[i] = oc[ty + W_T * i][c];
+        }
+#pragma unroll
+        for (int j = 0; j < RN; ++j) {
+          kv[j] = kc[tx + W_T * j][c];
+          vv[j] = vc[tx + W_T * j][c];
+        }
+#pragma unroll
+        for (int i = 0; i < RM; ++i)
+#pragma unroll
+          for (int j = 0; j < RN; ++j) {
+            s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+            dp[i][j] = fmaf(ov[i], vv[j], dp[i][j]);
+          }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < RM; ++i) {
+      const bool row_ok = row0 + ty + W_T * i < n;
+#pragma unroll
+      for (int j = 0; j < RN; ++j) {
+        const bool key_ok = kv0 + tx + W_T * j < kv_len;
+        const float p = row_ok && key_ok ? expf(s[i][j] * scale - row_lse[i]) : 0.f;
+        dss[ty + W_T * i][tx + W_T * j] = p * (dp[i][j] - row_d[i]);
+      }
+    }
+    ldm3d::load_chunk<BN, DOUT, W_NT>(kt, kb, st.k_sn, kv0, kv_len, col0, d);
+    __syncthreads();  // dS and the K tile are visible
+
+    const int nk = min(BN, kv_len - kv0);
+    for (int kk = 0; kk < nk; ++kk) {
+      float ds[RM];
+#pragma unroll
+      for (int i = 0; i < RM; ++i) ds[i] = dss[ty + W_T * i][kk];
+#pragma unroll
+      for (int c = 0; c < RD; ++c) {
+        const float kval = kt[kk][tx + W_T * c];
+#pragma unroll
+        for (int i = 0; i < RM; ++i) acc[i][c] = fmaf(ds[i], kval, acc[i][c]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    const int row = row0 + ty + W_T * i;
+    if (row >= n) continue;
+    T* out = dq + ((int64_t)(b * n + row) * H + h) * d;
+#pragma unroll
+    for (int c = 0; c < RD; ++c) {
+      const int col = col0 + tx + W_T * c;
+      if (col < d) ldm3d::store(out + col, scale * acc[i][c]);
+    }
+  }
+}
+
+// dK and dV, d > 256. Grid (batch * heads * ceil(kv_len / BN), ceil(d /
+// DOUT)). Each block owns BN keys and DOUT head dims of dK and dV; for each
+// tile of BM queries it recomputes S^T and dP^T over the whole d in W_DC-dim
+// chunks, puts P^T and dS^T in shared memory and adds P^T dO and dS^T Q for
+// its DOUT columns. Thread (ty, tx) owns keys ty + 16i, queries tx + 16j and
+// head dims tx + 16c.
+template <typename T>
+__global__ void __launch_bounds__(W_NT) flash_bwd_dkv_wide_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ dvec,
+    T* __restrict__ dk, T* __restrict__ dv, int H, int n, int kv_len, int d, Strides st,
+    float scale) {
+  constexpr int BN = 32, BM = 32, DOUT = 64;
+  constexpr int RK = BN / W_T, RQ = BM / W_T, RD = DOUT / W_T;
+  __shared__ float kc[BN][W_DC + 1];
+  __shared__ float vc[BN][W_DC + 1];
+  __shared__ float qc[BM][W_DC + 1];
+  __shared__ float oc[BM][W_DC + 1];
+  __shared__ float pt[BN][BM + 1];
+  __shared__ float dst[BN][BM + 1];
+  __shared__ float qt[BM][DOUT + 1];
+  __shared__ float ot[BM][DOUT + 1];
+  __shared__ float lse_s[BM];
+  __shared__ float d_s[BM];
+
+  const int tx = threadIdx.x % W_T;
+  const int ty = threadIdx.x / W_T;
+  const int k_tiles = (kv_len + BN - 1) / BN;
+  const int bh = blockIdx.x / k_tiles;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int key0 = (blockIdx.x - bh * k_tiles) * BN;
+  const int col0 = blockIdx.y * DOUT;
+  const T* qb = q + b * st.q_sb + h * st.q_sh;
+  const T* kb = k + b * st.k_sb + h * st.k_sh;
+  const T* vb = v + b * st.v_sb + h * st.v_sh;
+  const T* ob = dout + b * st.o_sb + h * st.o_sh;
+
+  float acc_k[RK][RD], acc_v[RK][RD];
+#pragma unroll
+  for (int i = 0; i < RK; ++i)
+#pragma unroll
+    for (int c = 0; c < RD; ++c) acc_k[i][c] = acc_v[i][c] = 0.f;
+
+  for (int q0 = 0; q0 < n; q0 += BM) {
+    float s[RK][RQ], dp[RK][RQ];
+#pragma unroll
+    for (int i = 0; i < RK; ++i)
+#pragma unroll
+      for (int j = 0; j < RQ; ++j) s[i][j] = dp[i][j] = 0.f;
+    for (int c0 = 0; c0 < d; c0 += W_DC) {
+      __syncthreads();  // the previous chunk, P^T, dS^T, LSE, D and the Q, dO tiles are no longer read
+      if (c0 == 0)
+        for (int r = threadIdx.x; r < BM; r += W_NT) {
+          const bool ok = q0 + r < n;
+          lse_s[r] = ok ? lse[(int64_t)bh * n + q0 + r] : 0.f;
+          d_s[r] = ok ? dvec[(int64_t)bh * n + q0 + r] : 0.f;
+        }
+      ldm3d::load_chunk<BN, W_DC, W_NT>(kc, kb, st.k_sn, key0, kv_len, c0, d);
+      ldm3d::load_chunk<BN, W_DC, W_NT>(vc, vb, st.v_sn, key0, kv_len, c0, d);
+      ldm3d::load_chunk<BM, W_DC, W_NT>(qc, qb, st.q_sn, q0, n, c0, d);
+      ldm3d::load_chunk<BM, W_DC, W_NT>(oc, ob, st.o_sn, q0, n, c0, d);
+      __syncthreads();
+#pragma unroll
+      for (int c = 0; c < W_DC; ++c) {
+        float kv[RK], vv[RK], qv[RQ], ov[RQ];
+#pragma unroll
+        for (int i = 0; i < RK; ++i) {
+          kv[i] = kc[ty + W_T * i][c];
+          vv[i] = vc[ty + W_T * i][c];
+        }
+#pragma unroll
+        for (int j = 0; j < RQ; ++j) {
+          qv[j] = qc[tx + W_T * j][c];
+          ov[j] = oc[tx + W_T * j][c];
+        }
+#pragma unroll
+        for (int i = 0; i < RK; ++i)
+#pragma unroll
+          for (int j = 0; j < RQ; ++j) {
+            s[i][j] = fmaf(kv[i], qv[j], s[i][j]);
+            dp[i][j] = fmaf(vv[i], ov[j], dp[i][j]);
+          }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < RK; ++i) {
+      const bool key_ok = key0 + ty + W_T * i < kv_len;
+#pragma unroll
+      for (int j = 0; j < RQ; ++j) {
+        const int r = tx + W_T * j;
+        const float p = key_ok && q0 + r < n ? expf(s[i][j] * scale - lse_s[r]) : 0.f;
+        pt[ty + W_T * i][r] = p;
+        dst[ty + W_T * i][r] = p * (dp[i][j] - d_s[r]);
+      }
+    }
+    ldm3d::load_chunk<BM, DOUT, W_NT>(qt, qb, st.q_sn, q0, n, col0, d);
+    ldm3d::load_chunk<BM, DOUT, W_NT>(ot, ob, st.o_sn, q0, n, col0, d);
+    __syncthreads();  // P^T, dS^T and the Q, dO tiles are visible
+
+    const int nq = min(BM, n - q0);
+    for (int qq = 0; qq < nq; ++qq) {
+      float pv[RK], dsv[RK];
+#pragma unroll
+      for (int i = 0; i < RK; ++i) {
+        pv[i] = pt[ty + W_T * i][qq];
+        dsv[i] = dst[ty + W_T * i][qq];
+      }
+#pragma unroll
+      for (int c = 0; c < RD; ++c) {
+        const float ov = ot[qq][tx + W_T * c];
+        const float qv = qt[qq][tx + W_T * c];
+#pragma unroll
+        for (int i = 0; i < RK; ++i) {
+          acc_v[i][c] = fmaf(pv[i], ov, acc_v[i][c]);
+          acc_k[i][c] = fmaf(dsv[i], qv, acc_k[i][c]);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < RK; ++i) {
+    const int key = key0 + ty + W_T * i;
+    if (key >= kv_len) continue;
+    const int64_t base = ((int64_t)(b * kv_len + key) * H + h) * d;
+#pragma unroll
+    for (int c = 0; c < RD; ++c) {
+      const int col = col0 + tx + W_T * c;
+      if (col < d) {
+        ldm3d::store(dk + base + col, scale * acc_k[i][c]);
+        ldm3d::store(dv + base + col, acc_v[i][c]);
+      }
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch_dq_wide(const void* q, const void* k, const void* v, const void* dout,
+                           const void* lse, const void* dvec, void* dq, int B, int H, int n,
+                           int kv_len, int d, const Strides& st, float scale,
+                           cudaStream_t stream) {
+  const dim3 grid((unsigned)((n + 63) / 64 * (int64_t)B * H), (d + 127) / 128);
+  flash_bwd_dq_wide_kernel<T><<<grid, W_NT, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(dvec), static_cast<T*>(dq), H, n, kv_len, d, st, scale);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_dkv_wide(const void* q, const void* k, const void* v, const void* dout,
+                            const void* lse, const void* dvec, void* dk, void* dv, int B, int H,
+                            int n, int kv_len, int d, const Strides& st, float scale,
+                            cudaStream_t stream) {
+  const dim3 grid((unsigned)((kv_len + 31) / 32 * (int64_t)B * H), (d + 63) / 64);
+  flash_bwd_dkv_wide_kernel<T><<<grid, W_NT, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(dvec), static_cast<T*>(dk), static_cast<T*>(dv), H, n, kv_len,
+      d, st, scale);
+  return cudaGetLastError();
+}
+
+// d a multiple of 8 (the wrapper pads other widths), and a grid of at most
+// 2^31 - 1 blocks (the smallest tiles, 32 rows, bound it)
 bool bad_shape(int B, int H, int n, int kv_len, int d) {
-  return B <= 0 || H <= 0 || n <= 0 || kv_len <= 0 || d <= 0 || d > 256 || d % 8 != 0 ||
-         B * H > 65535;
+  return B <= 0 || H <= 0 || n <= 0 || kv_len <= 0 || d <= 0 || d % 8 != 0 ||
+         (int64_t)B * H * ((n > kv_len ? n : kv_len) + 31) / 32 > INT32_MAX;
 }
 
 Strides to_strides(const int64_t* s) {
@@ -937,7 +1244,9 @@ Strides to_strides(const int64_t* s) {
 }  // namespace
 
 // q, dO: (B, n, H, d); k, v: (B, kv_len, H, d); each with unit stride on d,
-// and in bf16 with base pointers and strides on 16 bytes.
+// and in bf16 with base pointers and strides on 16 bytes; d a multiple of 8,
+// any B * H. Routes: d <= 256 by dtype, the tensor-core or the scalar fp32
+// kernel; d > 256 the wide kernel of either dtype.
 // strides: 12 int64 element strides, (sb, sn, sh) of q, k, v, dO in that order.
 // lse, dvec: contiguous (B*H, n) fp32. dq: contiguous (B, n, H, d) in the input dtype.
 // Returns the launch's cudaError_t (0 on success); allocates nothing.
@@ -949,6 +1258,7 @@ extern "C" int ldm3d_flash_bwd_dq(const void* q, const void* k, const void* v, c
   const Strides st = to_strides(strides);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define LDM3D_DQ(R, D) launch_dq_##R<D>(q, k, v, dout, lse, dvec, dq, B, H, n, kv_len, d, st, scale, s)
+  if (d > 256) return (int)(is_bf16 ? LDM3D_DQ(wide, bf16) : LDM3D_DQ(wide, float));
   if (is_bf16) {
     if (d <= 64) return (int)LDM3D_DQ(bf16, 64);
     if (d <= 128) return (int)LDM3D_DQ(bf16, 128);
@@ -970,6 +1280,7 @@ extern "C" int ldm3d_flash_bwd_dkv(const void* q, const void* k, const void* v, 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define LDM3D_DKV(R, D) \
   launch_dkv_##R<D>(q, k, v, dout, lse, dvec, dk, dv, B, H, n, kv_len, d, st, scale, s)
+  if (d > 256) return (int)(is_bf16 ? LDM3D_DKV(wide, bf16) : LDM3D_DKV(wide, float));
   if (is_bf16) {
     if (d <= 64) return (int)LDM3D_DKV(bf16, 64);
     if (d <= 128) return (int)LDM3D_DKV(bf16, 128);

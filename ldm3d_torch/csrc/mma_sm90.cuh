@@ -1,7 +1,8 @@
 // Warp-level tensor-core building blocks for sm_90a, shared by the port's
 // hand-written kernels: cp.async copies into shared memory (with zero-fill),
-// ldmatrix fragment loads, the bf16 m16n8k16 mma.sync with fp32
-// accumulators, and the packing of fp32 accumulators into bf16 operands.
+// ldmatrix fragment loads, the bf16 m16n8k16 and the tf32 m16n8k8 mma.sync
+// with fp32 accumulators, the packing of fp32 accumulators into bf16
+// operands, and the split of an fp32 value into two tf32 parts.
 //
 // Fragment layouts of mma.sync.m16n8k16.row.col (lane = 4 * g + t, g the
 // group of four lanes, t the lane within it):
@@ -12,6 +13,16 @@
 //   C (16 x 8, fp32), four floats: c0, c1 = C[g][2t, 2t+1], c2, c3 = C[g+8][2t, 2t+1]
 // The C layout of two neighbouring n-tiles is the A layout of one k-step, so
 // a product's accumulators become the next product's A operand in registers.
+//
+// Fragment layouts of mma.sync.m16n8k8.row.col with .tf32 operands (one
+// tf32 value in each b32 register):
+//   A (16 x 8): a0 = A[g][t]   a1 = A[g+8][t]   a2 = A[g][t+4]   a3 = A[g+8][t+4]
+//   B (8 x 8):  b0 = B[t][g]   b1 = B[t+4][g]
+//   C (16 x 8): as above, c0, c1 = C[g][2t, 2t+1], c2, c3 = C[g+8][2t, 2t+1]
+// Here the C layout is not the A layout: C holds columns 2t and 2t+1 where A
+// wants t and t+4. A kernel that feeds C back as A keeps the registers where
+// they are (a0, a1, a2, a3 = c0, c2, c1, c3), so that its k index t stands for
+// column 2t of C and t+4 for 2t+1, and loads B's rows in the same order.
 
 #pragma once
 
@@ -91,6 +102,26 @@ __device__ __forceinline__ void pack_bf16_split(float x0, float x1, uint32_t& hi
   const float2 hf = __bfloat1622float2(h);
   hi = *reinterpret_cast<const uint32_t*>(&h);
   lo = pack_bf16(x0 - hf.x, x1 - hf.y);
+}
+
+// c += a * b for one m16n8k8 tile, tf32 in, fp32 accumulate.
+__device__ __forceinline__ void mma_tf32_1688(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                              uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// An fp32 value as two tf32 values whose sum carries it to about 2^-21 of
+// itself: hi rounded to nearest (ties away from zero, as cvt.rna.tf32.f32
+// for finite x), lo the remainder x - hi (exact in fp32) truncated to tf32.
+// Three mma.sync, lo*hi + hi*lo + hi*hi, give the product of two fp32
+// values to about 2^-20 of it (the lo*lo term is dropped): "3xTF32".
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi)) & 0xffffe000u;
 }
 
 }  // namespace ldm3d

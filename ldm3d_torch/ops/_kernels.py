@@ -183,7 +183,8 @@ def flash_bwd_library() -> ctypes.CDLL:
 def groupnorm_library() -> ctypes.CDLL:
     """The GroupNorm voxel-sums library (forward and backward), built on first call."""
     lib = ctypes.CDLL(str(build_library("groupnorm_sums.cu")))
-    lib.ldm3d_gn_sums.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _STRIDES, _I, _P]
+    lib.ldm3d_gn_sums.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_int64,
+                                  ctypes.c_int64, _I, _I, _I, _I, _I, _P]
     lib.ldm3d_gn_sums.restype = ctypes.c_int
     lib.ldm3d_gn_bwd_sums.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _STRIDES,
                                       _I, _P]

@@ -13,7 +13,10 @@ queued behind a spin kernel, the median of several loops; ``host_ms`` is the
 host's cost to issue one call. ``bound_ms`` is the larger of the flops over
 the card's peak for the dtype and the bytes (x, w and y once) over its
 memory rate; ``frac_peak`` is the flops over kernel time over that peak.
-Peaks are the NVIDIA H100 SXM data sheet's, at the full 700 W.
+Peaks are the NVIDIA H100 SXM data sheet's, at the full 700 W: bf16 on the
+tensor cores, and fp32 at the rate of fp32-accurate products there (TF32 with
+each operand split in two, three products each: 495 / 3 TFLOP/s), which is
+above the CUDA cores' 67.
 
     python -m ldm3d_torch.tools.conv_ab                      # every shape, bf16 and fp32
     python -m ldm3d_torch.tools.conv_ab --shape 8,64,64,64,64
@@ -36,8 +39,9 @@ from ldm3d_torch.ops.conv3d import conv3d_igemm, conv3d_ref
 # serving decode), and the port's 80^3 decoder level 0 at batch 1
 SHAPES = ((8, 64, 64, 64, 64), (8, 96, 96, 96, 64), (2, 96, 96, 96, 64), (1, 80, 80, 80, 64))
 DTYPES = ("bfloat16", "float32")
-# NVIDIA H100 SXM: dense bf16 tensor cores, fp32 on the CUDA cores; HBM3
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# NVIDIA H100 SXM: dense bf16 tensor cores; fp32 as 3xTF32 on the tensor
+# cores (dense TF32 495 TFLOP/s, three products for each fp32 one); HBM3
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 495e12 / 3}
 HBM_BYTES_PER_S = 3.35e12
 # kernel against plain, relative to the largest |plain| of the shape
 REL_TOL = {"float32": 1e-5, "bfloat16": 2.0**-7}

@@ -122,3 +122,57 @@ def test_groupnorm_forward_and_vjp_match_jax(dtype, shape, groups):
         want = np.asarray(want, dtype=np.float32)
         tol = ATOL if dtype == "float32" else 2.0**-6 * np.abs(want).max()
         np.testing.assert_allclose(got, want, atol=tol, rtol=0, err_msg=name)
+
+
+# --- the launch plan of the one-launch gn_sums kernel (csrc/groupnorm_sums.cu)
+
+def _plan_hits(plan):
+    """How often the kernel's threads read each (batch, voxel, channel) under
+    ``plan``: block (group, split, b) of ``ct`` channel lanes x ``rows`` voxel
+    rows, lane tx reading channels group * ct * vec + tx * vec + e (e < vec)
+    where they start below C, row ty voxels split * chunk + ty, + rows, ...
+    below the chunk's end and V."""
+    groups, nsplit, b = plan.grid
+    hits = np.zeros((b, plan.v, plan.c), np.int64)
+    tx = np.arange(plan.ct)
+    for g in range(groups):
+        c0 = g * plan.ct * plan.vec + tx * plan.vec
+        chans = (c0[c0 < plan.c][:, None] + np.arange(plan.vec)).ravel()
+        for s in range(nsplit):
+            v0, v1 = s * plan.chunk, min(plan.v, (s + 1) * plan.chunk)
+            voxels = np.concatenate([np.arange(v0 + ty, v1, plan.rows) for ty in range(plan.rows)])
+            for bi in range(b):
+                np.add.at(hits, (bi, voxels[:, None], chans[None, :]), 1)
+    return hits
+
+
+@pytest.mark.parametrize("shape,dtype,strides,align,vec", [
+    ((2, 1000, 64), torch.float32, (64000, 64, 1), 0, 4),       # channels_last_3d, 16-byte loads
+    ((2, 1000, 64), torch.bfloat16, (64000, 64, 1), 0, 8),
+    ((1, 125, 1024), torch.float32, (128000, 1024, 1), 0, 4),   # a batch-1 UNet level: one chunk
+    ((1, 4096, 96), torch.bfloat16, (393216, 96, 1), 0, 8),     # many chunks
+    ((1, 4096, 96), torch.bfloat16, (393216, 96, 1), 2, 1),     # pointer off 16 bytes
+    ((3, 700, 36), torch.bfloat16, (25200, 36, 1), 0, 1),       # 8 does not divide C
+    ((2, 300, 64), torch.float32, (19202, 64, 1), 0, 1),        # batch stride off 16 bytes
+    ((2, 900, 3), torch.float32, (2700, 3, 1), 0, 1),           # fewer channels than lanes
+])
+def test_gn_sums_plan_covers_every_element_once(shape, dtype, strides, align, vec):
+    """The launch plan is a pure function of (B, V, C, dtype, strides, the
+    pointer's offset from 16 bytes): every voxel and channel of every batch is
+    read exactly once, the grid fits its limits, a block is 256 threads, and
+    16-byte loads are taken only where the pointer, the batch and voxel
+    strides sit on 16 bytes and the 16 bytes divide C."""
+    plan = tgn.gn_sums_plan(*shape, dtype, strides, align)
+    assert plan == tgn.gn_sums_plan(*shape, dtype, strides, align)
+    assert plan.vec == vec
+    assert plan.ct * plan.rows == 256 and plan.ct <= 32 and plan.ct & (plan.ct - 1) == 0
+    groups, nsplit, b = plan.grid
+    assert b == shape[0] and 1 <= nsplit <= 65535 and groups * plan.ct * plan.vec >= shape[2]
+    assert (nsplit - 1) * plan.chunk < shape[1] <= nsplit * plan.chunk  # no empty chunk
+    assert plan.cluster == (1 < nsplit <= 8)  # a portable cluster holds 8 blocks
+    assert np.all(_plan_hits(plan) == 1)
+
+
+def test_gn_sums_plan_raises_on_channels_not_minor():
+    with pytest.raises(ValueError, match="unit channel stride"):
+        tgn.gn_sums_plan(2, 60, 8, torch.float32, (480, 1, 60))

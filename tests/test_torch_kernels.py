@@ -5,11 +5,13 @@ No JAX here: this file also runs on the machine with the card, where the
 version (``python -m pytest --noconftest -m cuda tests/test_torch_kernels.py``;
 the repo's ``conftest.py`` imports JAX). Tolerances on the card: the kernel
 and the plain version both compute in fp32 from the same inputs, so the fp32
-O and the LSE of either dtype agree to 1e-4 (summation order only); a bf16 O
-may differ by one bf16 ulp of an element, at most 2^-7 of the largest |O|:
-the plain version rounds its fp32 result once, and the bf16 tensor-core
-kernel also rounds P to bf16 before P·V (about 2^-9 of |O|; the rounding is
-emulated on the CPU in ``tests/test_torch_attention.py``).
+O and the LSE of either dtype agree to 1e-4 (summation order; the fp32
+tensor-core kernel's 3xTF32 split carries each product to about 2^-20 of
+itself); a bf16 O may differ by one bf16 ulp of an element, at most 2^-7 of
+the largest |O|: the plain version rounds its fp32 result once, and the bf16
+tensor-core kernel also rounds P to bf16 before P·V (about 2^-9 of |O|; both
+kernels' roundings are emulated on the CPU in
+``tests/test_torch_attention.py``).
 """
 
 import numpy as np
@@ -236,10 +238,27 @@ def test_bf16_kernel_raises_on_misaligned_views_and_fp32_takes_them():
                 assert tattn.flash_attention_fwd.launches == before + 1
 
 
+def _kernel_names(fn, part: str) -> dict:
+    """The device kernels whose names hold ``part`` that one call of ``fn``
+    launches (after a warm-up call), with their launch counts, from the
+    profiler's trace."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {ev.key: ev.count for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA and part in ev.key
+            and not ev.key.startswith(("Memcpy", "Memset"))}
+
+
 @pytest.mark.cuda
 def test_kernel_routes_by_dtype_on_card():
-    """bf16 runs the tensor-core kernel and fp32 the scalar one, by the
-    kernels' names in the profiler's trace."""
+    """bf16 runs the bf16 tensor-core kernel and fp32 the 3xTF32 tensor-core
+    kernel, by the kernels' names in the profiler's trace."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     from torch.profiler import ProfilerActivity, profile
@@ -255,25 +274,126 @@ def test_kernel_routes_by_dtype_on_card():
             torch.cuda.synchronize()
         names[dtype] = {ev.key for ev in prof.key_averages() if "flash_fwd" in ev.key}
     assert any("flash_fwd_bf16_mma_kernel" in name for name in names[torch.bfloat16])
-    assert not any("fp32" in name for name in names[torch.bfloat16])
-    assert any("flash_fwd_fp32_kernel" in name for name in names[torch.float32])
-    assert not any("mma" in name for name in names[torch.float32])
+    assert not any("tf32" in name for name in names[torch.bfloat16])
+    assert any("flash_fwd_tf32x3_mma_kernel" in name for name in names[torch.float32])
+    assert not any("bf16" in name for name in names[torch.float32])
 
 
 @pytest.mark.cuda
 def test_kernel_counts_launches_and_rejects_what_it_cannot_take():
     """On a CUDA tensor the kernel runs (and is counted) or the call raises:
-    a head_dim that is not a multiple of 8 never reaches the plain version."""
+    a head_dim that is not a multiple of 8 runs zero-padded (one launch, held
+    to the plain version), and a dtype the kernels do not take raises without
+    a launch; neither reaches the plain version."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
-    q = torch.randn((1, 16, 2, 16), device="cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q = torch.randn((1, 16, 2, 16), device="cuda", generator=gen)
     before = tattn.flash_attention_fwd.launches
     tattn.volumetric_attention(q, q, q)
     assert tattn.flash_attention_fwd.launches == before + 1
-    bad = torch.randn((1, 16, 2, 12), device="cuda")
-    with pytest.raises(ValueError, match="multiple of 8"):
-        tattn.volumetric_attention(bad, bad, bad)
-    assert tattn.flash_attention_fwd.launches == before + 1
+    odd = torch.randn((1, 16, 2, 12), device="cuda", generator=gen)
+    for fn in (tattn.volumetric_attention, lambda *a: tattn.flash_attention_fwd(*a)[0]):
+        out = fn(odd, odd, odd)
+        assert out.shape == odd.shape
+        assert (out - tattn.attention_reference(odd, odd, odd)[0]).abs().max().item() <= 1e-4
+    assert tattn.flash_attention_fwd.launches == before + 3
+    half = q.half()
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        tattn.flash_attention_fwd(half, half, half)
+    assert tattn.flash_attention_fwd.launches == before + 3
+
+
+# the shapes of chip_smoke.py's kernel phase: the flagship's attention at 80^3
+# and 96^3, batch 1 and 2, a ragged odd case, the training shapes, and the
+# edge shapes (every head-width instantiation, ragged token counts, kv != n)
+SMOKE_FWD_SHAPES = [
+    (1, 1000, 8, 64), (1, 125, 16, 64), (1, 8000, 1, 256), (1, 1728, 8, 64), (1, 216, 16, 64),
+    (1, 13824, 1, 256), (2, 1000, 8, 64), (2, 125, 16, 64), (2, 8000, 1, 256), (2, 100, 3, 40),
+    (2, 63, 3, 8), (1, 1, 2, 64), (3, 129, 2, 72), (2, 65, 2, 136), (1, 63, 1, 256, 65),
+    (1, 1, 1, 256, 8000), (2, 100, 4, 64, 37)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SMOKE_FWD_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_fp32_forward_runs_tf32x3_and_matches_plain_on_card(shape):
+    """The fp32 forward at every shape of chip_smoke.py's kernel phase: O and
+    LSE within 1e-4 of the plain version, through flash_fwd_tf32x3_mma_kernel
+    (one launch of it, by name in the profiler's trace)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b, n, h, d = shape[:4]
+    gen = torch.Generator(device="cuda").manual_seed(sum(shape))
+    q, k, v = _attn_views(b, n, h, d, shape[4] if len(shape) > 4 else None, torch.float32, gen)
+    names = _kernel_names(lambda: tattn.flash_attention_fwd(q, k, v), "flash_fwd")
+    assert len(names) == 1 and "flash_fwd_tf32x3_mma_kernel" in next(iter(names))
+    assert next(iter(names.values())) == 1
+    out, lse = tattn.flash_attention_fwd(q, k, v)
+    ref, ref_lse = tattn.attention_reference(q, k, v)
+    assert (out - ref).abs().max().item() <= 1e-4
+    assert (lse - ref_lse).abs().max().item() <= 1e-4
+
+
+# (b, n, h, d): head widths not a multiple of 8 (padded), above 256 (the wide
+# route: 320 and 512, both past one 128-dim block of O), and batch * heads
+# past 65,535
+C2_CASES = [(2, 70, 3, 36), (1, 150, 2, 320), (2, 70, 1, 512), (35000, 8, 2, 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", C2_CASES, ids=lambda s: "x".join(map(str, s)))
+def test_attention_takes_any_head_width_and_head_count_on_card(dtype, shape):
+    """volumetric_attention forward and backward (through autograd) on the
+    card against the plain versions, at the limits of the kernels' own
+    tests: O within 1e-4 (fp32) or 2^-7 max|O| (bf16), each gradient within
+    1e-4 or 2^-7 of its largest |value|; one forward, one dQ and one dK/dV
+    launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dt = getattr(torch, dtype)
+    b, n, h, d = shape
+    gen = torch.Generator(device="cuda").manual_seed(d)
+    q, k, v = (t.detach().requires_grad_() for t in _attn_views(b, n, h, d, None, dt, gen))
+    do = torch.randn((b, n, h, d), generator=gen, device="cuda").to(dt)
+    before = (tattn.flash_attention_fwd.launches, tattn.flash_attention_bwd_dq.launches,
+              tattn.flash_attention_bwd_dkv.launches)
+    out = tattn.volumetric_attention(q, k, v)
+    grads = torch.autograd.grad(out, (q, k, v), do)
+    torch.cuda.synchronize()
+    assert (tattn.flash_attention_fwd.launches, tattn.flash_attention_bwd_dq.launches,
+            tattn.flash_attention_bwd_dkv.launches) == tuple(x + 1 for x in before)
+    qd, kd, vd = q.detach(), k.detach(), v.detach()
+    ref, lse = tattn.attention_reference(qd, kd, vd)
+    assert out.shape == ref.shape and out.dtype == dt
+    ref_max = ref.float().abs().max().item()
+    tol = 1e-4 if dt == torch.float32 else 2.0**-7 * ref_max
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+    refs = tattn.attention_bwd_reference(qd, kd, vd, ref, lse, do)
+    for got, want in zip(grads, refs):
+        assert got.shape == want.shape and got.dtype == dt
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= grad_tol(dt, want.float().abs().max().item())
+
+
+@pytest.mark.cuda
+def test_wide_head_route_by_name_on_card():
+    """d > 256 runs the wide kernels in both dtypes (forward, dQ, dK/dV)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = (t.detach().requires_grad_()
+                   for t in _attn_views(1, 40, 1, 512, None, dtype, gen))
+        names = _kernel_names(
+            lambda: tattn.volumetric_attention(q, k, v).float().square().sum().backward(),
+            "flash_")
+        for kernel in ("flash_fwd_wide_kernel", "flash_bwd_dq_wide_kernel",
+                       "flash_bwd_dkv_wide_kernel"):
+            assert sum(n for name, n in names.items() if kernel in name) == 1, names
 
 
 
@@ -469,8 +589,8 @@ def test_flash_bwd_raises_on_misaligned_bf16_views_and_fp32_takes_them():
 def test_flash_bwd_routes_by_dtype_and_counts_exact_launches_on_card():
     """One backward through autograd launches exactly one dQ and one dK/dV
     kernel: the tensor-core kernels in bf16 and the scalar ones in fp32, by
-    the kernels' names in the profiler's trace. A head_dim the kernels do
-    not take raises on the card and launches nothing."""
+    the kernels' names in the profiler's trace. A head_dim that is not a
+    multiple of 8 runs zero-padded, one launch of each."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     from torch.profiler import ProfilerActivity, profile
@@ -494,13 +614,15 @@ def test_flash_bwd_routes_by_dtype_and_counts_exact_launches_on_card():
         assert any(f"flash_bwd_{kind}_fp32_kernel" in x for x in names[torch.float32])
     assert not any("fp32" in x for x in names[torch.bfloat16])
     assert not any("mma" in x for x in names[torch.float32])
-    bad = torch.randn((1, 16, 2, 12), device="cuda", dtype=torch.bfloat16, requires_grad=True)
+    odd = torch.randn((1, 16, 2, 12), device="cuda", dtype=torch.bfloat16)
     before = (tattn.flash_attention_bwd_dq.launches, tattn.flash_attention_bwd_dkv.launches)
-    lse = torch.zeros((2, 16), device="cuda")
-    with pytest.raises(ValueError, match="multiple of 8"):
-        tattn.flash_attention_bwd_dq(bad, bad, bad, bad, lse, lse)
+    out, lse = tattn.attention_reference(odd, odd, odd)
+    dvec = tattn.attention_bwd_dvec(odd, out)
+    dq = tattn.flash_attention_bwd_dq(odd, odd, odd, odd, lse, dvec)
+    dk, dv = tattn.flash_attention_bwd_dkv(odd, odd, odd, odd, lse, dvec)
+    assert dq.shape == dk.shape == dv.shape == odd.shape
     assert (tattn.flash_attention_bwd_dq.launches,
-            tattn.flash_attention_bwd_dkv.launches) == before
+            tattn.flash_attention_bwd_dkv.launches) == (before[0] + 1, before[1] + 1)
 
 
 def _sum_tol(terms: torch.Tensor) -> torch.Tensor:
@@ -571,3 +693,39 @@ def test_groupnorm_module_backward_on_card_matches_cpu():
         results[device] = [t.detach().cpu() for t in (y, xd.grad, gn.weight.grad, gn.bias.grad)]
     for got, want in zip(results["cuda"], results["cpu"]):
         assert (got - want).abs().max().item() <= 1e-4
+
+
+# the GroupNorm inputs of the flagship's paths (config_train_32g.json at 80^3):
+# the VAE's levels, the UNet's levels and skip concatenations at batch 1
+# (sampling), 2 (serving) and 20 (training), in bf16 and fp32
+GN_CARD_SHAPES = [(1, 64, 80, 80, 80), (1, 128, 40, 40, 40), (1, 256, 20, 20, 20),
+                  (1, 512, 10, 10, 10), (1, 1024, 5, 5, 5), (1, 1536, 10, 10, 10),
+                  (2, 768, 20, 20, 20), (2, 1024, 5, 5, 5), (20, 64, 80, 80, 80),
+                  (20, 256, 20, 20, 20), (3, 40, 7, 9, 11)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", GN_CARD_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_gn_sums_one_launch_deterministic_and_matches_plain_on_card(dtype, shape):
+    """B4 at the flagship's GroupNorm inputs: within 1e-5 of the absolute
+    sums of its plain version, the same bits on two runs, and one kernel
+    launch a call (by the profiler's count), the wrapper counting one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(sum(shape))
+    x = (torch.randn(shape, generator=gen, device="cuda") * 0.5 + 0.3).to(dt).contiguous(
+        memory_format=torch.channels_last_3d)
+    before = tgn.gn_sums.launches
+    got = tgn.gn_sums(x)
+    again = tgn.gn_sums(x)
+    torch.cuda.synchronize()
+    assert tgn.gn_sums.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    xf = x.float()
+    for g, w, terms in zip(got, tgn.gn_sums_reference(x), (xf, xf * xf)):
+        assert ((g.double() - w.double()).abs() <= _sum_tol(terms)).all()
+    names = _kernel_names(lambda: tgn.gn_sums(x), "")
+    assert len(names) == 1 and "gn_sums_onepass" in next(iter(names)), names
+    assert next(iter(names.values())) == 1
