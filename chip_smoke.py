@@ -17,22 +17,25 @@ printing JSON lines:
    version on the card, at the attention shapes of the flagship model
    (``config_train_32g.json``) at 80^3 and 96^3 and at the edge shapes of
    the ``cuda`` tests (every head width instantiation, ragged token counts,
-   kv_len != n), in bf16 (the bf16 tensor-core route) and fp32 (the 3xTF32
-   tensor-core route), at its training shapes (batch 20) in bf16, and at
+   kv_len != n) and at its training shapes (batch 20), in bf16 (the bf16
+   tensor-core route) and fp32 (the 3xTF32 tensor-core route), and at
    the head widths and head counts the kernels once refused (d = 36, 320,
    512; batch * heads = 70,000) in both dtypes, on strided views of fused
    projections as the attention block gives them; each fp32 row beside
    SDPA (TF32 off), the plain version and the bound;
 4. kernel_bwd: the flash-attention backward kernels (dQ, dK/dV) against
    their plain versions, at the training shapes, a ragged case and a d = 256
-   case, bf16 (the tensor-core route) and fp32 (the scalar route), at the
-   edge shapes of the ``cuda`` tests in bf16 (every head width
+   case and at the edge shapes of the ``cuda`` tests (every head width
    instantiation, ragged token counts, kv_len != n, the training shapes at
-   batch 2), and at the d = 36, 320, 512 and batch * heads = 70,000 cases in
-   both dtypes through ``volumetric_attention``'s autograd (kernel_c2 rows);
-   each row carries its route and its largest error over its limit;
-   ``library_ms`` is the backward of ``scaled_dot_product_attention`` (its
-   forward + backward less its forward);
+   batch 2), in bf16 (the bf16 tensor-core route) and fp32 (the 3xTF32
+   tensor-core route), and at the d = 36, 320, 512 and batch * heads =
+   70,000 cases in both dtypes through ``volumetric_attention``'s autograd
+   (kernel_c2 rows); each row carries its route and its largest error over
+   its limit, and every case gives the same bits on a second run;
+   ``library_ms`` is the backward of
+   ``scaled_dot_product_attention`` (its forward + backward less its
+   forward); the fp32 row at (20, 1000, 8, 64) carries the times of the
+   scalar kernels the 3xTF32 route replaced beside its own;
 5. main path, sampling: conditional DDIM-50 sampling of the full-width
    ``config_train_32g.json`` models (random weights from a seed) through
    ``ldm3d_torch.cli.inference.main`` with ``--amp``, one 80^3 volume; the
@@ -46,8 +49,11 @@ printing JSON lines:
    diffusion ``best``/``last`` checkpoints written and reloaded, and the
    exact launch count of each of the five kernels; then one step under
    ``torch.profiler``;
+6b. main path, fp32 training: the same run without ``--amp`` (the CLI's
+   default): fp32 throughout, so the attention backward takes the 3xTF32
+   route; the same checks and launch counts, and one step profiled;
 7. kernel_gn: the GroupNorm voxel-sums kernels (forward and backward sums)
-   against their plain versions at every input the three main paths gave
+   against their plain versions at every input the main-path runs gave
    them: the wrappers record each launch's (shape, dtype, strides of x and
    dy), and each recorded input is rebuilt with those strides, checked in
    bf16 and fp32 (the forward sums also for the same bits on two runs) and
@@ -74,7 +80,14 @@ printing JSON lines:
    card (kernels) and on the CPU (plain), fp32 with TF32 off.
 
 The GroupNorm kernel phase (7) runs after the serving path, and replays the
-inputs of all three main paths.
+inputs of all four main-path runs.
+
+Precision: the kernel phases (3, 4, 9, 10) run with both ``allow_tf32``
+flags False, so that the plain versions, SDPA and cuDNN compute in full
+fp32, and restore the flags after them. Before each main path's entry point
+(the inference and training CLIs' ``main``, ``ModelServer.load_model``) the
+script sets both flags True, and each main-path line records them as the
+entry point left them: every entry point must pin both to False (full fp32).
 
 Times are device ms per call (CUDA events around back-to-back calls, median
 of 5 loops); ``*_host_ms`` is the host's cost to issue one call;
@@ -88,6 +101,7 @@ kernels' summary JSON, the ``nvidia-smi`` line, and ``{"ok": true,
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import shutil
@@ -151,10 +165,12 @@ C2_SHAPES = [(2, 70, 3, 36), (1, 150, 2, 320), (2, 70, 1, 512), (1, 1000, 1, 512
              (35000, 8, 2, 16)]
 # the attention forward's route for each dtype (csrc/flash_fwd.cu) up to
 # d = 256, and for d > 256 in both
-FWD_ROUTES = {"bf16": "mma.sync bf16 tensor cores", "fp32": "mma.sync tf32 tensor cores, 3xTF32 split",
+FWD_ROUTES = {"bf16": "mma.sync bf16 tensor cores",
+              "fp32": "mma.sync tf32 tensor cores, 3xTF32 split",
               "wide": "scalar FMA, head dims of O over grid.y (d > 256)"}
 # the attention backward's (csrc/flash_bwd.cu), both kernels
-BWD_ROUTES = {"bf16": "mma.sync tensor cores, P/dS hi-lo split", "fp32": "scalar fp32",
+BWD_ROUTES = {"bf16": "mma.sync tensor cores, P/dS hi-lo split",
+              "fp32": "mma.sync tf32 tensor cores, 3xTF32 split",
               "wide": "scalar FMA, head dims of dQ and dK/dV over grid.y (d > 256)"}
 
 
@@ -178,9 +194,9 @@ TRAIN_SHAPES = [(20, 1000, 8, 64), (20, 125, 16, 64), (20, 8000, 1, 256)]
 TRAIN_FWD_PER_STEP = {TRAIN_SHAPES[0]: 5, TRAIN_SHAPES[1]: 6, TRAIN_SHAPES[2]: 4}
 TRAIN_BWD_PER_STEP = {TRAIN_SHAPES[0]: 5, TRAIN_SHAPES[1]: 6}
 BWD_SHAPES = TRAIN_SHAPES[:2] + [(2, 100, 3, 40), (1, 8000, 1, 256)]
-# (B, n, h, d[, kv_len]): the backward edge cases of the ``cuda`` tests, bf16
-# only: every instantiation (DMAX 64, 128, 256, and dK/dV's head-dim split
-# at d > 128), token counts off the 128-row and 64- and 32-key tiles, n = 1
+# (B, n, h, d[, kv_len]): the backward edge cases of the ``cuda`` tests, in
+# both dtypes: every instantiation (DMAX 64, 128, 256, and dK/dV's head-dim
+# split at d > 128), token counts off the row and key tiles of either route, n = 1
 # (beside more than one key: with one, dQ and dK are 0), kv_len != n, the
 # training shapes at batch 2
 BWD_EDGE_SHAPES = [(2, 63, 3, 8), (1, 1, 2, 64, 37), (3, 129, 2, 72), (2, 65, 2, 136),
@@ -191,6 +207,8 @@ NO_SPILL = {
     "libflash_fwd-": (("flash_fwd_bf16_mma_kernel<", 3), ("flash_fwd_tf32x3_mma_kernel<", 3),
                       ("flash_fwd_wide_kernel<", 2)),
     "libflash_bwd-": (("flash_bwd_dq_bf16_mma_kernel<", 3), ("flash_bwd_dkv_bf16_mma_kernel<", 3),
+                      ("flash_bwd_dq_tf32x3_mma_kernel<", 3),
+                      ("flash_bwd_dkv_tf32x3_mma_kernel<", 3),
                       ("flash_bwd_dq_wide_kernel<", 2), ("flash_bwd_dkv_wide_kernel<", 2)),
     "libgroupnorm_sums-": (("gn_sums_onepass<", 8),),  # 2 dtypes x 2 load widths x 2 combines
 }
@@ -199,6 +217,9 @@ NO_SPILL = {
 # each), 50 UNet steps at batch 2 (5 level-1, 6 level-2), one batch-2 decode
 SERVE_FWD_PER_CALL = {(1, 8000, 1, 256): 4, (2, 1000, 8, 64): 250, (2, 125, 16, 64): 300,
                       (2, 8000, 1, 256): 2}
+# the scalar fp32 backward kernels that the 3xTF32 route replaced (PERF.md's
+# kernel table, H100 80GB HBM3 at 700 W): ms a call, beside the new ones'
+SCALAR_FP32_BWD = {TRAIN_SHAPES[0]: {"scalar_dq_ms": 3.503, "scalar_dkv_ms": 4.196}}
 # PR 5's B4 figures (PERF.md, H100 80GB HBM3 at 700 W): device and host ms
 # summed over each path's launches, and the host ms of one call
 PR5_GN_SUMS = {"sampling": {"ms": 15.96, "host_ms": 209.0}, "serving": {"ms": 79.84,
@@ -237,6 +258,32 @@ def emit(obj: dict) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def full_fp32(phase):
+    """Run ``phase`` with both ``allow_tf32`` flags False (the plain
+    versions, SDPA and cuDNN in full fp32), and restore them after it."""
+    @functools.wraps(phase)
+    def run(*args, **kwargs):
+        from ldm3d_torch.cli.common import tf32_flags
+
+        with tf32_flags(False):
+            return phase(*args, **kwargs)
+    return run
+
+
+def unpin_precision(torch) -> None:
+    """Both ``allow_tf32`` flags True: the entry point that runs next has to
+    pin them."""
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+
+
+def pinned_precision(torch, entry: str) -> dict:
+    """The two flags as ``entry`` left them; fails unless both are False."""
+    flags = {"matmul": torch.backends.cuda.matmul.allow_tf32,
+             "cudnn": torch.backends.cudnn.allow_tf32}
+    check(not any(flags.values()), f"{entry} left allow_tf32 {flags}: fp32 is not full fp32")
+    return flags
 
 
 # GPU clock cycles the card spins before each timed loop (about 10 ms), so
@@ -358,17 +405,16 @@ def _fused_qkv(torch, shape, dt, gen):
     return kv, (q.unflatten(-1, (h, d)), *(t.unflatten(-1, (h, d)) for t in kv.chunk(2, dim=-1)))
 
 
+@full_fp32
 def phase_kernel(torch, F) -> dict:
     """Forward kernel against plain version at every shape and dtype; returns
     the per-(shape, dtype) measurements."""
     from ldm3d_torch.ops.attention import attention_reference, flash_attention_fwd
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = {}
     cases = ([("bfloat16", s) for s in SHAPES + TRAIN_SHAPES + EDGE_SHAPES + C2_SHAPES]
-             + [("float32", s) for s in SHAPES + EDGE_SHAPES + C2_SHAPES])
+             + [("float32", s) for s in SHAPES + TRAIN_SHAPES + EDGE_SHAPES + C2_SHAPES])
     for dtype, shape in cases:
         dt = getattr(torch, dtype)
         b, n, h, d = shape[:4]
@@ -405,6 +451,7 @@ def phase_kernel(torch, F) -> dict:
     return results
 
 
+@full_fp32
 def phase_kernel_bwd(torch, F) -> dict:
     """dQ and dK/dV kernels against their plain versions; returns the
     per-(shape, dtype) measurements."""
@@ -413,7 +460,7 @@ def phase_kernel_bwd(torch, F) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(1)
     results = {}
     cases = ([("bfloat16", s) for s in BWD_SHAPES + BWD_EDGE_SHAPES]
-             + [("float32", s) for s in BWD_SHAPES])
+             + [("float32", s) for s in BWD_SHAPES + BWD_EDGE_SHAPES])
     for dtype, shape in cases:
         dt = getattr(torch, dtype)
         b, n, h, d = shape[:4]
@@ -422,7 +469,11 @@ def phase_kernel_bwd(torch, F) -> dict:
         out, lse = A.flash_attention_fwd(q, k, v)
         dvec = A.attention_bwd_dvec(do, out)
         grads = A.flash_attention_bwd(q, k, v, out, lse, do)
+        again = A.flash_attention_bwd(q, k, v, out, lse, do)
         torch.cuda.synchronize()
+        check(all(torch.equal(x, y) for x, y in zip(grads, again)),
+              f"flash_bwd gave other gradients on a second run at {shape} {dtype}")
+        del again
         refs = A.attention_bwd_reference(q, k, v, out, lse, do)
         errs, tols = {}, {}
         for name, got, want in zip(("dq", "dk", "dv"), grads, refs):
@@ -465,6 +516,8 @@ def phase_kernel_bwd(torch, F) -> dict:
         for kind in ("dq", "dkv"):
             row[f"{kind}_bound_ms"], row[f"{kind}_bound_by"] = bound_bwd(
                 shape, dtype, qkv.element_size(), kind)
+        if dtype == "float32":
+            row.update(SCALAR_FP32_BWD.get(shape, {}))
         results[(shape, dtype)] = row
         emit({"phase": "kernel_bwd", "kernel": "flash_bwd", "shape_bnhd": list(shape[:4]),
               "kv_len": k.shape[1], "dtype": dtype, "route": bwd_route(dtype, d), **row})
@@ -473,6 +526,7 @@ def phase_kernel_bwd(torch, F) -> dict:
     return results
 
 
+@full_fp32
 def phase_kernel_c2(torch) -> None:
     """Forward and backward through ``volumetric_attention``'s autograd at
     the C2 shapes in both dtypes, against the plain versions: O and each
@@ -672,7 +726,7 @@ def phase_kernel_gn(torch, paths: dict) -> dict:
             tot["launches"] = sum(cases.values())
             tot["ms_per_call"] = tot["ms"] / tot["launches"]
             tot["host_ms_per_call"] = tot["host_ms"] / tot["launches"]
-            if kernel == "gn_sums":
+            if kernel == "gn_sums" and path != "training_fp32":
                 tot["pr5"] = PR5_GN_SUMS[path]
             totals[(path, kernel)] = tot
             emit({"phase": "kernel_gn_path", "path": path, "kernel": kernel, **tot,
@@ -830,8 +884,10 @@ def phase_main_path(torch, ns, counts, workdir: Path, card: str, smi_line: str) 
     timings: dict = {}
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
+    unpin_precision(torch)
     written = inference_main(argv, timings=timings)
     launches, gn_cases = _read_counts(), _read_gn_cases()
+    flags = pinned_precision(torch, "cli.inference.main")
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
     check(len(written) == 1, f"expected one volume, got {written}")
@@ -859,7 +915,8 @@ def phase_main_path(torch, ns, counts, workdir: Path, card: str, smi_line: str) 
           "volumes_per_s_with_encode": 1e3 / (encode_ms + denoise_ms + decode_ms),
           "launches": launches, "expected_gn_sums": expected_gn,
           "peak_device_memory_gib": peak_gib, "volume_min": float(vol.min()),
-          "volume_max": float(vol.max()), "card": card, "nvidia_smi": smi_line})
+          "volume_max": float(vol.max()), "allow_tf32": flags, "card": card,
+          "nvidia_smi": smi_line})
     shutil.rmtree(model_dir / "out")
     timings = {}
     prof, _ = _profiled(torch, lambda: inference_main(argv, timings=timings))
@@ -914,9 +971,22 @@ def _profiled(torch, fn):
     return prof, out
 
 
+def _busy_ms(spans) -> float:
+    """ms in which at least one of the (start, end) spans (us) runs."""
+    busy, end = 0.0, -math.inf
+    for a, b in sorted(spans):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / 1e3
+
+
 def _profile_summary(torch, prof, window_ms: float) -> dict:
     """Device time by kernel category over a profiled window and the
-    device's idle share of it (the profiler's own overhead is inside)."""
+    device's idle share of it (the profiler's own overhead is inside): busy
+    is the time in which at least one kernel ran, from the kernels' device
+    timestamps, so kernels that overlap count once; the category sums add
+    each kernel's own duration."""
     from torch.autograd import DeviceType
 
     by_cat: dict[str, float] = {}
@@ -955,10 +1025,14 @@ def _profile_summary(torch, prof, window_ms: float) -> dict:
             low = ev.key.lower()
             add(next((c for c, pats in KERNEL_CATEGORIES if any(p.lower() in low for p in pats)),
                      "other"), ev.key, rest)
-    busy = sum(by_cat.values())
-    check(busy > 0, "the profiler saw no device kernels")
+    spans = [(ev.time_range.start, ev.time_range.end) for ev in prof.events()
+             if ev.device_type == DeviceType.CUDA and ev.name in device_names]
+    check(spans, "the profiler saw no device kernels")
+    busy = _busy_ms(spans)
     return {"window_ms": window_ms, "device_busy_ms": busy,
-            "device_idle_share": max(0.0, 1.0 - busy / window_ms),
+            "device_kernel_ms": sum(by_cat.values()),
+            "device_span_ms": (max(b for _, b in spans) - min(a for a, _ in spans)) / 1e3,
+            "device_idle_share": 1.0 - busy / window_ms,
             "device_ms_filed_by_op": attributed_ms,
             "device_ms_by_category": dict(sorted(by_cat.items(), key=lambda kv: -kv[1])),
             "top_kernels_by_category": {
@@ -969,15 +1043,18 @@ def _profile_summary(torch, prof, window_ms: float) -> dict:
                             for ms, n, name in sorted(kernels, reverse=True)[:12]]}
 
 
-def phase_train(torch, ns, counts, workdir: Path, card: str, smi_line: str) -> dict:
-    """Full-width stage-2 training through the CLI; returns its record."""
+def phase_train(torch, ns, counts, workdir: Path, card: str, smi_line: str,
+                amp: bool = True) -> dict:
+    """Full-width stage-2 training through the CLI, in bf16 with ``--amp``
+    or in fp32 without it; returns its record."""
     from ldm3d_torch.ckpt import CheckpointManager
     from ldm3d_torch.cli.train_diffusion import main as train_main
     from ldm3d_torch.configs import define_instance, preset_path
 
     t0 = time.perf_counter()
+    dtype = "bfloat16" if amp else "float32"
     cfg_path = preset_path("config_train_32g.json")
-    model_dir = workdir / "train"
+    model_dir = workdir / f"train_{dtype}"
     ae, unet = _flagship_models(torch, ns, torch.Generator(device="cuda").manual_seed(5))
     CheckpointManager(str(model_dir), "autoencoder").save("best", {"state_dict": ae.state_dict()})
     del ae, unet
@@ -988,11 +1065,13 @@ def phase_train(torch, ns, counts, workdir: Path, card: str, smi_line: str) -> d
     timings: dict = {}
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
+    unpin_precision(torch)
     t_run = time.perf_counter()
-    best_val = train_main(["-c", cfg_path, "-e", str(env), "--amp", "--no-images",
-                           "--max-epochs", "1"], timings=timings)
+    best_val = train_main(["-c", cfg_path, "-e", str(env), *(["--amp"] if amp else []),
+                           "--no-images", "--max-epochs", "1"], timings=timings)
     run_s = time.perf_counter() - t_run
     launches, gn_cases = _read_counts(), _read_gn_cases()
+    flags = pinned_precision(torch, "cli.train_diffusion.main")
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
     steps = len(timings["train_step_ms"])
@@ -1048,18 +1127,18 @@ def phase_train(torch, ns, counts, workdir: Path, card: str, smi_line: str) -> d
               "volumes_per_s_trained": TRAIN_BATCH * 1e3 / median_ms,
               "val_ms": timings["val_ms"], "diffusion_loss": losses, "best_val_loss": best_val,
               "scale_factor": timings["scale_factor"], "peak_device_memory_gib": peak_gib}
-    emit({"phase": "train_main_path", "config": "config_train_32g.json",
-          "patch": [80, 80, 80], "batch": TRAIN_BATCH, "dtype": "bfloat16",
-          "setup_s": round(setup_s, 3), "run_s": round(run_s, 3), **record,
-          "card": card, "nvidia_smi": smi_line})
-    phase_train_profile(torch, ns, model_dir, timings["scale_factor"])
+    emit({"phase": "train_main_path" if amp else "train_fp32_main_path",
+          "config": "config_train_32g.json", "patch": [80, 80, 80], "batch": TRAIN_BATCH,
+          "dtype": dtype, "setup_s": round(setup_s, 3), "run_s": round(run_s, 3), **record,
+          "allow_tf32": flags, "card": card, "nvidia_smi": smi_line})
+    phase_train_profile(torch, ns, model_dir, timings["scale_factor"], getattr(torch, dtype))
     shutil.rmtree(model_dir)
     return {**record, "gn_cases": gn_cases}
 
 
-def phase_train_profile(torch, ns, model_dir: Path, scale_factor: float) -> None:
-    """One flagship train step (batch 20, bf16) under torch.profiler, after a
-    warm-up step, built from the library's pieces and the run's VAE."""
+def phase_train_profile(torch, ns, model_dir: Path, scale_factor: float, dt) -> None:
+    """One flagship train step (batch 20, in ``dt``) under torch.profiler,
+    after a warm-up step, built from the library's pieces and the run's VAE."""
     from ldm3d_torch.cli.train_diffusion import load_frozen_autoencoder
     from ldm3d_torch.configs import define_instance
     from ldm3d_torch.diffusion import DDPMScheduler
@@ -1068,11 +1147,11 @@ def phase_train_profile(torch, ns, model_dir: Path, scale_factor: float) -> None
                                       make_stage2_train_step)
 
     args = SimpleNamespace(**vars(ns), model_dir=str(model_dir))
-    ae = load_frozen_autoencoder(args, torch.device("cuda"), torch.bfloat16)
+    ae = load_frozen_autoencoder(args, torch.device("cuda"), dt)
     gen = torch.Generator(device="cuda").manual_seed(6)
     with torch.device("cuda"):
         unet = init_weights_(define_instance(ns, "diffusion_def"), gen)
-    unet.compute_dtype = torch.bfloat16
+    unet.compute_dtype = dt
     state = TrainState(unet, make_diffusion_optimizer(unet.parameters(), lambda count: 1e-5))
     step = make_stage2_train_step(unet, ae, DDPMScheduler.create(), Stage2Config())
     batch = {k: torch.rand((TRAIN_BATCH, 80, 80, 80, 1), generator=gen, device="cuda")
@@ -1087,7 +1166,8 @@ def phase_train_profile(torch, ns, model_dir: Path, scale_factor: float) -> None
         return (time.perf_counter() - t0) * 1e3
 
     prof, window_ms = _profiled(torch, one_step)
-    emit({"phase": "profile", "path": "training step (batch 20, 80^3, bf16)",
+    dtype = str(dt).removeprefix("torch.")
+    emit({"phase": "profile", "path": f"training step (batch 20, 80^3, {dtype})",
           **_profile_summary(torch, prof, window_ms)})
     del state, unet, ae, batch
     torch.cuda.empty_cache()
@@ -1152,8 +1232,10 @@ def phase_serve(torch, ns, counts, workdir: Path, card: str, smi_line: str) -> d
     t0 = time.perf_counter()
     server = ModelServer(preset_path("config_train_32g.json"), str(env), sampler="ddim",
                          steps=SERVE_STEPS, batch=SERVE_BATCH, decode_chunk=0, device="cuda")
+    unpin_precision(torch)
     server.load_model()
     load_s = time.perf_counter() - t0
+    pinned_precision(torch, "ModelServer.load_model")
     check(server.is_dummy is False and server.model_loaded, "the server loaded the dummy model")
     # widen the micro-batch window from 10 ms to 1.5 s, so that the merge of
     # the concurrent pair does not hang on the second request's condition
@@ -1198,6 +1280,7 @@ def phase_serve(torch, ns, counts, workdir: Path, card: str, smi_line: str) -> d
             client(name, body)
         torch.cuda.synchronize()
         launches, gn_cases = _read_counts(), _read_gn_cases()
+        flags = pinned_precision(torch, "the served requests")
         # the device profile of one served call, a request alone (it waits
         # out the batching window, which the profiled window holds)
         prof, (code, _, prof_s) = _profiled(torch, lambda: _post(
@@ -1262,7 +1345,8 @@ def phase_serve(torch, ns, counts, workdir: Path, card: str, smi_line: str) -> d
           "merged_sampler_calls": merged_calls, "launches": launches,
           "expected_launches": expected, "batched_vs_alone_max_abs": batched_vs_alone,
           "same_seed_max_abs": same_seed, "tol": SERVE_TOL,
-          "peak_device_memory_gib": peak_gib, "card": card, "nvidia_smi": smi_line})
+          "peak_device_memory_gib": peak_gib, "allow_tf32": flags, "card": card,
+          "nvidia_smi": smi_line})
     del server
     torch.cuda.empty_cache()
     shutil.rmtree(model_dir)
@@ -1294,6 +1378,7 @@ def phase_kernel_conv(torch) -> dict:
     return {"records": recs, "launches": launches["conv3d_igemm"]}
 
 
+@full_fp32
 def phase_card_vs_cpu(torch) -> None:
     """The tiny preset's whole sample on the card (kernels) and on the CPU
     (plain), same weights, noise and condition, fp32 with TF32 off."""
@@ -1304,8 +1389,6 @@ def phase_card_vs_cpu(torch) -> None:
     from ldm3d_torch.nn import init_weights_
     from ldm3d_torch.ops.attention import flash_attention_fwd
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     cfg = load_json(preset_path("config_tiny_cpu.json"))
     ns = SimpleNamespace(**cfg)
     gen = torch.Generator().manual_seed(2)
@@ -1339,6 +1422,7 @@ def phase_card_vs_cpu(torch) -> None:
               "card_kernel_launches": outs["cuda"][1]})
 
 
+@full_fp32
 def phase_train_card_vs_cpu(torch) -> None:
     """One ``config_tiny_cpu.json`` train step (full step, VAE encode inside)
     on the card (kernels) and on the CPU (plain): same weights, batch and
@@ -1352,8 +1436,6 @@ def phase_train_card_vs_cpu(torch) -> None:
     from ldm3d_torch.training import (Stage2Config, Stage2Draws, TrainState,
                                       make_diffusion_optimizer, make_stage2_train_step)
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     cfg = load_json(preset_path("config_tiny_cpu.json"))
     ns = SimpleNamespace(**cfg)
     gen = torch.Generator().manual_seed(7)
@@ -1410,24 +1492,25 @@ def phase_train_card_vs_cpu(torch) -> None:
 
 
 def _kernel_summary(fwd: dict, bwd: dict, gn: dict, sample_launches: dict,
-                    train: dict, serve: dict, conv: dict) -> list:
+                    train: dict, train_fp32: dict, serve: dict, conv: dict) -> list:
     """The kernels line: each kernel's ms, plain_ms, bound_ms and library_ms
     are summed over the ``launches`` it counts (one flagship sample for
-    flash_fwd, the training main path's run for the other four; the
+    flash_fwd, the bf16 training main path's run for the other four; the
     GroupNorm kernels also over the sample, as ``sample_*``); the served
-    launches of flash_fwd and gn_sums are ``serve_launches``. conv3d_igemm's
-    launches are the A/B tool's run; its times are per call at the tool's
-    headline shape."""
+    launches of flash_fwd and gn_sums are ``serve_launches``; the backward
+    kernels' ``fp32_*`` fields are one step of the fp32 training run.
+    conv3d_igemm's launches are the A/B tool's run; its times are per call
+    at the tool's headline shape."""
     def per(results, weights, key, by=None, dtype="bfloat16"):
         return sum(n * results[(shape, dtype)][key] for shape, n in weights.items()
                    if by is None or results[(shape, dtype)].get("bound_by", by) == by)
 
     steps = train["steps"]
 
-    def per_bwd(key, by_key=None, by=None):
+    def per_bwd(key, by_key=None, by=None, dtype="bfloat16"):
         """Summed over one training step's launches."""
-        return sum(n * bwd[(shape, "bfloat16")][key] for shape, n in TRAIN_BWD_PER_STEP.items()
-                   if by is None or bwd[(shape, "bfloat16")][by_key] == by)
+        return sum(n * bwd[(shape, dtype)][key] for shape, n in TRAIN_BWD_PER_STEP.items()
+                   if by is None or bwd[(shape, dtype)][by_key] == by)
 
     def larger(fn):
         return max(("operations", "bytes"), key=fn)
@@ -1443,18 +1526,27 @@ def _kernel_summary(fwd: dict, bwd: dict, gn: dict, sample_launches: dict,
     sdpa = per_bwd("sdpa_bwd_ms")
 
     def flash_bwd(name, kind, replaces, library_covers):
-        check(train["launches"][name] == steps * sum(TRAIN_BWD_PER_STEP.values()),
-              f"{name} launches {train['launches'][name]} are not {steps} steps' worth")
-        return {"name": name, "route": "cuda", "source": "ldm3d_torch/csrc/flash_bwd.cu",
-                "routes": BWD_ROUTES, "replaces": replaces, "launches": train["launches"][name],
-                "max_abs_err": bwd_err[kind], "max_err_over_tol": bwd_ratio[kind],
-                "ms": steps * per_bwd(f"{kind}_ms"),
-                "plain_ms": steps * per_bwd(f"{kind}_plain_ms"),
-                "bound_ms": steps * per_bwd(f"{kind}_bound_ms"),
-                "bound_by": larger(lambda by: per_bwd(f"{kind}_bound_ms", f"{kind}_bound_by", by)),
-                "library_ms": steps * sdpa, "library_covers": library_covers,
-                "host_ms": steps * per_bwd(f"{kind}_host_ms"), "per": run_note,
-                "ms_per_step": per_bwd(f"{kind}_ms")}
+        for run in (train, train_fp32):
+            check(run["launches"][name] == run["steps"] * sum(TRAIN_BWD_PER_STEP.values()),
+                  f"{name} launches {run['launches'][name]} are not {run['steps']} steps' worth")
+        row = {"name": name, "route": "cuda", "source": "ldm3d_torch/csrc/flash_bwd.cu",
+               "routes": BWD_ROUTES, "replaces": replaces, "launches": train["launches"][name],
+               "max_abs_err": bwd_err[kind], "max_err_over_tol": bwd_ratio[kind],
+               "ms": steps * per_bwd(f"{kind}_ms"),
+               "plain_ms": steps * per_bwd(f"{kind}_plain_ms"),
+               "bound_ms": steps * per_bwd(f"{kind}_bound_ms"),
+               "bound_by": larger(lambda by: per_bwd(f"{kind}_bound_ms", f"{kind}_bound_by", by)),
+               "library_ms": steps * sdpa, "library_covers": library_covers,
+               "host_ms": steps * per_bwd(f"{kind}_host_ms"), "per": run_note,
+               "ms_per_step": per_bwd(f"{kind}_ms"),
+               "fp32_launches": train_fp32["launches"][name],
+               "fp32_launches_per_step": sum(TRAIN_BWD_PER_STEP.values()),
+               "fp32_library_ms": per_bwd("sdpa_bwd_ms", dtype="float32"),
+               "fp32_per": "one step of the fp32 training run (no --amp): the sum over its "
+                           "launches at the two UNet shapes"}
+        for key in ("ms", "plain_ms", "bound_ms", "host_ms"):
+            row[f"fp32_{key}"] = per_bwd(f"{kind}_{key}", dtype="float32")
+        return row
 
     def gn_row(name, replaces, library_note):
         tr = gn["totals"][("training", name)]
@@ -1517,6 +1609,12 @@ def _kernel_summary(fwd: dict, bwd: dict, gn: dict, sample_launches: dict,
          "train_step_plain_ms": per(fwd, TRAIN_FWD_PER_STEP, "plain_ms"),
          "train_step_bound_ms": per(fwd, TRAIN_FWD_PER_STEP, "bound_ms"),
          "train_step_library_ms": per(fwd, TRAIN_FWD_PER_STEP, "library_ms"),
+         "train_fp32_launches": train_fp32["launches"]["flash_fwd"],
+         "train_fp32_step_ms": per(fwd, TRAIN_FWD_PER_STEP, "kernel_ms", dtype="float32"),
+         "train_fp32_step_plain_ms": per(fwd, TRAIN_FWD_PER_STEP, "plain_ms", dtype="float32"),
+         "train_fp32_step_bound_ms": per(fwd, TRAIN_FWD_PER_STEP, "bound_ms", dtype="float32"),
+         "train_fp32_step_library_ms": per(fwd, TRAIN_FWD_PER_STEP, "library_ms",
+                                           dtype="float32"),
          "serve_call_fp32_ms": per(fwd, SERVE_FWD_PER_CALL, "kernel_ms", dtype="float32"),
          "serve_call_fp32_plain_ms": per(fwd, SERVE_FWD_PER_CALL, "plain_ms", dtype="float32"),
          "serve_call_fp32_bound_ms": per(fwd, SERVE_FWD_PER_CALL, "bound_ms", dtype="float32"),
@@ -1566,8 +1664,10 @@ def main() -> int:
         sample_launches, sample_gn = phase_main_path(torch, ns, counts, Path(workdir), card,
                                                      smi_line)
         train = phase_train(torch, ns, counts, Path(workdir), card, smi_line)
+        train_fp32 = phase_train(torch, ns, counts, Path(workdir), card, smi_line, amp=False)
         serve = phase_serve(torch, ns, counts, Path(workdir), card, smi_line)
     gn = phase_kernel_gn(torch, {"sampling": sample_gn, "training": train.pop("gn_cases"),
+                                 "training_fp32": train_fp32.pop("gn_cases"),
                                  "serving": serve.pop("gn_cases")})
     phase_gn_host(torch)
     conv = phase_kernel_conv(torch)
@@ -1575,7 +1675,8 @@ def main() -> int:
     phase_train_card_vs_cpu(torch)
 
     emit({"phase": "done"})
-    emit({"kernels": _kernel_summary(fwd, bwd, gn, sample_launches, train, serve, conv)})
+    emit({"kernels": _kernel_summary(fwd, bwd, gn, sample_launches, train, train_fp32, serve,
+                                     conv)})
     print(smi_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": card,
                                  "count": torch.cuda.device_count()}})

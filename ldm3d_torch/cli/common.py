@@ -12,6 +12,11 @@ Device rule: entry points run on ``cuda`` unless the caller passes
 ``--device cpu``. Without a CUDA device and without ``--device cpu`` they
 raise; they never carry on on the CPU.
 
+Precision rule: the port's fp32 is full fp32. PyTorch runs fp32
+convolutions in TF32 by default (``torch.backends.cudnn.allow_tf32``), so
+every entry point calls :func:`pin_fp32_precision` before any work, which
+sets both ``allow_tf32`` flags to False.
+
 Checkpoints: the ``best`` roles of :class:`ldm3d_torch.ckpt.CheckpointManager`,
 ``model_dir/autoencoder_best.pt`` and ``model_dir/diffusion_best.pt``, each
 ``{"state_dict": ..., "meta": {...}}``; the latent ``scale_factor`` is in the
@@ -23,6 +28,7 @@ package's orbax checkpoints is not ported yet (ROADMAP.md queue A,
 from __future__ import annotations
 
 import argparse
+import contextlib
 import logging
 import sys
 import time
@@ -34,7 +40,7 @@ from ldm3d_torch.configs import define_instance, preset_path
 from ldm3d_torch.utils import merge_configs_onto_args
 
 __all__ = ["SAMPLERS", "TIMESTEP_SPACINGS", "UNPORTED", "build_parser", "reject_unported",
-           "setup", "resolve_device",
+           "setup", "resolve_device", "pin_fp32_precision", "tf32_flags",
            "model_dtype", "env_seed", "save_two_stage", "load_two_stage",
            "make_sampling_scheduler", "default_sampler_steps", "probe_readback_gbps",
            "resolve_decode_chunk"]
@@ -126,13 +132,34 @@ def reject_unported(args) -> None:
 
 
 def setup(args) -> tuple:
-    """Merge the config files onto ``args`` and resolve the device."""
+    """Merge the config files onto ``args``, pin the fp32 precision and
+    resolve the device."""
     logging.basicConfig(
         stream=sys.stdout, level=logging.INFO,
         format="[%(asctime)s.%(msecs)03d][%(levelname)5s](%(name)s) - %(message)s",
         datefmt="%Y-%m-%d %H:%M:%S")
     merge_configs_onto_args(args, args.environment_file, args.config_file)
+    pin_fp32_precision()
     return args, resolve_device(args.device)
+
+
+def pin_fp32_precision() -> None:
+    """fp32 matmuls and convolutions in full fp32: both ``allow_tf32``
+    flags False (PyTorch's default takes TF32 for fp32 convolutions)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+@contextlib.contextmanager
+def tf32_flags(enabled: bool):
+    """Both ``allow_tf32`` flags set to ``enabled`` inside the block, and
+    back to what they were on leaving it."""
+    before = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = enabled
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = before
 
 
 def resolve_device(name: str) -> torch.device:

@@ -18,8 +18,9 @@
 //
 // What bounds it on the H100: dQ does 6*n*kv*d flops and dK/dV 8*n*kv*d per
 // head against (4+1)*n*d and (4+2)*n*d elements of traffic, so at the
-// flagship's d = 64 and n = 1000 both are bound by the bf16 tensor cores
-// (989 TFLOP/s); the 125-token level is bound by its bytes.
+// flagship's d = 64 and n = 1000 both are bound by the tensor cores: in bf16
+// at 989 TFLOP/s, in fp32 at the 495 TFLOP/s of TF32 over the three products
+// of the split; the 125-token level is bound by its bytes in bf16.
 //
 // Three routes, by dtype and head_dim, in each entry point; no switch and no
 // fallback. Each grid puts batch * heads and the row tiles on grid.x (tiles
@@ -66,21 +67,38 @@
 //   - bf16 tiles stay bf16 in shared memory, rows padded by 16 bytes so the
 //     8 rows of an ldmatrix fall in 8 different bank groups.
 //
-// * fp32, d <= 256: flash_bwd_dq_fp32_kernel and flash_bwd_dkv_fp32_kernel,
-//   scalar fp32 FMA fed from shared memory (not yet redesigned: the
-//   forward's 3xTF32 split on the tensor cores is queued for them).
-//   - dQ: one block of 256 threads owns BM query rows and loops over kv
-//     tiles of BN keys. q (pre-scaled), dO, the k tile and the v tile sit in
-//     shared memory as fp32 with a row pitch of d+1 floats (16 threads
-//     reading 16 rows at one column hit 16 banks); dS goes through shared
-//     memory for the dS K product.
-//   - dK/dV: one block owns BN key rows, keeps its k and v tiles resident
-//     and loops over q tiles of BM rows (q pre-scaled, dO, and that tile's
-//     LSE and D). P^T and dS^T go through shared memory, key-major.
-//   - thread (ty, tx) of a 16 x 16 block owns output rows ty + 16*i and
-//     head-dim columns tx + 16*c; the score tile's columns are tx + 16*j.
-//   - tiles by DMAX: BM = BN = 64 up to d = 128; at d = 256, dQ takes
-//     BN = 32 and dK/dV BM = BN = 32 (201 KB and 137 KB of shared memory).
+// * fp32, d <= 256: flash_bwd_dq_tf32x3_mma_kernel and
+//   flash_bwd_dkv_tf32x3_mma_kernel, the same two FlashAttention-2 backward
+//   kernels on mma.sync m16n8k8 with tf32 operands and fp32 accumulators,
+//   each operand split in registers into hi = tf32(x) and lo = tf32(x - hi)
+//   and each product three mma (lo*hi + hi*lo + hi*hi, split_tf32 and
+//   mma_tf32x3 in mma_sm90.cuh): one tf32 rounding of each operand would put
+//   the gradients 3-10x past the fp32 limit of 1e-4 of the largest |grad|
+//   (emulated on the CPU in tests/test_torch_attention_grad.py).
+//   - dQ: 8 warps of 16 query rows (4 at DMAX = 256); Q and dO resident, K
+//     and V tiles of 32 keys (16 at DMAX = 256) through a two-slot cp.async
+//     ring. dK/dV: 8 warps of 16 keys (4 at DMAX = 256, where a grid axis
+//     gives each block 128 of the head dims of dK and dV); K and V resident,
+//     Q, dO, LSE and D tiles of 16 queries through the ring.
+//   - TF32 has no ldmatrix (a b16 instruction): fragments are 32- and 64-bit
+//     loads from shared memory, and each tile's row pitch follows its reads
+//     (the DqTf32 / DkvTf32 notes): DMAX + 4 floats for a tile read both
+//     along head dims and along keys or queries, DMAX + 8 for one read as
+//     float2 pairs along head dims only.
+//   - the C -> A fragment mapping: P, dS, P^T and dS^T stay in the
+//     accumulator registers of S, dP, S^T and dP^T and feed the next product
+//     as a0..a3 = c0, c2, c1, c3, so the B rows (keys of K for dS K, queries
+//     of dO and Q for P^T dO and dS^T Q) are loaded as 2t, 2t + 1
+//     (acc_tile_tf32x3; the CPU test pins each mapping).
+//   - the three mma of a product wait on one accumulator, so G n-tiles are
+//     taken together, their lo*hi first; and each tile's dQ, dK, dV products
+//     go to a zeroed partial added to the fp32 accumulator once, to nearest:
+//     the tensor cores truncate each mma's sum, which over thousands of
+//     chained mma took dQ to 0.76 of the fp32 limit at 8000 keys (emulated
+//     with and without the partials in tests/test_torch_attention_grad.py).
+//   - scale as the bf16 route: q is not pre-scaled, P = exp2 of one fma on S
+//     with the LSE, dQ and dK times the scale once at the store; rows copied
+//     in 16-byte pieces, or 4-byte ones for views off 16 bytes.
 //
 // * d > 256, either dtype: flash_bwd_dq_wide_kernel and
 //   flash_bwd_dkv_wide_kernel, scalar FMA. grid.y splits the head dims of dQ
@@ -189,11 +207,12 @@ __device__ __forceinline__ void load_rows_async(bf16* dst, const bf16* __restric
 }
 
 // The same for ROWS fp32 values from a contiguous row (LSE or D), 4 bytes a
-// piece (a row of n floats starts on 16 bytes only when 4 divides n).
-template <int ROWS>
+// piece (a row of n floats starts on 16 bytes only when 4 divides n), by the
+// NT threads of the block.
+template <int ROWS, int NT = MMA_NT>
 __device__ __forceinline__ void load_vec_async(float* dst, const float* __restrict__ src,
                                                int row0, int valid) {
-  for (int i = threadIdx.x; i < ROWS; i += MMA_NT) {
+  for (int i = threadIdx.x; i < ROWS; i += NT) {
     const bool ok = row0 + i < valid;
     ldm3d::cp_async_4(ldm3d::smem_u32(dst + i), ok ? src + row0 + i : src, ok);
   }
@@ -601,343 +620,488 @@ cudaError_t launch_dkv_bf16(const void* q, const void* k, const void* v, const v
 }
 
 // ---------------------------------------------------------------------------
-// fp32: scalar FMA
+// fp32: TF32 tensor cores, 3xTF32
 
-constexpr int TX = 16;
-constexpr int TY = 16;
-constexpr int NT = TX * TY;  // threads per block
+// Tiles of the fp32 route. Rows of a tile in shared memory have one of two
+// pitches, chosen by how the fragments read them (32- and 64-bit loads:
+// ldmatrix is a b16 instruction, so TF32 has none):
+// - DMAX + 4 floats (4 mod 32) for a tile read as scalars at rows g and
+//   columns t, t + 4 (banks 4g + t) and at rows 2t, 2t + 1 and column g
+//   (banks 8t + g, 8t + 4 + g): each 32-bit load of a warp hits 32 banks;
+// - DMAX + 8 floats (8 mod 32) for a tile read as float2 at rows g and
+//   columns 2t, 2t + 1 only: each half-warp's 64-bit load hits 32 banks.
+// dQ: BM query rows a block (16 a warp), BN keys a K or V tile, SLOTS (K, V)
+// tile pairs in the ring. Q and K are read both ways (K also along keys, as
+// the B operand of dS K): pitch LDA; dO and V only along head dims: LDB.
+template <int DMAX>
+struct DqTf32 {
+  static constexpr int WARPS = DMAX > 128 ? 4 : 8;
+  static constexpr int NT = 32 * WARPS;
+  static constexpr int BM = 16 * WARPS;
+  static constexpr int BN = DMAX > 128 ? 16 : 32;
+  static constexpr int SLOTS = 2;
+  static constexpr int LDA = DMAX + 4;
+  static constexpr int LDB = DMAX + 8;
+  static constexpr int SLOT = BN * (LDA + LDB);  // floats of a (K, V) slot
+  static constexpr size_t SMEM = ((size_t)BM * (LDA + LDB) + (size_t)SLOTS * SLOT) * sizeof(float);
+};
 
-// Copy rows [row0, row0 + rows) of one (batch, head) slice into shared memory
-// with pitch d+1, times `mul`; rows past `valid` are zero.
-__device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ src,
-                                          int64_t row_stride, int row0, int rows, int valid,
-                                          int d, float mul) {
-  const int ld = d + 1;
-  for (int i = threadIdx.x; i < rows * d; i += NT) {
-    const int r = i / d;
-    const int c = i - r * d;
-    const int t = row0 + r;
-    dst[r * ld + c] = t < valid ? src[(int64_t)t * row_stride + c] * mul : 0.f;
+// dK/dV: BN keys a block (16 a warp), DOUT head-dim columns of dK and dV a
+// block, BM queries a Q or dO tile, SLOTS (Q, dO, LSE, D) tiles in the ring.
+// Q and dO are read both ways (along queries as the B operands of P^T dO
+// and dS^T Q): every tile at pitch LD. At DMAX = 256 the K and V of 128 keys
+// would not fit a block's shared memory: 4 warps own 64 keys.
+template <int DMAX>
+struct DkvTf32 {
+  static constexpr int WARPS = DMAX > 128 ? 4 : 8;
+  static constexpr int NT = 32 * WARPS;
+  static constexpr int BN = 16 * WARPS;
+  static constexpr int DOUT = DMAX > 128 ? 128 : DMAX;
+  static constexpr int BM = DMAX <= 64 ? 32 : 16;
+  static constexpr int SLOTS = DMAX > 128 ? 2 : 3;
+  static constexpr int LD = DMAX + 4;
+  static constexpr int SLOT = 2 * BM * LD + 2 * BM;  // floats: Q, dO tiles, LSE, D
+  static constexpr size_t SMEM = ((size_t)2 * BN * LD + (size_t)SLOTS * SLOT) * sizeof(float);
+};
+
+// acc[c0 .. c0 + G) += A B over the K8 k-steps of a tile (the first `steps`
+// of them), in 3xTF32. A (16 x 8 K8) stays in the accumulator registers of
+// the product that made it: for the 8 columns of n-tile kk, a0, a1, a2,
+// a3 = c0, c2, c1, c3, so k index t stands for column 8kk + 2t and t + 4
+// for 8kk + 2t + 1, and B's fragment is loaded in that order from the tile
+// `b` (pitch LD): b0 = b[8kk + 2t][8c + g], b1 = b[8kk + 2t + 1][8c + g].
+// The tile's products go to a zeroed partial, added to acc in fp32 (round to
+// nearest) once: the tensor cores truncate each mma's sum, and in a chain of
+// thousands of mma on one accumulator the truncations add up to most of the
+// fp32 limit (dQ over 8000 keys: 0.75 of it at d = 64 and 0.92 at d = 256 in
+// the CPU emulation of tests/test_torch_attention_grad.py, 0.76 measured on
+// the card at d = 256); in a tile's partial they do not (0.02 and 0.07).
+template <int G, int K8, int LD, int N>
+__device__ __forceinline__ void acc_tile_tf32x3(float (&acc)[N][4], int c0, const float (&a)[K8][4],
+                                                const float* b, int steps) {
+  const int g = threadIdx.x % 32 / 4;
+  const int t = threadIdx.x % 4;
+  float part[G][4] = {};
+#pragma unroll
+  for (int kk = 0; kk < K8; ++kk) {
+    if (kk >= steps) continue;
+    uint32_t ah[4], al[4], bh[G][2], bl[G][2];
+    ldm3d::split_tf32_a(a[kk][0], a[kk][2], a[kk][1], a[kk][3], ah, al);
+    const float* br = b + (kk * 8 + 2 * t) * LD + c0 * 8 + g;
+#pragma unroll
+    for (int j = 0; j < G; ++j) {
+      ldm3d::split_tf32(br[j * 8], bh[j][0], bl[j][0]);
+      ldm3d::split_tf32(br[LD + j * 8], bh[j][1], bl[j][1]);
+    }
+    ldm3d::mma_tf32x3<G>(part, ah, al, bh, bl);
   }
+#pragma unroll
+  for (int j = 0; j < G; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[c0 + j][e] += part[j][e];
 }
 
-// Tile sizes of an instantiation: BM query rows, BN key rows.
-template <int DMAX>
-struct DqTiles {
-  static constexpr int BM = 64;
-  static constexpr int BN = DMAX > 128 ? 32 : 64;
-};
-template <int DMAX>
-struct DkvTiles {
-  static constexpr int BM = DMAX > 128 ? 32 : 64;
-  static constexpr int BN = DMAX > 128 ? 32 : 64;
-};
-
-constexpr size_t dq_smem_bytes(int d, int bm, int bn) {
-  return (size_t)((2 * bm + 2 * bn) * (d + 1) + bm * (bn + 1)) * sizeof(float);
+// acc_tile_tf32x3 for two products on the same k-steps at once (dV from P^T
+// and dO, dK from dS^T and Q), their mma interleaved (mma_tf32x3_2).
+template <int G, int K8, int LD, int N>
+__device__ __forceinline__ void acc_tile_tf32x3_2(float (&acc)[N][4], const float (&a)[K8][4],
+                                                  const float* b, float (&acc2)[N][4],
+                                                  const float (&a2)[K8][4], const float* b2,
+                                                  int c0, int steps) {
+  const int g = threadIdx.x % 32 / 4;
+  const int t = threadIdx.x % 4;
+  float part[G][4] = {};
+  float part2[G][4] = {};
+#pragma unroll
+  for (int kk = 0; kk < K8; ++kk) {
+    if (kk >= steps) continue;
+    uint32_t ah[4], al[4], bh[G][2], bl[G][2], ah2[4], al2[4], bh2[G][2], bl2[G][2];
+    ldm3d::split_tf32_a(a[kk][0], a[kk][2], a[kk][1], a[kk][3], ah, al);
+    ldm3d::split_tf32_a(a2[kk][0], a2[kk][2], a2[kk][1], a2[kk][3], ah2, al2);
+    const int row = (kk * 8 + 2 * t) * LD + c0 * 8 + g;
+#pragma unroll
+    for (int j = 0; j < G; ++j) {
+      ldm3d::split_tf32(b[row + j * 8], bh[j][0], bl[j][0]);
+      ldm3d::split_tf32(b[row + LD + j * 8], bh[j][1], bl[j][1]);
+      ldm3d::split_tf32(b2[row + j * 8], bh2[j][0], bl2[j][0]);
+      ldm3d::split_tf32(b2[row + LD + j * 8], bh2[j][1], bl2[j][1]);
+    }
+    ldm3d::mma_tf32x3_2<G>(part, ah, al, bh, bl, part2, ah2, al2, bh2, bl2);
+  }
+#pragma unroll
+  for (int j = 0; j < G; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      acc[c0 + j][e] += part[j][e];
+      acc2[c0 + j][e] += part2[j][e];
+    }
 }
-constexpr size_t dkv_smem_bytes(int d, int bm, int bn) {
-  return (size_t)((2 * bm + 2 * bn) * (d + 1) + 2 * bn * (bm + 1) + 2 * bm) * sizeof(float);
-}
 
+// dQ. Grid (batch * heads * ceil(n / BM)). Q and dO stay in shared memory;
+// the K and V tiles stream through a ring of SLOTS (K_j, V_j) pairs (the
+// copy of the next pair in flight while one is multiplied). Every product is
+// three mma.sync m16n8k8 on tf32 parts split in registers at each fragment
+// load (split_tf32: lo*hi, hi*lo, hi*hi), GS or G n-tiles at a time.
+// - S = Q K^T and dP = dO V^T, issued as interleaved pairs (mma_tf32x3_2).
+//   In S, k index t stands for head dim 8kk + t, t + 4 for 8kk + t + 4
+//   (scalar loads: K is also read along keys, below); in dP for 8kk + 2t
+//   and 8kk + 2t + 1, so that a0/a2, a1/a3 and b0/b1 are each one float2.
+// - dQ += dS K (acc_tile_tf32x3): dS stays in S's accumulator registers and
+//   K's B fragment is loaded at keys 8kk + 2t, 8kk + 2t + 1
+//   (tests/test_torch_attention_grad.py emulates the three mappings).
+// The accumulators of S, dP and dQ take BN + DMAX / 2 fp32 registers a
+// thread: 64 at DMAX = 64, two blocks an SM (128 registers, no spill); 96
+// and 160 above, one block.
 template <int DMAX>
-__global__ void __launch_bounds__(NT) flash_bwd_dq_fp32_kernel(
-    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    const float* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ dvec, float* __restrict__ dq, int H, int n, int kv_len, int d,
-    Strides st, float scale) {
-  constexpr int BM = DqTiles<DMAX>::BM;
-  constexpr int BN = DqTiles<DMAX>::BN;
-  constexpr int RM = BM / TY;    // query rows per thread
-  constexpr int RN = BN / TX;    // key columns per thread
-  constexpr int RD = DMAX / TX;  // head-dim columns per thread
-  extern __shared__ float smem[];
-  const int ld = d + 1;
-  float* qs = smem;             // BM x ld, pre-scaled q
-  float* dos = qs + BM * ld;    // BM x ld, dO
-  float* ks = dos + BM * ld;    // BN x ld
-  float* vs = ks + BN * ld;     // BN x ld
-  float* dss = vs + BN * ld;    // BM x (BN + 1), dS
+__global__ void __launch_bounds__(DqTf32<DMAX>::NT, DMAX <= 64 ? 2 : 1)
+    flash_bwd_dq_tf32x3_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                   const float* __restrict__ v, const float* __restrict__ dout,
+                                   const float* __restrict__ lse, const float* __restrict__ dvec,
+                                   float* __restrict__ dq, int H, int n, int kv_len, int d,
+                                   Strides st, float scale, float scale_log2, int vec16) {
+  using T = DqTf32<DMAX>;
+  constexpr int BM = T::BM;
+  constexpr int BN = T::BN;
+  constexpr int NSLOT = T::SLOTS;
+  constexpr int LDA = T::LDA;
+  constexpr int LDB = T::LDB;
+  constexpr int KS = DMAX / 8;          // k-steps of Q K^T and dO V^T over the head dim
+  constexpr int SN = BN / 8;            // 8-key n-tiles of S and dP, k-steps of dS K
+  constexpr int ON = DMAX / 8;          // 8-column n-tiles of dQ
+  constexpr int GS = SN < 4 ? SN : 4;   // n-tiles of S and dP taken together
+  constexpr int G = 4;                  // n-tiles of dQ taken together
+  static_assert(NSLOT >= 2 && SN % GS == 0 && ON % G == 0, "tiles are whole mma groups");
+  extern __shared__ __align__(128) float smem_f[];
+  float* qs = smem_f;             // BM x LDA
+  float* dos = qs + BM * LDA;     // BM x LDB
+  float* slots = dos + BM * LDB;  // NSLOT x (K tile BN x LDA, V tile BN x LDB)
 
-  const int tx = threadIdx.x % TX;
-  const int ty = threadIdx.x / TX;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;  // C rows g and g + 8
+  const int t = lane % 4;  // C columns 2t and 2t + 1
   const int q_tiles = (n + BM - 1) / BM;
   const int bh = blockIdx.x / q_tiles;
   const int b = bh / H;
   const int h = bh - b * H;
   const int row0 = (blockIdx.x - bh * q_tiles) * BM;
+  const int n_tiles = (kv_len + BN - 1) / BN;
 
   const float* qb = q + b * st.q_sb + h * st.q_sh;
   const float* kb = k + b * st.k_sb + h * st.k_sh;
   const float* vb = v + b * st.v_sb + h * st.v_sh;
   const float* ob = dout + b * st.o_sb + h * st.o_sh;
 
-  load_tile(qs, qb, st.q_sn, row0, BM, n, d, scale);
-  load_tile(dos, ob, st.o_sn, row0, BM, n, d, 1.f);
+  auto issue = [&](int j) {
+    if (j < n_tiles) {
+      float* slot = slots + j % NSLOT * T::SLOT;
+      ldm3d::load_rows_f32<BN, LDA, DMAX, T::NT>(slot, kb, st.k_sn, j * BN, kv_len, d, vec16);
+      ldm3d::load_rows_f32<BN, LDB, DMAX, T::NT>(slot + BN * LDA, vb, st.v_sn, j * BN, kv_len, d,
+                                                 vec16);
+    }
+    ldm3d::cp_async_commit();
+  };
+  ldm3d::load_rows_f32<BM, LDA, DMAX, T::NT>(qs, qb, st.q_sn, row0, n, d, vec16);  // with tile 0
+  ldm3d::load_rows_f32<BM, LDB, DMAX, T::NT>(dos, ob, st.o_sn, row0, n, d, vec16);
+#pragma unroll
+  for (int i = 0; i < NSLOT - 1; ++i) issue(i);
 
-  float row_lse[RM];
-  float row_d[RM];
-  float acc[RM][RD];
+  // rows g and g + 8 of the warp: -LSE * log2(e) and D
+  float nl[2], dd[2];
 #pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    const int t = row0 + ty + TY * i;
-    row_lse[i] = t < n ? lse[(int64_t)bh * n + t] : 0.f;
-    row_d[i] = t < n ? dvec[(int64_t)bh * n + t] : 0.f;
-#pragma unroll
-    for (int c = 0; c < RD; ++c) acc[i][c] = 0.f;
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + warp * 16 + g + 8 * r;
+    nl[r] = row < n ? -lse[(int64_t)bh * n + row] * LOG2E : 0.f;
+    dd[r] = row < n ? dvec[(int64_t)bh * n + row] : 0.f;
   }
 
-  for (int kv0 = 0; kv0 < kv_len; kv0 += BN) {
-    __syncthreads();  // q/dO are loaded; the previous k tile and dS are no longer read
-    load_tile(ks, kb, st.k_sn, kv0, BN, kv_len, d, 1.f);
-    load_tile(vs, vb, st.v_sn, kv0, BN, kv_len, d, 1.f);
+  const float* qa = qs + (warp * 16 + g) * LDA + t;       // A of S: rows g, g + 8; dims t, t + 4
+  const float* oa = dos + (warp * 16 + g) * LDB + 2 * t;  // A of dP: dims 2t, 2t + 1
+
+  float acc[ON][4];
+#pragma unroll
+  for (int c = 0; c < ON; ++c) acc[c][0] = acc[c][1] = acc[c][2] = acc[c][3] = 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    // (K_j, V_j): landed for every thread; every warp is done with the slot
+    // that the copy of tile j + NSLOT - 1 now overwrites
+    ldm3d::cp_async_wait<NSLOT - 2>();
     __syncthreads();
+    issue(j + NSLOT - 1);
+    const float* kt = slots + j % NSLOT * T::SLOT;
+    const float* vt = kt + BN * LDA;
 
-    float s[RM][RN];
-    float dp[RM][RN];
+    float s[SN][4];
+    float dp[SN][4];
 #pragma unroll
-    for (int i = 0; i < RM; ++i)
+    for (int c = 0; c < SN; ++c)
 #pragma unroll
-      for (int j = 0; j < RN; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 2
-    for (int c = 0; c < d; ++c) {
-      float qv[RM], ov[RM], kv[RN], vv[RN];
+      for (int e = 0; e < 4; ++e) s[c][e] = dp[c][e] = 0.f;
 #pragma unroll
-      for (int i = 0; i < RM; ++i) {
-        qv[i] = qs[(ty + TY * i) * ld + c];
-        ov[i] = dos[(ty + TY * i) * ld + c];
-      }
+    for (int kk = 0; kk < KS; ++kk) {
+      if (kk * 8 >= d) continue;  // head dims past d are not loaded
+      uint32_t ah[4], al[4], oh[4], ol[4];
+      ldm3d::split_tf32_a(qa[kk * 8], qa[8 * LDA + kk * 8], qa[kk * 8 + 4],
+                          qa[8 * LDA + kk * 8 + 4], ah, al);
+      const float2 o0 = *reinterpret_cast<const float2*>(oa + kk * 8);
+      const float2 o1 = *reinterpret_cast<const float2*>(oa + 8 * LDB + kk * 8);
+      ldm3d::split_tf32_a(o0.x, o1.x, o0.y, o1.y, oh, ol);
 #pragma unroll
-      for (int j = 0; j < RN; ++j) {
-        kv[j] = ks[(tx + TX * j) * ld + c];
-        vv[j] = vs[(tx + TX * j) * ld + c];
-      }
+      for (int c0 = 0; c0 < SN; c0 += GS) {
+        uint32_t bh[GS][2], bl[GS][2], vh[GS][2], vl[GS][2];
 #pragma unroll
-      for (int i = 0; i < RM; ++i)
-#pragma unroll
-        for (int j = 0; j < RN; ++j) {
-          s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-          dp[i][j] = fmaf(ov[i], vv[j], dp[i][j]);
+        for (int i = 0; i < GS; ++i) {
+          const float* kr = kt + ((c0 + i) * 8 + g) * LDA + kk * 8 + t;
+          ldm3d::split_tf32(kr[0], bh[i][0], bl[i][0]);
+          ldm3d::split_tf32(kr[4], bh[i][1], bl[i][1]);
+          const float2 vv =
+              *reinterpret_cast<const float2*>(vt + ((c0 + i) * 8 + g) * LDB + kk * 8 + 2 * t);
+          ldm3d::split_tf32(vv.x, vh[i][0], vl[i][0]);
+          ldm3d::split_tf32(vv.y, vh[i][1], vl[i][1]);
         }
-    }
-#pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      const bool row_ok = row0 + ty + TY * i < n;
-#pragma unroll
-      for (int j = 0; j < RN; ++j) {
-        const bool col_ok = kv0 + tx + TX * j < kv_len;
-        const float p = row_ok && col_ok ? expf(s[i][j] - row_lse[i]) : 0.f;
-        dss[(ty + TY * i) * (BN + 1) + tx + TX * j] = p * (dp[i][j] - row_d[i]);
+        ldm3d::mma_tf32x3_2<GS>(&s[c0], ah, al, bh, bl, &dp[c0], oh, ol, vh, vl);
       }
     }
-    __syncthreads();  // dS is visible
 
-    const int nk = min(BN, kv_len - kv0);
-    for (int kk = 0; kk < nk; ++kk) {
-      float dsv[RM];
+    // dS = P * (dP - D) in place of S; P = 0 for keys past kv_len
+    const int kv0 = j * BN;
+    const bool ragged = kv0 + BN > kv_len;
 #pragma unroll
-      for (int i = 0; i < RM; ++i) dsv[i] = dss[(ty + TY * i) * (BN + 1) + kk];
+    for (int c = 0; c < SN; ++c)
 #pragma unroll
-      for (int c = 0; c < RD; ++c) {
-        const int col = tx + TX * c;
-        const float kval = col < d ? ks[kk * ld + col] : 0.f;
-#pragma unroll
-        for (int i = 0; i < RM; ++i) acc[i][c] = fmaf(dsv[i], kval, acc[i][c]);
+      for (int e = 0; e < 4; ++e) {
+        float p = exp2f(fmaf(s[c][e], scale_log2, nl[e / 2]));
+        if (ragged && kv0 + c * 8 + 2 * t + (e & 1) >= kv_len) p = 0.f;
+        s[c][e] = p * (dp[c][e] - dd[e / 2]);
       }
-    }
+
+    // dQ += dS K, G n-tiles at a time; k-steps of 8 keys all past the edge
+    // (dS = 0) are skipped, n-tiles of a group past d computed, not stored
+    const int steps = min(SN, (kv_len - kv0 + 7) / 8);
+#pragma unroll
+    for (int c0 = 0; c0 < ON; c0 += G)
+      if (c0 * 8 < d) acc_tile_tf32x3<G, SN, LDA>(acc, c0, s, kt, steps);
   }
 
+  // each lane stores columns 8c + 2t, 8c + 2t + 1 of its rows g and g + 8
 #pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    const int t = row0 + ty + TY * i;
-    if (t >= n) continue;
-    float* out = dq + ((int64_t)(b * n + t) * H + h) * d;
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + warp * 16 + g + 8 * r;
+    if (row >= n) continue;
+    float* orow = dq + ((int64_t)(b * n + row) * H + h) * d + 2 * t;
 #pragma unroll
-    for (int c = 0; c < RD; ++c) {
-      const int col = tx + TX * c;
-      if (col < d) out[col] = scale * acc[i][c];
-    }
+    for (int c = 0; c < ON; ++c)
+      if (c * 8 < d)
+        *reinterpret_cast<float2*>(orow + c * 8) =
+            make_float2(acc[c][2 * r] * scale, acc[c][2 * r + 1] * scale);
   }
 }
 
+// dK and dV. Grid (batch * heads * ceil(kv_len / BN), ceil(d / DOUT)). K and
+// V stay in shared memory; the Q and dO tiles, with their LSE and D, stream
+// through a ring of SLOTS slots. As dQ, every product is 3xTF32:
+// - S^T = K Q^T and dP^T = V dO^T, issued as interleaved pairs
+//   (mma_tf32x3_2): k index t stands for head dim 8kk + t, t + 4 for
+//   8kk + t + 4 (scalar loads: Q and dO are also read along queries).
+// - dV += P^T dO and dK += dS^T Q, also as pairs (acc_tile_tf32x3_2): P^T
+//   and dS^T stay in the accumulator registers of S^T and dP^T, and dO's and
+//   Q's B fragments are loaded at queries 8kk + 2t, 8kk + 2t + 1.
+// The accumulators of S^T, dP^T, dK and dV and the two partials take BM +
+// DOUT + 32 fp32 registers a thread (128 at DMAX = 64), more than two
+// blocks an SM allow without a spill: one block of 8 warps an SM, with
+// 32-query tiles at DMAX = 64 (four n-tiles of S^T in each product, against
+// two at 16; PERF.md).
 template <int DMAX>
-__global__ void __launch_bounds__(NT) flash_bwd_dkv_fp32_kernel(
-    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    const float* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ dvec, float* __restrict__ dk, float* __restrict__ dv, int H,
-    int n, int kv_len, int d, Strides st, float scale) {
-  constexpr int BM = DkvTiles<DMAX>::BM;
-  constexpr int BN = DkvTiles<DMAX>::BN;
-  constexpr int RK = BN / TY;    // key rows per thread
-  constexpr int RQ = BM / TX;    // query columns of the score tile per thread
-  constexpr int RD = DMAX / TX;  // head-dim columns per thread
-  extern __shared__ float smem[];
-  const int ld = d + 1;
-  float* ks = smem;              // BN x ld
-  float* vs = ks + BN * ld;      // BN x ld
-  float* qs = vs + BN * ld;      // BM x ld, pre-scaled q
-  float* dos = qs + BM * ld;     // BM x ld, dO
-  float* pt = dos + BM * ld;     // BN x (BM + 1), P^T
-  float* dst = pt + BN * (BM + 1);   // BN x (BM + 1), dS^T
-  float* lse_s = dst + BN * (BM + 1);  // BM
-  float* d_s = lse_s + BM;             // BM
+__global__ void __launch_bounds__(DkvTf32<DMAX>::NT, 1)
+    flash_bwd_dkv_tf32x3_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                    const float* __restrict__ v, const float* __restrict__ dout,
+                                    const float* __restrict__ lse, const float* __restrict__ dvec,
+                                    float* __restrict__ dk, float* __restrict__ dv, int H, int n,
+                                    int kv_len, int d, Strides st, float scale, float scale_log2,
+                                    int vec16) {
+  using T = DkvTf32<DMAX>;
+  constexpr int BN = T::BN;
+  constexpr int BM = T::BM;
+  constexpr int NSLOT = T::SLOTS;
+  constexpr int LD = T::LD;
+  constexpr int KS = DMAX / 8;          // k-steps of K Q^T and V dO^T over the head dim
+  constexpr int SN = BM / 8;            // 8-query n-tiles of S^T and dP^T, k-steps of dV, dK
+  constexpr int ON = T::DOUT / 8;       // 8-column n-tiles of dK and dV
+  constexpr int GS = SN < 4 ? SN : 4;   // n-tiles of S^T and dP^T taken together
+  constexpr int G = 4;                  // n-tiles of dK and dV taken together
+  static_assert(NSLOT >= 2 && SN % GS == 0 && ON % G == 0, "tiles are whole mma groups");
+  extern __shared__ __align__(128) float smem_f[];
+  float* ks = smem_f;          // BN x LD
+  float* vs = ks + BN * LD;    // BN x LD
+  float* slots = vs + BN * LD;  // slot i: Q tile, dO tile (BM x LD each), LSE, D (BM each)
 
-  const int tx = threadIdx.x % TX;
-  const int ty = threadIdx.x / TX;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;  // C rows (keys) g and g + 8
+  const int t = lane % 4;  // C columns (queries) 2t and 2t + 1
   const int k_tiles = (kv_len + BN - 1) / BN;
   const int bh = blockIdx.x / k_tiles;
   const int b = bh / H;
   const int h = bh - b * H;
   const int key0 = (blockIdx.x - bh * k_tiles) * BN;
+  const int col0 = blockIdx.y * T::DOUT;
+  const int n_tiles = (n + BM - 1) / BM;
 
   const float* qb = q + b * st.q_sb + h * st.q_sh;
   const float* kb = k + b * st.k_sb + h * st.k_sh;
   const float* vb = v + b * st.v_sb + h * st.v_sh;
   const float* ob = dout + b * st.o_sb + h * st.o_sh;
+  const float* lb = lse + (int64_t)bh * n;
+  const float* db = dvec + (int64_t)bh * n;
 
-  load_tile(ks, kb, st.k_sn, key0, BN, kv_len, d, 1.f);
-  load_tile(vs, vb, st.v_sn, key0, BN, kv_len, d, 1.f);
-
-  float acc_k[RK][RD];
-  float acc_v[RK][RD];
-#pragma unroll
-  for (int i = 0; i < RK; ++i)
-#pragma unroll
-    for (int c = 0; c < RD; ++c) acc_k[i][c] = acc_v[i][c] = 0.f;
-
-  for (int q0 = 0; q0 < n; q0 += BM) {
-    __syncthreads();  // k/v are loaded; the previous q tile, P^T and dS^T are no longer read
-    load_tile(qs, qb, st.q_sn, q0, BM, n, d, scale);
-    load_tile(dos, ob, st.o_sn, q0, BM, n, d, 1.f);
-    for (int r = threadIdx.x; r < BM; r += NT) {
-      const int t = q0 + r;
-      lse_s[r] = t < n ? lse[(int64_t)bh * n + t] : 0.f;
-      d_s[r] = t < n ? dvec[(int64_t)bh * n + t] : 0.f;
+  auto issue = [&](int i) {
+    if (i < n_tiles) {
+      float* slot = slots + i % NSLOT * T::SLOT;
+      ldm3d::load_rows_f32<BM, LD, DMAX, T::NT>(slot, qb, st.q_sn, i * BM, n, d, vec16);
+      ldm3d::load_rows_f32<BM, LD, DMAX, T::NT>(slot + BM * LD, ob, st.o_sn, i * BM, n, d,
+                                                vec16);
+      load_vec_async<BM, T::NT>(slot + 2 * BM * LD, lb, i * BM, n);
+      load_vec_async<BM, T::NT>(slot + 2 * BM * LD + BM, db, i * BM, n);
     }
+    ldm3d::cp_async_commit();
+  };
+  // with tile 0
+  ldm3d::load_rows_f32<BN, LD, DMAX, T::NT>(ks, kb, st.k_sn, key0, kv_len, d, vec16);
+  ldm3d::load_rows_f32<BN, LD, DMAX, T::NT>(vs, vb, st.v_sn, key0, kv_len, d, vec16);
+#pragma unroll
+  for (int i = 0; i < NSLOT - 1; ++i) issue(i);
+
+  const float* ka = ks + (warp * 16 + g) * LD + t;  // A: keys g, g + 8; dims t, t + 4
+  const float* va = vs + (warp * 16 + g) * LD + t;
+
+  float acc_k[ON][4];
+  float acc_v[ON][4];
+#pragma unroll
+  for (int c = 0; c < ON; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_k[c][e] = acc_v[c][e] = 0.f;
+
+  for (int i = 0; i < n_tiles; ++i) {
+    ldm3d::cp_async_wait<NSLOT - 2>();
     __syncthreads();
+    issue(i + NSLOT - 1);
+    const float* qt = slots + i % NSLOT * T::SLOT;
+    const float* ot = qt + BM * LD;
+    const float* lt = ot + BM * LD;  // LSE, then D
 
-    float s[RK][RQ];
-    float dp[RK][RQ];
+    float s[SN][4];
+    float dp[SN][4];
 #pragma unroll
-    for (int i = 0; i < RK; ++i)
+    for (int c = 0; c < SN; ++c)
 #pragma unroll
-      for (int j = 0; j < RQ; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 2
-    for (int c = 0; c < d; ++c) {
-      float kv[RK], vv[RK], qv[RQ], ov[RQ];
+      for (int e = 0; e < 4; ++e) s[c][e] = dp[c][e] = 0.f;
 #pragma unroll
-      for (int i = 0; i < RK; ++i) {
-        kv[i] = ks[(ty + TY * i) * ld + c];
-        vv[i] = vs[(ty + TY * i) * ld + c];
-      }
+    for (int kk = 0; kk < KS; ++kk) {
+      if (kk * 8 >= d) continue;
+      uint32_t kh[4], kl[4], vh[4], vl[4];
+      ldm3d::split_tf32_a(ka[kk * 8], ka[8 * LD + kk * 8], ka[kk * 8 + 4], ka[8 * LD + kk * 8 + 4],
+                          kh, kl);
+      ldm3d::split_tf32_a(va[kk * 8], va[8 * LD + kk * 8], va[kk * 8 + 4], va[8 * LD + kk * 8 + 4],
+                          vh, vl);
 #pragma unroll
-      for (int j = 0; j < RQ; ++j) {
-        qv[j] = qs[(tx + TX * j) * ld + c];
-        ov[j] = dos[(tx + TX * j) * ld + c];
-      }
+      for (int c0 = 0; c0 < SN; c0 += GS) {
+        uint32_t qh[GS][2], ql[GS][2], oh[GS][2], ol[GS][2];
 #pragma unroll
-      for (int i = 0; i < RK; ++i)
-#pragma unroll
-        for (int j = 0; j < RQ; ++j) {
-          s[i][j] = fmaf(qv[j], kv[i], s[i][j]);
-          dp[i][j] = fmaf(ov[j], vv[i], dp[i][j]);
+        for (int j = 0; j < GS; ++j) {
+          const int row = ((c0 + j) * 8 + g) * LD + kk * 8 + t;
+          ldm3d::split_tf32(qt[row], qh[j][0], ql[j][0]);
+          ldm3d::split_tf32(qt[row + 4], qh[j][1], ql[j][1]);
+          ldm3d::split_tf32(ot[row], oh[j][0], ol[j][0]);
+          ldm3d::split_tf32(ot[row + 4], oh[j][1], ol[j][1]);
         }
-    }
-#pragma unroll
-    for (int i = 0; i < RK; ++i) {
-      const bool key_ok = key0 + ty + TY * i < kv_len;
-#pragma unroll
-      for (int j = 0; j < RQ; ++j) {
-        const int r = tx + TX * j;
-        const bool row_ok = q0 + r < n;
-        const float p = key_ok && row_ok ? expf(s[i][j] - lse_s[r]) : 0.f;
-        pt[(ty + TY * i) * (BM + 1) + r] = p;
-        dst[(ty + TY * i) * (BM + 1) + r] = p * (dp[i][j] - d_s[r]);
+        ldm3d::mma_tf32x3_2<GS>(&s[c0], kh, kl, qh, ql, &dp[c0], vh, vl, oh, ol);
       }
     }
-    __syncthreads();  // P^T and dS^T are visible
 
-    const int nq = min(BM, n - q0);
-    for (int qq = 0; qq < nq; ++qq) {
-      float pv[RK], dsv[RK];
+    // P^T in place of S^T, dS^T = P^T * (dP^T - D) in place of dP^T; a
+    // column is a query: its LSE and D from the slot; P = 0 past n
+    const int q0 = i * BM;
+    const bool ragged = q0 + BM > n;
 #pragma unroll
-      for (int i = 0; i < RK; ++i) {
-        pv[i] = pt[(ty + TY * i) * (BM + 1) + qq];
-        dsv[i] = dst[(ty + TY * i) * (BM + 1) + qq];
-      }
+    for (int c = 0; c < SN; ++c) {
+      const float2 l2 = *reinterpret_cast<const float2*>(lt + c * 8 + 2 * t);
+      const float2 d2 = *reinterpret_cast<const float2*>(lt + BM + c * 8 + 2 * t);
+      const float nq[2] = {-l2.x * LOG2E, -l2.y * LOG2E};
+      const float dq2[2] = {d2.x, d2.y};
 #pragma unroll
-      for (int c = 0; c < RD; ++c) {
-        const int col = tx + TX * c;
-        const float ov = col < d ? dos[qq * ld + col] : 0.f;
-        const float qv = col < d ? qs[qq * ld + col] : 0.f;
-#pragma unroll
-        for (int i = 0; i < RK; ++i) {
-          acc_v[i][c] = fmaf(pv[i], ov, acc_v[i][c]);
-          acc_k[i][c] = fmaf(dsv[i], qv, acc_k[i][c]);
-        }
+      for (int e = 0; e < 4; ++e) {
+        float p = exp2f(fmaf(s[c][e], scale_log2, nq[e & 1]));
+        if (ragged && q0 + c * 8 + 2 * t + (e & 1) >= n) p = 0.f;
+        s[c][e] = p;
+        dp[c][e] = p * (dp[c][e] - dq2[e & 1]);
       }
     }
+
+    // dV += P^T dO, then dK += dS^T Q, G n-tiles at a time; k-steps of 8
+    // queries all past the edge (P = dS = 0) are skipped
+    const int steps = min(SN, (n - q0 + 7) / 8);
+#pragma unroll
+    for (int c0 = 0; c0 < ON; c0 += G)
+      if (col0 + c0 * 8 < d)
+        acc_tile_tf32x3_2<G, SN, LD>(acc_v, s, ot + col0, acc_k, dp, qt + col0, c0, steps);
   }
 
+  // dK = scale * acc_k and dV: each lane stores columns col0 + 8c + 2t, + 1
+  // of its keys g and g + 8
 #pragma unroll
-  for (int i = 0; i < RK; ++i) {
-    const int t = key0 + ty + TY * i;
-    if (t >= kv_len) continue;
-    const int64_t base = ((int64_t)(b * kv_len + t) * H + h) * d;
+  for (int r = 0; r < 2; ++r) {
+    const int key = key0 + warp * 16 + g + 8 * r;
+    if (key >= kv_len) continue;
+    const int64_t base = ((int64_t)(b * kv_len + key) * H + h) * d + col0 + 2 * t;
 #pragma unroll
-    for (int c = 0; c < RD; ++c) {
-      const int col = tx + TX * c;
-      if (col < d) {
-        dk[base + col] = acc_k[i][c];  // q was pre-scaled: dK = scale * dS^T Q
-        dv[base + col] = acc_v[i][c];
+    for (int c = 0; c < ON; ++c)
+      if (col0 + c * 8 < d) {
+        *reinterpret_cast<float2*>(dk + base + c * 8) =
+            make_float2(acc_k[c][2 * r] * scale, acc_k[c][2 * r + 1] * scale);
+        *reinterpret_cast<float2*>(dv + base + c * 8) =
+            make_float2(acc_v[c][2 * r], acc_v[c][2 * r + 1]);
       }
-    }
   }
 }
 
 template <int DMAX>
-cudaError_t launch_dq_fp32(const void* q, const void* k, const void* v, const void* dout,
+cudaError_t launch_dq_tf32(const void* q, const void* k, const void* v, const void* dout,
                            const void* lse, const void* dvec, void* dq, int B, int H, int n,
-                           int kv_len, int d, const Strides& st, float scale,
+                           int kv_len, int d, const Strides& st, float scale, bool vec16,
                            cudaStream_t stream) {
-  constexpr int BM = DqTiles<DMAX>::BM;
-  constexpr int BN = DqTiles<DMAX>::BN;
-  static_assert(dq_smem_bytes(DMAX, BM, BN) <= MAX_SMEM, "dQ tiles exceed a block's shared memory");
-  const size_t smem = dq_smem_bytes(d, BM, BN);
-  if (smem > dq_smem_bytes(DMAX, BM, BN)) return cudaErrorInvalidValue;
-  auto kernel = flash_bwd_dq_fp32_kernel<DMAX>;
+  using T = DqTf32<DMAX>;
+  static_assert(T::SMEM <= MAX_SMEM, "dQ tiles exceed a block's shared memory");
+  auto kernel = flash_bwd_dq_tf32x3_mma_kernel<DMAX>;
   static std::atomic<unsigned long long> opted_in{0};
-  cudaError_t err = opt_in_once(kernel, dq_smem_bytes(DMAX, BM, BN), opted_in);
+  cudaError_t err = opt_in_once(kernel, T::SMEM, opted_in);
   if (err != cudaSuccess) return err;
-  const dim3 grid((unsigned)((n + BM - 1) / BM * (int64_t)B * H));
-  kernel<<<grid, NT, smem, stream>>>(
+  const dim3 grid((unsigned)((n + T::BM - 1) / T::BM * (int64_t)B * H));
+  kernel<<<grid, T::NT, T::SMEM, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(dvec), static_cast<float*>(dq), H, n, kv_len, d, st, scale);
+      static_cast<const float*>(dvec), static_cast<float*>(dq), H, n, kv_len, d, st, scale,
+      scale * LOG2E, (int)vec16);
   return cudaGetLastError();
 }
 
 template <int DMAX>
-cudaError_t launch_dkv_fp32(const void* q, const void* k, const void* v, const void* dout,
+cudaError_t launch_dkv_tf32(const void* q, const void* k, const void* v, const void* dout,
                             const void* lse, const void* dvec, void* dk, void* dv, int B, int H,
-                            int n, int kv_len, int d, const Strides& st, float scale,
+                            int n, int kv_len, int d, const Strides& st, float scale, bool vec16,
                             cudaStream_t stream) {
-  constexpr int BM = DkvTiles<DMAX>::BM;
-  constexpr int BN = DkvTiles<DMAX>::BN;
-  static_assert(dkv_smem_bytes(DMAX, BM, BN) <= MAX_SMEM,
-                "dK/dV tiles exceed a block's shared memory");
-  const size_t smem = dkv_smem_bytes(d, BM, BN);
-  if (smem > dkv_smem_bytes(DMAX, BM, BN)) return cudaErrorInvalidValue;
-  auto kernel = flash_bwd_dkv_fp32_kernel<DMAX>;
+  using T = DkvTf32<DMAX>;
+  static_assert(T::SMEM <= MAX_SMEM, "dK/dV tiles exceed a block's shared memory");
+  auto kernel = flash_bwd_dkv_tf32x3_mma_kernel<DMAX>;
   static std::atomic<unsigned long long> opted_in{0};
-  cudaError_t err = opt_in_once(kernel, dkv_smem_bytes(DMAX, BM, BN), opted_in);
+  cudaError_t err = opt_in_once(kernel, T::SMEM, opted_in);
   if (err != cudaSuccess) return err;
-  const dim3 grid((unsigned)((kv_len + BN - 1) / BN * (int64_t)B * H));
-  kernel<<<grid, NT, smem, stream>>>(
+  const dim3 grid((unsigned)((kv_len + T::BN - 1) / T::BN * (int64_t)B * H),
+                  (d + T::DOUT - 1) / T::DOUT);
+  kernel<<<grid, T::NT, T::SMEM, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(dvec), static_cast<float*>(dk), static_cast<float*>(dv), H, n,
-      kv_len, d, st, scale);
+      kv_len, d, st, scale, scale * LOG2E, (int)vec16);
   return cudaGetLastError();
 }
 
@@ -1237,6 +1401,16 @@ bool bad_shape(int B, int H, int n, int kv_len, int d) {
          (int64_t)B * H * ((n > kv_len ? n : kv_len) + 31) / 32 > INT32_MAX;
 }
 
+// The fp32 route copies rows in 16-byte pieces when q, k, v and dO start on
+// 16 bytes and all 12 strides are whole 16 bytes, else in 4-byte pieces.
+bool rows_on_16_bytes(const void* q, const void* k, const void* v, const void* dout,
+                      const int64_t* strides) {
+  const auto a = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  bool ok = a(q) && a(k) && a(v) && a(dout);
+  for (int i = 0; i < 12; ++i) ok = ok && strides[i] % 4 == 0;
+  return ok;
+}
+
 Strides to_strides(const int64_t* s) {
   return Strides{s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8], s[9], s[10], s[11]};
 }
@@ -1245,7 +1419,7 @@ Strides to_strides(const int64_t* s) {
 
 // q, dO: (B, n, H, d); k, v: (B, kv_len, H, d); each with unit stride on d,
 // and in bf16 with base pointers and strides on 16 bytes; d a multiple of 8,
-// any B * H. Routes: d <= 256 by dtype, the tensor-core or the scalar fp32
+// any B * H. Routes: d <= 256 by dtype, the bf16 or the 3xTF32 tensor-core
 // kernel; d > 256 the wide kernel of either dtype.
 // strides: 12 int64 element strides, (sb, sn, sh) of q, k, v, dO in that order.
 // lse, dvec: contiguous (B*H, n) fp32. dq: contiguous (B, n, H, d) in the input dtype.
@@ -1257,16 +1431,18 @@ extern "C" int ldm3d_flash_bwd_dq(const void* q, const void* k, const void* v, c
   if (bad_shape(B, H, n, kv_len, d)) return (int)cudaErrorInvalidValue;
   const Strides st = to_strides(strides);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define LDM3D_DQ(R, D) launch_dq_##R<D>(q, k, v, dout, lse, dvec, dq, B, H, n, kv_len, d, st, scale, s)
-  if (d > 256) return (int)(is_bf16 ? LDM3D_DQ(wide, bf16) : LDM3D_DQ(wide, float));
+#define LDM3D_DQ(R, D, ...) \
+  launch_dq_##R<D>(q, k, v, dout, lse, dvec, dq, B, H, n, kv_len, d, st, scale, __VA_ARGS__)
+  if (d > 256) return (int)(is_bf16 ? LDM3D_DQ(wide, bf16, s) : LDM3D_DQ(wide, float, s));
   if (is_bf16) {
-    if (d <= 64) return (int)LDM3D_DQ(bf16, 64);
-    if (d <= 128) return (int)LDM3D_DQ(bf16, 128);
-    return (int)LDM3D_DQ(bf16, 256);
+    if (d <= 64) return (int)LDM3D_DQ(bf16, 64, s);
+    if (d <= 128) return (int)LDM3D_DQ(bf16, 128, s);
+    return (int)LDM3D_DQ(bf16, 256, s);
   }
-  if (d <= 64) return (int)LDM3D_DQ(fp32, 64);
-  if (d <= 128) return (int)LDM3D_DQ(fp32, 128);
-  return (int)LDM3D_DQ(fp32, 256);
+  const bool vec = rows_on_16_bytes(q, k, v, dout, strides);
+  if (d <= 64) return (int)LDM3D_DQ(tf32, 64, vec, s);
+  if (d <= 128) return (int)LDM3D_DQ(tf32, 128, vec, s);
+  return (int)LDM3D_DQ(tf32, 256, vec, s);
 #undef LDM3D_DQ
 }
 
@@ -1278,16 +1454,17 @@ extern "C" int ldm3d_flash_bwd_dkv(const void* q, const void* k, const void* v, 
   if (bad_shape(B, H, n, kv_len, d)) return (int)cudaErrorInvalidValue;
   const Strides st = to_strides(strides);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define LDM3D_DKV(R, D) \
-  launch_dkv_##R<D>(q, k, v, dout, lse, dvec, dk, dv, B, H, n, kv_len, d, st, scale, s)
-  if (d > 256) return (int)(is_bf16 ? LDM3D_DKV(wide, bf16) : LDM3D_DKV(wide, float));
+#define LDM3D_DKV(R, D, ...) \
+  launch_dkv_##R<D>(q, k, v, dout, lse, dvec, dk, dv, B, H, n, kv_len, d, st, scale, __VA_ARGS__)
+  if (d > 256) return (int)(is_bf16 ? LDM3D_DKV(wide, bf16, s) : LDM3D_DKV(wide, float, s));
   if (is_bf16) {
-    if (d <= 64) return (int)LDM3D_DKV(bf16, 64);
-    if (d <= 128) return (int)LDM3D_DKV(bf16, 128);
-    return (int)LDM3D_DKV(bf16, 256);
+    if (d <= 64) return (int)LDM3D_DKV(bf16, 64, s);
+    if (d <= 128) return (int)LDM3D_DKV(bf16, 128, s);
+    return (int)LDM3D_DKV(bf16, 256, s);
   }
-  if (d <= 64) return (int)LDM3D_DKV(fp32, 64);
-  if (d <= 128) return (int)LDM3D_DKV(fp32, 128);
-  return (int)LDM3D_DKV(fp32, 256);
+  const bool vec = rows_on_16_bytes(q, k, v, dout, strides);
+  if (d <= 64) return (int)LDM3D_DKV(tf32, 64, vec, s);
+  if (d <= 128) return (int)LDM3D_DKV(tf32, 128, vec, s);
+  return (int)LDM3D_DKV(tf32, 256, vec, s);
 #undef LDM3D_DKV
 }

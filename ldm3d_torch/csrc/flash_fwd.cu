@@ -413,40 +413,6 @@ struct Tf32Tiles {
   static constexpr size_t SMEM = (size_t)(TF_BM + SLOTS * BN) * LDQ * sizeof(float);
 };
 
-// Start the copy of rows [row0, row0 + ROWS) of one (batch, head) slice into
-// a tile of pitch LD: 16-byte pieces when `vec16` (base and row stride on 16
-// bytes), else 4-byte ones; pieces of rows past `valid` are zero-filled.
-// Columns past d are never read.
-template <int ROWS, int LD, int DMAX>
-__device__ __forceinline__ void load_rows_f32(float* dst, const float* __restrict__ src,
-                                              int64_t row_stride, int row0, int valid, int d,
-                                              bool vec16) {
-  if (vec16) {
-    constexpr int CH = DMAX / 4;
-#pragma unroll 4
-    for (int i = threadIdx.x; i < ROWS * CH; i += TF_NT) {
-      const int r = i / CH;
-      const int c = i % CH;
-      if (c * 4 >= d) continue;
-      const int t = row0 + r;
-      const bool ok = t < valid;
-      ldm3d::cp_async_16(ldm3d::smem_u32(dst + r * LD + c * 4),
-                         ok ? src + (int64_t)t * row_stride + c * 4 : src, ok);
-    }
-  } else {
-#pragma unroll 4
-    for (int i = threadIdx.x; i < ROWS * DMAX; i += TF_NT) {
-      const int r = i / DMAX;
-      const int c = i % DMAX;
-      if (c >= d) continue;
-      const int t = row0 + r;
-      const bool ok = t < valid;
-      ldm3d::cp_async_4(ldm3d::smem_u32(dst + r * LD + c),
-                        ok ? src + (int64_t)t * row_stride + c : src, ok);
-    }
-  }
-}
-
 // Grid (batch * heads * ceil(n / TF_BM)); TF_WARPS warps of 16 query rows.
 // As the bf16 kernel: Q resident, K_0, V_0, K_1, ... through a cp.async
 // ring, the online softmax in registers. Every product is three mma.sync
@@ -505,13 +471,15 @@ __global__ void __launch_bounds__(TF_NT, DMAX <= 64 ? 2 : 1) flash_fwd_tf32x3_mm
     if (item < n_items) {
       float* slot = slots + item % NSLOT * BN * LDQ;
       if (item & 1)
-        load_rows_f32<BN, LDV, DMAX>(slot, vb, v_sn, item / 2 * BN, kv_len, d, vec16);
+        ldm3d::load_rows_f32<BN, LDV, DMAX, TF_NT>(slot, vb, v_sn, item / 2 * BN, kv_len, d,
+                                                   vec16);
       else
-        load_rows_f32<BN, LDQ, DMAX>(slot, kb, k_sn, item / 2 * BN, kv_len, d, vec16);
+        ldm3d::load_rows_f32<BN, LDQ, DMAX, TF_NT>(slot, kb, k_sn, item / 2 * BN, kv_len, d,
+                                                   vec16);
     }
     ldm3d::cp_async_commit();
   };
-  load_rows_f32<BM, LDQ, DMAX>(qs, qb, q_sn, row0, n, d, vec16);  // with item 0
+  ldm3d::load_rows_f32<BM, LDQ, DMAX, TF_NT>(qs, qb, q_sn, row0, n, d, vec16);  // with item 0
 #pragma unroll
   for (int i = 0; i < NSLOT - 1; ++i) issue(i);
 
@@ -554,12 +522,7 @@ __global__ void __launch_bounds__(TF_NT, DMAX <= 64 ? 2 : 1) flash_fwd_tf32x3_mm
           ldm3d::split_tf32(kv.x, bh[j][0], bl[j][0]);
           ldm3d::split_tf32(kv.y, bh[j][1], bl[j][1]);
         }
-#pragma unroll
-        for (int j = 0; j < G; ++j) ldm3d::mma_tf32_1688(s[c0 + j], al, bh[j][0], bh[j][1]);
-#pragma unroll
-        for (int j = 0; j < G; ++j) ldm3d::mma_tf32_1688(s[c0 + j], ah, bl[j][0], bl[j][1]);
-#pragma unroll
-        for (int j = 0; j < G; ++j) ldm3d::mma_tf32_1688(s[c0 + j], ah, bh[j][0], bh[j][1]);
+        ldm3d::mma_tf32x3<G>(&s[c0], ah, al, bh, bl);
       }
     }
 
@@ -628,12 +591,7 @@ __global__ void __launch_bounds__(TF_NT, DMAX <= 64 ? 2 : 1) flash_fwd_tf32x3_mm
           ldm3d::split_tf32(vr[0], bh[j][0], bl[j][0]);
           ldm3d::split_tf32(vr[LDV], bh[j][1], bl[j][1]);
         }
-#pragma unroll
-        for (int j = 0; j < G; ++j) ldm3d::mma_tf32_1688(acc[c0 + j], pl, bh[j][0], bh[j][1]);
-#pragma unroll
-        for (int j = 0; j < G; ++j) ldm3d::mma_tf32_1688(acc[c0 + j], ph, bl[j][0], bl[j][1]);
-#pragma unroll
-        for (int j = 0; j < G; ++j) ldm3d::mma_tf32_1688(acc[c0 + j], ph, bh[j][0], bh[j][1]);
+        ldm3d::mma_tf32x3<G>(&acc[c0], ph, pl, bh, bl);
       }
     }
   }

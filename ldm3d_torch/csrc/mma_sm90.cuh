@@ -2,7 +2,8 @@
 // hand-written kernels: cp.async copies into shared memory (with zero-fill),
 // ldmatrix fragment loads, the bf16 m16n8k16 and the tf32 m16n8k8 mma.sync
 // with fp32 accumulators, the packing of fp32 accumulators into bf16
-// operands, and the split of an fp32 value into two tf32 parts.
+// operands, the split of an fp32 value into two tf32 parts and the 3xTF32
+// product of a group of n-tiles.
 //
 // Fragment layouts of mma.sync.m16n8k16.row.col (lane = 4 * g + t, g the
 // group of four lanes, t the lane within it):
@@ -122,6 +123,87 @@ __device__ __forceinline__ void mma_tf32_1688(float (&c)[4], const uint32_t (&a)
 __device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
   hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
   lo = __float_as_uint(x - __uint_as_float(hi)) & 0xffffe000u;
+}
+
+// An A fragment's four fp32 values, given in register order a0..a3, split
+// into their tf32 hi and lo parts.
+__device__ __forceinline__ void split_tf32_a(float a0, float a1, float a2, float a3,
+                                             uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  split_tf32(a0, hi[0], lo[0]);
+  split_tf32(a1, hi[1], lo[1]);
+  split_tf32(a2, hi[2], lo[2]);
+  split_tf32(a3, hi[3], lo[3]);
+}
+
+// c[j] += a * b[j] for G neighbouring n-tiles in 3xTF32. The three mma of a
+// product go to one accumulator, each waiting for the one before; so the G
+// lo*hi products go first, then the G hi*lo, then the G hi*hi.
+template <int G>
+__device__ __forceinline__ void mma_tf32x3(float (*c)[4], const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4], const uint32_t (&bh)[G][2],
+                                           const uint32_t (&bl)[G][2]) {
+#pragma unroll
+  for (int j = 0; j < G; ++j) mma_tf32_1688(c[j], al, bh[j][0], bh[j][1]);
+#pragma unroll
+  for (int j = 0; j < G; ++j) mma_tf32_1688(c[j], ah, bl[j][0], bl[j][1]);
+#pragma unroll
+  for (int j = 0; j < G; ++j) mma_tf32_1688(c[j], ah, bh[j][0], bh[j][1]);
+}
+
+// mma_tf32x3 for two products at once, G n-tiles each: the 2G lo*hi
+// first, then the hi*lo, then the hi*hi, so that 2G independent mma stand
+// between two on one accumulator.
+template <int G>
+__device__ __forceinline__ void mma_tf32x3_2(
+    float (*c)[4], const uint32_t (&ah)[4], const uint32_t (&al)[4], const uint32_t (&bh)[G][2],
+    const uint32_t (&bl)[G][2], float (*c2)[4], const uint32_t (&ah2)[4], const uint32_t (&al2)[4],
+    const uint32_t (&bh2)[G][2], const uint32_t (&bl2)[G][2]) {
+#pragma unroll
+  for (int j = 0; j < G; ++j) mma_tf32_1688(c[j], al, bh[j][0], bh[j][1]);
+#pragma unroll
+  for (int j = 0; j < G; ++j) mma_tf32_1688(c2[j], al2, bh2[j][0], bh2[j][1]);
+#pragma unroll
+  for (int j = 0; j < G; ++j) mma_tf32_1688(c[j], ah, bl[j][0], bl[j][1]);
+#pragma unroll
+  for (int j = 0; j < G; ++j) mma_tf32_1688(c2[j], ah2, bl2[j][0], bl2[j][1]);
+#pragma unroll
+  for (int j = 0; j < G; ++j) mma_tf32_1688(c[j], ah, bh[j][0], bh[j][1]);
+#pragma unroll
+  for (int j = 0; j < G; ++j) mma_tf32_1688(c2[j], ah2, bh2[j][0], bh2[j][1]);
+}
+
+// Start the copy of rows [row0, row0 + ROWS) of one (batch, head) slice of
+// fp32 rows into a tile of pitch LD floats, by the NT threads of the block:
+// 16-byte pieces when `vec16` (base and row stride on 16 bytes), else 4-byte
+// ones; pieces of rows past `valid` are zero-filled. Columns past d are
+// never written.
+template <int ROWS, int LD, int DMAX, int NT>
+__device__ __forceinline__ void load_rows_f32(float* dst, const float* __restrict__ src,
+                                              int64_t row_stride, int row0, int valid, int d,
+                                              bool vec16) {
+  if (vec16) {
+    constexpr int CH = DMAX / 4;
+#pragma unroll 4
+    for (int i = threadIdx.x; i < ROWS * CH; i += NT) {
+      const int r = i / CH;
+      const int c = i % CH;
+      if (c * 4 >= d) continue;
+      const int t = row0 + r;
+      const bool ok = t < valid;
+      cp_async_16(smem_u32(dst + r * LD + c * 4), ok ? src + (int64_t)t * row_stride + c * 4 : src,
+                  ok);
+    }
+  } else {
+#pragma unroll 4
+    for (int i = threadIdx.x; i < ROWS * DMAX; i += NT) {
+      const int r = i / DMAX;
+      const int c = i % DMAX;
+      if (c >= d) continue;
+      const int t = row0 + r;
+      const bool ok = t < valid;
+      cp_async_4(smem_u32(dst + r * LD + c), ok ? src + (int64_t)t * row_stride + c : src, ok);
+    }
+  }
 }
 
 }  // namespace ldm3d

@@ -26,12 +26,14 @@ H100. Up to head_dim 256 each kernel takes one route per dtype. bf16 runs
 FlashAttention-2 on the tensor cores (``mma.sync``, fp32 accumulators): the
 forward rounds P to bf16 before P·V; the backward splits P and dS into two
 bf16 parts (hi and the rounded remainder lo) and multiplies each, so that its
-gradients stay within one bf16 ulp of the largest |grad|. The fp32 forward
-runs on the tensor cores in TF32 with each operand split into a TF32 hi and
-lo part and three products (3xTF32), which reads as full fp32; the fp32
-backward runs scalar-fp32 FMA kernels. Above head_dim 256 both dtypes take
-a plain scalar route that splits the output's head dims over a grid axis.
-See the sources' headers and ``PERF.md``.
+gradients stay within one bf16 ulp of the largest |grad|. In fp32 the
+forward and both backward kernels run the same loops on the tensor cores in
+TF32, each operand split into a TF32 hi and lo part and three products
+(3xTF32), which reads as full fp32 (the backward adds each tile's products
+into its fp32 accumulators once, in round-to-nearest, since the tensor cores
+truncate each product's sum). Above head_dim 256 both dtypes take a plain
+scalar route that splits the output's head dims over a grid axis. See the
+sources' headers and ``PERF.md``.
 
 Head widths. :func:`volumetric_attention` zero-pads head_dim to the next
 multiple of 8 outside :class:`FlashAttention` and slices O afterwards, as the

@@ -47,6 +47,7 @@ from ldm3d_torch.cli.common import (
     default_sampler_steps,
     load_two_stage,
     make_sampling_scheduler,
+    pin_fp32_precision,
     resolve_decode_chunk,
     resolve_device,
 )
@@ -171,6 +172,7 @@ class ModelServer:
     # -- loading -------------------------------------------------------------
 
     def load_model(self) -> None:
+        pin_fp32_precision()  # api_server.main reaches the pin here
         with self._reload_gate.write():
             t0 = time.time()
             if self._batcher is not None:  # reload: retire the old batcher

@@ -32,6 +32,7 @@ import time
 import torch
 import torch.nn.functional as F
 
+from ldm3d_torch.cli.common import tf32_flags
 from ldm3d_torch.ops.conv3d import conv3d_igemm, conv3d_ref
 
 # the flagship L0 shapes (B, D, H, W, C): the VAE at the 64^3 training crop,
@@ -135,14 +136,13 @@ def run(shapes=SHAPES, dtypes=DTYPES, emit=lambda rec: None) -> list[dict]:
     """Every (shape, dtype) record; ``emit`` gets each as it comes."""
     if not torch.cuda.is_available():
         raise RuntimeError("conv_ab measures the CUDA kernel and needs a CUDA device")
-    # the plain version's fp32 products and cuDNN's fp32 convolution in full fp32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     recs = []
-    for shape in shapes:
-        for dtype in dtypes:
-            recs.append(run_shape(tuple(shape), dtype))
-            emit(recs[-1])
+    # the plain version's fp32 products and cuDNN's fp32 convolution in full fp32
+    with tf32_flags(False):
+        for shape in shapes:
+            for dtype in dtypes:
+                recs.append(run_shape(tuple(shape), dtype))
+                emit(recs[-1])
     return recs
 
 
