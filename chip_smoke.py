@@ -13,9 +13,10 @@ Phases, each printing JSON lines:
    source, all at once, sm_90a); ``ptxas``'s registers, shared memory and
    spills for each kernel instantiation; fails if an instantiation of the
    tensor-core attention kernels (bf16 forward on mma.sync and on wgmma,
-   bf16 backward, the 3xTF32 fp32 forward and backward), of the wide
-   (d > 256) attention kernels, of the one-launch GroupNorm sums or of the
-   tensor-core conv spills;
+   bf16 backward on wgmma and on mma.sync, the 3xTF32 fp32 forward and
+   backward), of the wide (d > 256) attention kernels, of the one-launch
+   GroupNorm sums or of the tensor-core conv spills, or if ptxas serializes
+   the wgmma of the backward's wgmma kernels;
 3. kernel: the flash-attention forward kernel against its plain PyTorch
    version on the card, at the attention shapes of the flagship model
    (``config_train_32g.json``) at 80^3 and 96^3 and at the edge shapes of
@@ -36,15 +37,20 @@ Phases, each printing JSON lines:
    their plain versions, at the training shapes, a ragged case and a d = 256
    case and at the edge shapes of the ``cuda`` tests (every head width
    instantiation, ragged token counts, kv_len != n, the training shapes at
-   batch 2), in bf16 (the bf16 tensor-core route) and fp32 (the 3xTF32
-   tensor-core route), and at the d = 36, 320, 512 and batch * heads =
-   70,000 cases in both dtypes through ``volumetric_attention``'s autograd
-   (kernel_c2 rows); each row carries its route and its largest error over
-   its limit, and every case gives the same bits on a second run;
-   ``library_ms`` is the backward of
-   ``scaled_dot_product_attention`` (its forward + backward less its
-   forward); the fp32 row at (20, 1000, 8, 64) carries the times of the
-   scalar kernels the 3xTF32 route replaced beside its own;
+   batch 2), in bf16 (the wgmma route on TMA-loaded tiles up to d = 128,
+   the mma.sync route above) and fp32 (the 3xTF32 tensor-core route), and
+   at the d = 36, 320, 512 and batch * heads = 70,000 cases in both dtypes
+   through ``volumetric_attention``'s autograd (kernel_c2 rows); each row
+   carries its route (the wrappers' counts of that route must rise) and its
+   largest error over its limit, every case gives the same bits on a second
+   run, and the CUDA library's launch plans of dQ and dK/dV (tensor maps
+   included) are held to ``flash_bwd_plan``'s; ``library_ms`` is the
+   backward of ``scaled_dot_product_attention`` (its forward + backward
+   less its forward); the fp32 row at (20, 1000, 8, 64) carries the times of
+   the scalar kernels the 3xTF32 route replaced beside its own, and the bf16
+   rows at d <= 128 the recorded times of the mma.sync pair the wgmma route
+   replaced (``recorded_earlier_ms``, EARLIER_BWD_MS: a recorded figure, not
+   measured in this run);
 5. main path, sampling: conditional DDIM-50 sampling of the full-width
    ``config_train_32g.json`` models (random weights from a seed) through
    ``ldm3d_torch.cli.inference.main`` with ``--amp``, one 80^3 volume; the
@@ -57,7 +63,8 @@ Phases, each printing JSON lines:
    ``--amp --no-images`` on synthetic 80^3 pairs, batch 20, one epoch of 4
    steps (the first a warm-up) and one validation pass; finite losses, the
    diffusion ``best``/``last`` checkpoints written and reloaded, and the
-   exact launch count of each of the five kernels; then one step under
+   exact launch count of each of the five kernels (every backward launch,
+   11 dQ and 11 dK/dV a step, on the bf16 wgmma route); then one step under
    ``torch.profiler``;
 6b. main path, fp32 training: the same run without ``--amp`` (the CLI's
    default): fp32 throughout, so the attention backward takes the 3xTF32
@@ -186,7 +193,9 @@ FWD_ROUTES = {"bf16": "mma.sync bf16 tensor cores (d <= 128)",
               "fp32": "mma.sync tf32 tensor cores, 3xTF32 split",
               "wide": "scalar FMA, head dims of O over grid.y (d > 256)"}
 # the attention backward's (csrc/flash_bwd.cu), both kernels
-BWD_ROUTES = {"bf16": "mma.sync tensor cores, P/dS hi-lo split",
+BWD_ROUTES = {"bf16": "mma.sync bf16 tensor cores, P/dS hi-lo split (128 < d <= 256)",
+              "bf16_wgmma": "wgmma bf16 tensor cores on TMA-loaded tiles, thread 0 the producer, "
+                            "P/dS hi-lo split (d <= 128)",
               "fp32": "mma.sync tf32 tensor cores, 3xTF32 split",
               "wide": "scalar FMA, head dims of dQ and dK/dV over grid.y (d > 256)"}
 
@@ -201,7 +210,12 @@ def fwd_route(dtype: str, d: int) -> str:
 
 
 def bwd_route(dtype: str, d: int) -> str:
-    return BWD_ROUTES["wide" if d > 256 else "bf16" if dtype == "bfloat16" else "fp32"]
+    """The port's backward route id (``ldm3d_torch.ops.attention.bwd_route_id``)
+    at head width d, which the wrapper pads to a multiple of 8."""
+    import torch
+    from ldm3d_torch.ops.attention import bwd_route_id
+
+    return bwd_route_id(getattr(torch, dtype), -(-d // 8) * 8)
 DDIM_STEPS = 50
 
 # Training main path: the config's batch 20 at its 80^3 patch; 90 synthetic
@@ -231,13 +245,18 @@ CONV_ROUTES = {"bfloat16": "wgmma bf16 tensor cores, implicit GEMM over a staged
 NO_SPILL = {
     "libflash_fwd-": (("flash_fwd_bf16_mma_kernel<", 2), ("flash_fwd_bf16_wgmma_kernel", 1),
                       ("flash_fwd_tf32x3_mma_kernel<", 3), ("flash_fwd_wide_kernel<", 2)),
-    "libflash_bwd-": (("flash_bwd_dq_bf16_mma_kernel<", 3), ("flash_bwd_dkv_bf16_mma_kernel<", 3),
+    "libflash_bwd-": (("flash_bwd_dq_bf16_wgmma_kernel<", 2), ("flash_bwd_dkv_bf16_wgmma_kernel<", 2),
+                      ("flash_bwd_dq_bf16_mma_kernel<", 1), ("flash_bwd_dkv_bf16_mma_kernel<", 1),
                       ("flash_bwd_dq_tf32x3_mma_kernel<", 3),
                       ("flash_bwd_dkv_tf32x3_mma_kernel<", 3),
                       ("flash_bwd_dq_wide_kernel<", 2), ("flash_bwd_dkv_wide_kernel<", 2)),
     "libgroupnorm_sums-": (("gn_sums_onepass<", 8),),  # 2 dtypes x 2 load widths x 2 combines
     "libconv3d_igemm-": (("conv3d_igemm_wgmma_kernel", 1), ("conv3d_igemm_tf32x3_kernel", 1)),
 }
+# wgmma kernels whose products ptxas must not serialize (its C75xx "wgmma
+# ... serialized" warnings), by library; a warning that names no kernel fails too
+NO_SERIALIZED = {"libflash_bwd-": ("flash_bwd_dq_bf16_wgmma_kernel<",
+                                   "flash_bwd_dkv_bf16_wgmma_kernel<")}
 # launches of each fp32 attention shape in one merged batch-2 DDIM-50 serving
 # call: the two requests' conditions encoded at batch 1 (2 encoder attentions
 # each), 50 UNet steps at batch 2 (5 level-1, 6 level-2), one batch-2 decode
@@ -257,6 +276,22 @@ EARLIER_FWD_MS = {((20, 8000, 1, 256), "bfloat16"): 7.275, ((2, 8000, 1, 256), "
               ((1, 8000, 1, 256), "bfloat16"): 0.763, ((1, 13824, 1, 256), "bfloat16"): 1.281,
               ((2, 65, 2, 136), "bfloat16"): 0.01564, ((1, 63, 1, 256, 65), "bfloat16"): 0.01655,
               ((1, 1, 1, 256, 8000), "bfloat16"): 0.7536}
+# The mma.sync pair (flash_bwd_dq_bf16_mma_kernel, flash_bwd_dkv_bf16_mma_kernel)
+# that the wgmma backward replaced at d <= 128, as commit a195c6b has it,
+# timed by that commit's own kernel_bwd phase before and after this script
+# in one call, on the same card (PERF.md, H100 80GB HBM3 at 700 W): ms a
+# call, the mean of the two.
+EARLIER_BWD_MS = {
+    ((20, 1000, 8, 64), "bfloat16"): {"dq": 0.37, "dkv": 0.5074},
+    ((20, 125, 16, 64), "bfloat16"): {"dq": 0.02316, "dkv": 0.02949},
+    ((2, 100, 3, 40), "bfloat16"): {"dq": 0.01014, "dkv": 0.01228},
+    ((2, 63, 3, 8), "bfloat16"): {"dq": 0.006218, "dkv": 0.007214},
+    ((1, 1, 2, 64, 37), "bfloat16"): {"dq": 0.006819, "dkv": 0.006203},
+    ((3, 129, 2, 72), "bfloat16"): {"dq": 0.0171, "dkv": 0.0195},
+    ((2, 100, 4, 64, 37), "bfloat16"): {"dq": 0.007071, "dkv": 0.01286},
+    ((2, 1000, 8, 64), "bfloat16"): {"dq": 0.05682, "dkv": 0.07517},
+    ((2, 125, 16, 64), "bfloat16"): {"dq": 0.01077, "dkv": 0.01352},
+}
 EARLIER_CONV_MS = {((8, 64, 64, 64, 64), "bfloat16"): 29.47, ((8, 64, 64, 64, 64), "float32"): 29.36,
                ((8, 96, 96, 96, 64), "bfloat16"): 99.03, ((8, 96, 96, 96, 64), "float32"): 99.37,
                ((2, 96, 96, 96, 64), "bfloat16"): 25.0, ((2, 96, 96, 96, 64), "float32"): 24.92,
@@ -416,10 +451,16 @@ def phase_build() -> None:
     _kernels.flash_bwd_library()
     _kernels.groupnorm_library()
     _kernels.conv3d_library()
-    ptxas = {}
+    ptxas, serialized = {}, {}
     for path in paths:
         log = path.with_suffix(".log")
-        ptxas[path.name] = _kernels.ptxas_report(log.read_text() if log.exists() else "")
+        text = log.read_text() if log.exists() else ""
+        ptxas[path.name] = _kernels.ptxas_report(text)
+        serialized[path.name] = _kernels.wgmma_serialized(text)
+    for lib, prefixes in NO_SERIALIZED.items():
+        names = next(v for name, v in serialized.items() if name.startswith(lib))
+        bad = sorted(x for x in names if x is None or x.startswith(prefixes))
+        check(not bad, f"ptxas serializes the wgmma of {bad} (None: a warning naming no kernel)")
     for lib, kernels in NO_SPILL.items():
         report = next(r for name, r in ptxas.items() if name.startswith(lib))
         for prefix, count in kernels:
@@ -430,7 +471,8 @@ def phase_build() -> None:
                        if r.get("spill_stores", 1) or r.get("spill_loads", 1)}
             check(not spilled, f"kernel instantiations spill: {spilled}")
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
-          "libraries": [str(p.relative_to(ROOT)) for p in paths], "ptxas": ptxas})
+          "libraries": [str(p.relative_to(ROOT)) for p in paths], "ptxas": ptxas,
+          "wgmma_serialized": {k: sorted(map(str, v)) for k, v in serialized.items()}})
 
 
 def _fused_qkv(torch, shape, dt, gen):
@@ -470,6 +512,34 @@ def _check_fwd_plan(torch, dtype: str, shape, q, k, v) -> None:
         want += [(*m["dims"], *m["strides_bytes"], *m["box"])
                  for m in (py["tensor_maps"][name] for name in "qkv")]
     check(got == want, f"forward plan at {shape} {dtype}: CUDA {got}, Python {want}")
+
+
+def _check_bwd_plan(torch, dtype: str, shape, q, k, v, do) -> None:
+    """The CUDA library's launch plans of dQ and dK/dV
+    (ldm3d_flash_bwd_plan, the plans their launches read) are the ones
+    ``ldm3d_torch.ops.attention.flash_bwd_plan`` gives, tensor maps
+    included (the CPU tests hold those to coverage, shared memory and legal
+    maps)."""
+    from ldm3d_torch.ops._kernels import flash_bwd_library
+    from ldm3d_torch.ops.attention import BWD_ROUTE_IDS, flash_bwd_plan
+
+    b, n, h, d = shape[:4]
+    d8 = -(-d // 8) * 8
+    strides = [t.stride()[:3] for t in (q, k, v, do)]
+    for kind in ("dq", "dkv"):
+        out = (ctypes.c_int64 * 49)()
+        check(flash_bwd_library().ldm3d_flash_bwd_plan(
+                  int(kind == "dkv"), int(dtype == "bfloat16"), b, h, n, k.shape[1], d8,
+                  (ctypes.c_int64 * 12)(*(x for st in strides for x in st)), out) == 0,
+              f"ldm3d_flash_bwd_plan refused {shape} {kind}")
+        py = flash_bwd_plan(kind, getattr(torch, dtype), b, n, h, d8, k.shape[1], strides)
+        got = [BWD_ROUTE_IDS[out[0]], (out[1], out[2]), out[3], out[4]]
+        want = [py["route"], py["grid"], py["threads"], py["smem_bytes"]]
+        if "tensor_maps" in py:
+            got += [tuple(out[5 + 11 * i:16 + 11 * i]) for i in range(4)]
+            want += [(*m["dims"], *m["strides_bytes"], *m["box"])
+                     for m in (py["tensor_maps"][name] for name in ("q", "k", "v", "dO"))]
+        check(got == want, f"{kind} plan at {shape} {dtype}: CUDA {got}, Python {want}")
 
 
 @full_fp32
@@ -540,11 +610,19 @@ def phase_kernel_bwd(torch, F) -> dict:
         b, n, h, d = shape[:4]
         qkv, (q, k, v) = _fused_qkv(torch, shape, dt, gen)
         do = torch.randn((b, n, h, d), generator=gen, device="cuda").to(dt)
+        _check_bwd_plan(torch, dtype, shape, q, k, v, do)
         out, lse = A.flash_attention_fwd(q, k, v)
         dvec = A.attention_bwd_dvec(do, out)
+        route = bwd_route(dtype, d)
+        before = [fn.route_launches[route] for fn in (A.flash_attention_bwd_dq,
+                                                       A.flash_attention_bwd_dkv)]
         grads = A.flash_attention_bwd(q, k, v, out, lse, do)
         again = A.flash_attention_bwd(q, k, v, out, lse, do)
         torch.cuda.synchronize()
+        check([fn.route_launches[route] for fn in (A.flash_attention_bwd_dq,
+                                                   A.flash_attention_bwd_dkv)]
+              == [x + 2 for x in before], f"the {route} backward route did not run at {shape} "
+                                          f"{dtype}")
         check(all(torch.equal(x, y) for x, y in zip(grads, again)),
               f"flash_bwd gave other gradients on a second run at {shape} {dtype}")
         del again
@@ -592,9 +670,11 @@ def phase_kernel_bwd(torch, F) -> dict:
                 shape, dtype, qkv.element_size(), kind)
         if dtype == "float32":
             row.update(SCALAR_FP32_BWD.get(shape, {}))
+        if (shape, dtype) in EARLIER_BWD_MS:
+            row["recorded_earlier_ms"] = EARLIER_BWD_MS[(shape, dtype)]
         results[(shape, dtype)] = row
         emit({"phase": "kernel_bwd", "kernel": "flash_bwd", "shape_bnhd": list(shape[:4]),
-              "kv_len": k.shape[1], "dtype": dtype, "route": bwd_route(dtype, d), **row})
+              "kv_len": k.shape[1], "dtype": dtype, "route": BWD_ROUTES[route], **row})
         del qkv, q, k, v, do, out, lse, dvec, qt, kt, vt
         torch.cuda.empty_cache()
     return results
@@ -646,7 +726,8 @@ def phase_kernel_c2(torch) -> None:
                 A.attention_bwd_reference(qd, kd, vd, o, l, do)
 
             emit({"phase": "kernel_c2", "shape_bnhd": list(shape), "dtype": dtype,
-                  "route": {"fwd": FWD_ROUTES[fwd_route(dtype, d)], "bwd": bwd_route(dtype, d)},
+                  "route": {"fwd": FWD_ROUTES[fwd_route(dtype, d)],
+                            "bwd": BWD_ROUTES[bwd_route(dtype, d)]},
                   "fwd_ms": cuda_ms(torch, lambda: A.volumetric_attention(qd, kd, vd)),
                   "fwd_plain_ms": cuda_ms(torch, lambda: A.attention_reference(qd, kd, vd)),
                   "fwd_bwd_ms": cuda_ms(torch, fwd_bwd),
@@ -910,6 +991,8 @@ def _reset_counts() -> None:
                G.gn_sums, G.gn_bwd_sums, C.conv3d_igemm):
         fn.launches = 0
     A.flash_attention_fwd.route_launches = dict.fromkeys(A.FWD_ROUTE_IDS, 0)
+    for fn in (A.flash_attention_bwd_dq, A.flash_attention_bwd_dkv):
+        fn.route_launches = dict.fromkeys(A.BWD_ROUTE_IDS, 0)
     G.gn_sums.cases, G.gn_bwd_sums.cases = {}, {}
 
 
@@ -921,7 +1004,9 @@ def _read_counts() -> dict:
     return {"flash_fwd": A.flash_attention_fwd.launches,
             "flash_fwd_wgmma": A.flash_attention_fwd.route_launches["bf16_wgmma"],
             "flash_bwd_dq": A.flash_attention_bwd_dq.launches,
+            "flash_bwd_dq_wgmma": A.flash_attention_bwd_dq.route_launches["bf16_wgmma"],
             "flash_bwd_dkv": A.flash_attention_bwd_dkv.launches,
+            "flash_bwd_dkv_wgmma": A.flash_attention_bwd_dkv.route_launches["bf16_wgmma"],
             "gn_sums": G.gn_sums.launches, "gn_bwd_sums": G.gn_bwd_sums.launches,
             "conv3d_igemm": C.conv3d_igemm.launches}
 
@@ -1171,6 +1256,10 @@ def phase_train(torch, ns, counts, workdir: Path, card: str, smi_line: str,
         "flash_fwd_wgmma": encodes * counts["encoder"]["attn"] if amp else 0,
         "flash_bwd_dq": steps * counts["unet"]["attn"],
         "flash_bwd_dkv": steps * counts["unet"]["attn"],
+        # the UNet's d = 64 attention: every backward launch on the bf16
+        # wgmma route, or on fp32's
+        "flash_bwd_dq_wgmma": steps * counts["unet"]["attn"] if amp else 0,
+        "flash_bwd_dkv_wgmma": steps * counts["unet"]["attn"] if amp else 0,
         "gn_sums": encodes * counts["encoder"]["gn"] + (steps + val_batches) * counts["unet"]["gn"],
         "gn_bwd_sums": steps * counts["unet"]["gn"],
         "conv3d_igemm": 0,
@@ -1182,6 +1271,8 @@ def phase_train(torch, ns, counts, workdir: Path, card: str, smi_line: str,
         "flash_fwd": 2 * counts["encoder"]["attn"] + counts["unet"]["attn"],
         "flash_fwd_wgmma": 2 * counts["encoder"]["attn"] if amp else 0,
         "flash_bwd_dq": counts["unet"]["attn"], "flash_bwd_dkv": counts["unet"]["attn"],
+        "flash_bwd_dq_wgmma": counts["unet"]["attn"] if amp else 0,
+        "flash_bwd_dkv_wgmma": counts["unet"]["attn"] if amp else 0,
         "gn_sums": 2 * counts["encoder"]["gn"] + counts["unet"]["gn"],
         "gn_bwd_sums": counts["unet"]["gn"],
     }
@@ -1633,6 +1724,9 @@ def _kernel_summary(fwd: dict, bwd: dict, gn: dict, sample_launches: dict,
         for run in (train, train_fp32):
             check(run["launches"][name] == run["steps"] * sum(TRAIN_BWD_PER_STEP.values()),
                   f"{name} launches {run['launches'][name]} are not {run['steps']} steps' worth")
+        check(train["launches"][f"{name}_wgmma"] == train["launches"][name],
+              f"{name}: {train['launches'][f'{name}_wgmma']} of {train['launches'][name]} bf16 "
+              "training launches on the wgmma route")
         row = {"name": name, "route": "cuda", "source": "ldm3d_torch/csrc/flash_bwd.cu",
                "routes": BWD_ROUTES, "replaces": replaces, "launches": train["launches"][name],
                "max_abs_err": bwd_err[kind], "max_err_over_tol": bwd_ratio[kind],
@@ -1643,6 +1737,7 @@ def _kernel_summary(fwd: dict, bwd: dict, gn: dict, sample_launches: dict,
                "library_ms": steps * sdpa, "library_covers": library_covers,
                "host_ms": steps * per_bwd(f"{kind}_host_ms"), "per": run_note,
                "ms_per_step": per_bwd(f"{kind}_ms"),
+               "wgmma_launches": train["launches"][f"{name}_wgmma"],
                "fp32_launches": train_fp32["launches"][name],
                "fp32_launches_per_step": sum(TRAIN_BWD_PER_STEP.values()),
                "fp32_library_ms": per_bwd("sdpa_bwd_ms", dtype="float32"),

@@ -22,50 +22,87 @@
 // at 989 TFLOP/s, in fp32 at the 495 TFLOP/s of TF32 over the three products
 // of the split; the 125-token level is bound by its bytes in bf16.
 //
-// Three routes, by dtype and head_dim, in each entry point; no switch and no
-// fallback. Each grid puts batch * heads and the row tiles on grid.x (tiles
-// of one (batch, head) side by side), where the limit is 2^31 - 1 blocks:
+// Four routes, by dtype and head_dim, in each entry point (bwd_plan, which
+// ldm3d_flash_bwd_plan reports); no switch and no fallback. Each grid puts
+// batch * heads and the row tiles on grid.x (tiles of one (batch, head) side
+// by side), where the limit is 2^31 - 1 blocks:
 //
-// * bf16, d <= 256: flash_bwd_dq_bf16_mma_kernel and
+// * bf16, d <= 128: flash_bwd_dq_bf16_wgmma_kernel and
+//   flash_bwd_dkv_bf16_wgmma_kernel, FlashAttention-2's backward on Hopper's
+//   warpgroup products (wgmma) over tiles that TMA loads. The mma.sync pair
+//   below ran 5.5x and 5.8x its bound at the training shapes (each warp 16
+//   rows, every operand through ldmatrix, a block barrier a tile; PERF.md):
+//   only wgmma reaches the card's full tensor-core rate. Design, the
+//   forward's wgmma kernel's (flash_fwd.cu) with its proved layouts:
+//   - a block of two warpgroups of 64 rows (BW_ROWS = 128): dQ's query
+//     rows, with Q and dO resident; dK/dV's keys, with K and V resident.
+//     Thread 0 also loads the resident tiles once and streams the other pair
+//     (dQ: K, V; dK/dV: Q, dO) in tiles of 64 rows through a ring of four
+//     mbarrier-guarded stages (three 6 % slower at the training shapes),
+//     refilling the stage of the tile before the one just finished, so it
+//     seldom waits for the other warpgroup's release. No producer warps: in
+//     the forward they cost the consumers registers.
+//   - S = Q K^T and dP = dO V^T (dK/dV: S^T = K Q^T, dP^T = V dO^T) as wgmma
+//     m64n64k16 with both operands K-major from shared memory (the
+//     forward's S). Once both are waited for, P and dS are made in their
+//     fp32 registers and packed, split hi + lo, into bf16 A registers: the
+//     accumulators of two n-tiles are one k-step's A operand (mma_sm90.cuh),
+//     so P, dS, P^T and dS^T never pass through shared memory. Packing only
+//     after the wait, and not issuing the next tile's products beside this
+//     tile's, keeps ptxas from serializing the wgmma (PERF.md).
+//   - dQ += dS K, dV += P^T dO, dK += dS^T Q as wgmma m64nNk16 with A from
+//     registers and B (K, dO, Q) MN-major from the streamed tile, as the
+//     forward's V of P V: LBO one 64-dim box to the next, SBO one 8-row
+//     group to the next.
+//   - TMA boxes of 64 dims (the 128-byte swizzle's row) through tensor maps
+//     of the strided (B, n, H, d) views, encoded on the host for each call;
+//     the zero fill covers rows past n, keys past kv_len and dims past d.
+//     dK/dV's LSE and D rows, 4-byte aligned only, go through plain loads
+//     into each warpgroup's buffer in shared memory.
+//   - the accumulators (S, dP and dQ; S^T, dP^T, dK and dV) stay in fp32
+//     registers, one block of 256 threads an SM; at DMAX = 128 dK/dV takes
+//     64 head dims a block (grid.y), since 128 spilled.
+//   - no wgmma is issued under a branch (ptxas then serialized them all,
+//     C7520): edge k-steps run on TMA's zeros and masked P and dS. Within a
+//     warpgroup a tile's products wait for its S and dP, and the next
+//     tile's S and dP for its products; issuing them early was serialized
+//     too (accumulators defined inside the pipeline; PERF.md).
+//
+// * bf16, 128 < d <= 256 (the VAE's d = 256, on no path until stage-1
+//   training is ported): flash_bwd_dq_bf16_mma_kernel and
 //   flash_bwd_dkv_bf16_mma_kernel, FlashAttention-2's backward on the
 //   warp-level tensor cores (mma.sync m16n8k16, bf16 in, fp32 accumulators;
 //   mma_sm90.cuh), as two kernels.
 //   - dQ: grid = (batch * heads * ceil(n / 128)); 8 warps own 16 query rows
-//     each. Q and dO stay in shared memory; the K and V tiles (32 keys, 64
-//     at DMAX = 128) stream through a cp.async ring of (K, V) slots, one
-//     barrier a tile. S = Q K^T and dP = dO V^T take K and V through
-//     ldmatrix; dQ += dS K takes K through ldmatrix.trans.
+//     each. Q and dO stay in shared memory; the K and V tiles of 32 keys
+//     stream through a cp.async ring of (K, V) slots, one barrier a tile.
+//     S = Q K^T and dP = dO V^T take K and V through ldmatrix; dQ += dS K
+//     takes K through ldmatrix.trans.
 //   - dK/dV: grid = (batch * heads * ceil(kv_len / 128), head-dim halves);
 //     8 warps own 16 keys each. K and V stay in shared memory; the Q and dO
 //     tiles (32 queries) with their LSE and D stream through the ring.
 //     S^T = K Q^T and dP^T = V dO^T take Q and dO through ldmatrix;
-//     dV += P^T dO and dK += dS^T Q through ldmatrix.trans.
-//     At DMAX = 256 the 2 x 16 x 256 accumulators of a warp's keys do not
-//     fit its registers: a third grid axis gives each block 128 of the head
-//     dims of dK and dV, and S and dP are recomputed for each half.
-//   - Tiles and blocks an SM: at DMAX = 64, 32-key (dQ) and 32-query
-//     (dK/dV) tiles keep each kernel to 128 registers a thread, so two
-//     blocks share an SM, which was faster than one block with 64-row tiles
-//     or than blocks of 4 warps (PERF.md). From DMAX = 128 on, the
-//     accumulators take one block an SM.
-//   - P and dS are made in fp32 registers, P = exp2(S * scale * log2(e) -
-//     LSE * log2(e)) in one fma (q is not pre-scaled: 1/sqrt(d) is not a
-//     power of two for every d, and a scaled bf16 q would round again), and
-//     go from the C fragments straight into A fragments (the m16n8 C layout
-//     is the m16k16 A layout): nothing passes through shared memory.
-//   - The precision: the tensor cores take bf16, and one rounding of P and
-//     dS to bf16 spends up to 0.99 of the port's bf16 limit on the
-//     gradients (one bf16 ulp of the largest |grad|; emulated on the CPU in
-//     tests/test_torch_attention_grad.py). So each is split into bf16
-//     hi = bf16(x) and lo = bf16(x - hi), and each of the three products is
-//     two mma.sync on the same B fragment: 20 units of n*kv*d tensor-core
-//     work where the algorithm needs 14. The B operands (Q, K, dO) are the
-//     bf16 inputs, exact.
-//   - dQ and dK are multiplied by the scale once, at the store, which goes
-//     through the warp's own rows of the resident tile (no block barrier) in
-//     16-byte pieces.
-//   - bf16 tiles stay bf16 in shared memory, rows padded by 16 bytes so the
-//     8 rows of an ldmatrix fall in 8 different bank groups.
+//     dV += P^T dO and dK += dS^T Q through ldmatrix.trans. The 2 x 16 x 256
+//     accumulators of a warp's keys do not fit its registers: the grid's
+//     second axis gives each block 128 of the head dims of dK and dV, and S
+//     and dP are recomputed for each half.
+//   - P and dS go from the C fragments straight into A fragments (the m16n8
+//     C layout is the m16k16 A layout): nothing passes through shared
+//     memory. bf16 tiles stay bf16 in shared memory, rows padded by 16 bytes
+//     so the 8 rows of an ldmatrix fall in 8 different bank groups; dQ and
+//     dK are stored through the warp's own rows of the resident tile.
+//
+//   Both bf16 routes: P and dS are made in fp32 registers, P = exp2(S *
+//   scale * log2(e) - LSE * log2(e)) in one fma (q is not pre-scaled:
+//   1/sqrt(d) is not a power of two for every d, and a scaled bf16 q would
+//   round again). The tensor cores take bf16, and one rounding of P and dS
+//   to bf16 spends up to 0.99 of the port's bf16 limit on the gradients (one
+//   bf16 ulp of the largest |grad|; emulated on the CPU in
+//   tests/test_torch_attention_grad.py). So each is split into bf16
+//   hi = bf16(x) and lo = bf16(x - hi), and each of the three products is
+//   two products on the same B operand: 20 units of n*kv*d tensor-core work
+//   where the algorithm needs 14. The B operands (Q, K, dO) are the bf16
+//   inputs, exact. dQ and dK are multiplied by the scale once, at the store.
 //
 // * fp32, d <= 256: flash_bwd_dq_tf32x3_mma_kernel and
 //   flash_bwd_dkv_tf32x3_mma_kernel, the same two FlashAttention-2 backward
@@ -108,17 +145,19 @@
 //   that is right; its times are in PERF.md.
 //
 // Every route masks the ragged edges without copies: rows past n and keys
-// past kv_len load zeros (cp.async with src-size 0 on the bf16 route), P is
+// past kv_len load zeros (TMA's zero fill or cp.async with src-size 0), P is
 // 0 past either edge, and nothing is stored past it; head dims past d (a
 // multiple of 8: the wrapper zero-pads other widths) are zero in shared
-// memory, skipped as k-steps and not stored. q, k, v and dO are read through their (B, n, h, d) strides:
-// the attention block's q, k, v are strided views of one fused qkv
-// projection. The bf16 route needs their base pointers and strides on 16
-// bytes (the wrapper checks). Every instantiation's shared memory is
-// checked against the 227 KB a block may use at compile time.
+// memory (the mma.sync routes skip their k-steps) and not stored. q, k, v
+// and dO are read through their (B, n, h, d) strides: the attention block's
+// q, k, v are strided views of one fused qkv projection. The bf16 routes
+// need their base pointers and strides on 16 bytes (the wrapper checks).
+// Every instantiation's shared memory is checked against the 227 KB a block
+// may use at compile time.
 
 #include <atomic>
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -126,6 +165,7 @@
 
 #include "mma_sm90.cuh"
 #include "scalar_tiles.cuh"
+#include "tensor_map.cuh"
 
 namespace {
 
@@ -155,6 +195,18 @@ cudaError_t opt_in_once(K kernel, size_t bytes, std::atomic<unsigned long long>&
   return cudaSuccess;
 }
 
+// The launch plan of a shape: bwd_plan (below) makes it, the launchers and
+// ldm3d_flash_bwd_plan read it.
+enum : int { ROUTE_BF16 = 0, ROUTE_WGMMA = 1, ROUTE_TF32 = 2, ROUTE_WIDE = 3 };
+
+struct BwdPlan {
+  int route;
+  int dmax;  // the instantiation's head-dim bound (64, 128 or 256; 0 on the wide route)
+  int64_t grid_x;
+  int grid_y, threads;
+  size_t smem;
+};
+
 // ---------------------------------------------------------------------------
 // bf16: tensor cores
 
@@ -162,12 +214,13 @@ constexpr int MMA_WARPS = 8;
 constexpr int MMA_NT = 32 * MMA_WARPS;  // threads per block
 
 // dQ: BM query rows a block (16 a warp), BN keys a K or V tile, SLOTS (K, V)
-// tile pairs in the ring; rows of LD bf16.
+// tile pairs in the ring; rows of LD bf16. Instantiated at DMAX = 256 only
+// (d <= 128 takes the wgmma route).
 template <int DMAX>
 struct DqMma {
   static constexpr int BM = 16 * MMA_WARPS;
-  static constexpr int BN = DMAX == 128 ? 64 : 32;
-  static constexpr int SLOTS = DMAX > 128 ? 2 : 3;
+  static constexpr int BN = 32;
+  static constexpr int SLOTS = 2;
   static constexpr int LD = DMAX + 8;
   static constexpr size_t SMEM = (size_t)(2 * BM + 2 * SLOTS * BN) * LD * sizeof(bf16);
 };
@@ -177,9 +230,9 @@ struct DqMma {
 template <int DMAX>
 struct DkvMma {
   static constexpr int BN = 16 * MMA_WARPS;
-  static constexpr int DOUT = DMAX > 128 ? 128 : DMAX;
+  static constexpr int DOUT = 128;
   static constexpr int BM = 32;
-  static constexpr int SLOTS = DMAX > 128 ? 2 : 3;
+  static constexpr int SLOTS = 2;
   static constexpr int LD = DMAX + 8;
   static constexpr size_t TILE = (size_t)BM * LD * sizeof(bf16);  // bytes of a Q or dO tile
   static constexpr size_t SLOT = 2 * TILE + 2 * BM * sizeof(float);
@@ -253,11 +306,10 @@ __device__ __forceinline__ void store_rows(const float (&acc)[NTILES][4], float 
 // dQ. Grid (batch * heads * ceil(n / BM)). The K and V tiles stream through a
 // ring of SLOTS (K_j, V_j) pairs: while one pair is multiplied, the copies
 // of the next SLOTS - 1 are in flight. The accumulators of S, dP and dQ take
-// BN / 2 + DMAX / 2 fp32 registers a thread: 48 at DMAX = 64, two blocks an
-// SM; 128 and 144 above, one block, which without the bound ptxas would cap
-// at 128 registers and spill.
+// BN / 2 + DMAX / 2 fp32 registers a thread (144 at DMAX = 256): one block
+// an SM, which without the bound ptxas would cap at 128 registers and spill.
 template <int DMAX>
-__global__ void __launch_bounds__(MMA_NT, DMAX <= 64 ? 2 : 1) flash_bwd_dq_bf16_mma_kernel(
+__global__ void __launch_bounds__(MMA_NT, 1) flash_bwd_dq_bf16_mma_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const bf16* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ dvec,
     bf16* __restrict__ dq, int H, int n, int kv_len, int d, Strides st, float scale,
@@ -410,9 +462,9 @@ __global__ void __launch_bounds__(MMA_NT, DMAX <= 64 ? 2 : 1) flash_bwd_dq_bf16_
 // dK and dV. Grid (batch * heads * ceil(kv_len / BN), ceil(d / DOUT)). The Q
 // and dO tiles, with their LSE and D, stream through a ring of SLOTS slots.
 // The accumulators of S^T, dP^T, dK and dV take BM + DOUT fp32 registers a
-// thread: 96 at DMAX = 64, two blocks an SM; 160 above, one block.
+// thread (160): one block an SM.
 template <int DMAX>
-__global__ void __launch_bounds__(MMA_NT, DMAX <= 64 ? 2 : 1) flash_bwd_dkv_bf16_mma_kernel(
+__global__ void __launch_bounds__(MMA_NT, 1) flash_bwd_dkv_bf16_mma_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const bf16* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ dvec,
     bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int n, int kv_len, int d, Strides st,
@@ -579,18 +631,16 @@ __global__ void __launch_bounds__(MMA_NT, DMAX <= 64 ? 2 : 1) flash_bwd_dkv_bf16
 }
 
 template <int DMAX>
-cudaError_t launch_dq_bf16(const void* q, const void* k, const void* v, const void* dout,
-                           const void* lse, const void* dvec, void* dq, int B, int H, int n,
-                           int kv_len, int d, const Strides& st, float scale,
+cudaError_t launch_dq_bf16(const BwdPlan& p, const void* q, const void* k, const void* v,
+                           const void* dout, const void* lse, const void* dvec, void* dq, int H,
+                           int n, int kv_len, int d, const Strides& st, float scale,
                            cudaStream_t stream) {
-  using T = DqMma<DMAX>;
-  static_assert(T::SMEM <= MAX_SMEM, "dQ tiles exceed a block's shared memory");
+  static_assert(DqMma<DMAX>::SMEM <= MAX_SMEM, "dQ tiles exceed a block's shared memory");
   auto kernel = flash_bwd_dq_bf16_mma_kernel<DMAX>;
   static std::atomic<unsigned long long> opted_in{0};
-  cudaError_t err = opt_in_once(kernel, T::SMEM, opted_in);
+  cudaError_t err = opt_in_once(kernel, p.smem, opted_in);
   if (err != cudaSuccess) return err;
-  const dim3 grid((unsigned)((n + T::BM - 1) / T::BM * (int64_t)B * H));
-  kernel<<<grid, MMA_NT, T::SMEM, stream>>>(
+  kernel<<<dim3((unsigned)p.grid_x, p.grid_y), p.threads, p.smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(dvec), static_cast<bf16*>(dq), H, n, kv_len, d, st, scale,
@@ -599,23 +649,529 @@ cudaError_t launch_dq_bf16(const void* q, const void* k, const void* v, const vo
 }
 
 template <int DMAX>
-cudaError_t launch_dkv_bf16(const void* q, const void* k, const void* v, const void* dout,
-                            const void* lse, const void* dvec, void* dk, void* dv, int B, int H,
-                            int n, int kv_len, int d, const Strides& st, float scale,
-                            cudaStream_t stream) {
-  using T = DkvMma<DMAX>;
-  static_assert(T::SMEM <= MAX_SMEM, "dK/dV tiles exceed a block's shared memory");
+cudaError_t launch_dkv_bf16(const BwdPlan& p, const void* q, const void* k, const void* v,
+                            const void* dout, const void* lse, const void* dvec, void* dk,
+                            void* dv, int H, int n, int kv_len, int d, const Strides& st,
+                            float scale, cudaStream_t stream) {
+  static_assert(DkvMma<DMAX>::SMEM <= MAX_SMEM, "dK/dV tiles exceed a block's shared memory");
   auto kernel = flash_bwd_dkv_bf16_mma_kernel<DMAX>;
   static std::atomic<unsigned long long> opted_in{0};
-  cudaError_t err = opt_in_once(kernel, T::SMEM, opted_in);
+  cudaError_t err = opt_in_once(kernel, p.smem, opted_in);
   if (err != cudaSuccess) return err;
-  const dim3 grid((unsigned)((kv_len + T::BN - 1) / T::BN * (int64_t)B * H),
-                  (d + T::DOUT - 1) / T::DOUT);
-  kernel<<<grid, MMA_NT, T::SMEM, stream>>>(
+  kernel<<<dim3((unsigned)p.grid_x, p.grid_y), p.threads, p.smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(dvec), static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, n,
       kv_len, d, st, scale, scale * LOG2E);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// bf16 at d <= 128: warpgroup products (wgmma) on tiles that TMA loads
+
+constexpr int BW_NT = 256;    // two consumer warpgroups; thread 0 also issues the TMA loads
+constexpr int BW_ROWS = 128;  // resident rows a block: dQ's queries, dK/dV's keys (64 a warpgroup)
+constexpr int BW_TILE = 64;   // rows of a streamed tile: dQ's keys, dK/dV's queries
+constexpr int BW_STAGES = 4;  // streamed tile pairs in the ring
+constexpr int BW_BOX = ldm3d::TMA_BOX_DIMS;  // head dims a TMA box: 128 bytes, the swizzle's row
+
+// The shared memory of the wgmma kernels at DMAX = 64 or 128 (d fills every
+// 64-dim box of a row: d <= 64 takes DMAX = 64). Two resident tiles of
+// BW_ROWS rows (dQ: Q and dO; dK/dV: K and V) and a ring of BW_STAGES pairs
+// of streamed tiles of BW_TILE rows (dQ: K and V; dK/dV: Q and dO), each
+// tile NBOX boxes of 64 dims in the 128-byte swizzle; dK/dV also keeps each
+// warpgroup's copy of a query tile's -LSE log2(e) and D, two buffers. Then
+// the mbarriers (one for the resident tiles, a full and an empty one per
+// stage), and up to 1 KB to align the tiles on the swizzle's 1024-byte atoms.
+template <int DMAX>
+struct BwdWgmma {
+  static_assert(DMAX == 64 || DMAX == 128, "the wgmma route takes d <= 128");
+  static constexpr int NBOX = DMAX / BW_BOX;
+  static constexpr uint32_t RES_BOX = BW_ROWS * 128;  // bytes of a box of a resident tile
+  static constexpr uint32_t STR_BOX = BW_TILE * 128;  // of a streamed tile
+  static constexpr uint32_t RES = NBOX * RES_BOX;
+  static constexpr uint32_t STR = NBOX * STR_BOX;
+  static constexpr uint32_t TILES = 2 * RES + 2 * BW_STAGES * STR;
+  static constexpr uint32_t VEC = 2 * 2 * 2 * BW_TILE * sizeof(float);
+  static constexpr uint32_t BARS = 8 * (1 + 2 * BW_STAGES);
+  // head dims of dK and dV a block: at DMAX = 128 the four accumulators of
+  // dK/dV (64 + 128 fp32 a thread) spilled, so a block takes 64 of them
+  // and S^T and dP^T are recomputed for each half
+  static constexpr int DOUT = 64;
+  static constexpr size_t SMEM_DQ = TILES + BARS + 1024;
+  static constexpr size_t SMEM_DKV = TILES + VEC + BARS + 1024;
+  static_assert(SMEM_DKV <= MAX_SMEM, "tiles exceed a block's shared memory");
+};
+
+__device__ __forceinline__ uint32_t bar_full(uint32_t bars, int s) { return bars + 8u * (1 + s); }
+__device__ __forceinline__ uint32_t bar_empty(uint32_t bars, int s) {
+  return bars + 8u * (1 + BW_STAGES + s);
+}
+
+// The barriers at `bars`: the resident tiles' (one arrival, thread 0's, and
+// the TMA's bytes), then per stage a full one (the same) and an empty one
+// (one arrival from each warp once its products have read the stage); made
+// visible to the TMA before any thread uses them.
+__device__ __forceinline__ void bwd_barriers_init(uint32_t bars) {
+  if (threadIdx.x == 0) {
+    ldm3d::mbar_init(bars, 1);
+    for (int s = 0; s < BW_STAGES; ++s) {
+      ldm3d::mbar_init(bar_full(bars, s), 1);
+      ldm3d::mbar_init(bar_empty(bars, s), BW_NT / 32);
+    }
+    ldm3d::mbar_fence_init();
+  }
+  __syncthreads();
+}
+
+// Thread 0: rows [row0, row0 + ROWS) of the maps `a` and `b`, NB boxes of
+// 64 dims each, into the tiles at dst_a and dst_b, completing on `bar`.
+template <int NB, int ROWS>
+__device__ __forceinline__ void tma_load_pair(uint32_t dst_a, const CUtensorMap* a, uint32_t dst_b,
+                                              const CUtensorMap* b, uint32_t bar, int row0, int h,
+                                              int bb) {
+  constexpr uint32_t BOX = ROWS * 128;
+  ldm3d::mbar_arrive_expect_tx(bar, 2 * NB * BOX);
+#pragma unroll
+  for (int x = 0; x < NB; ++x) {
+    ldm3d::tma_load_4d(dst_a + x * BOX, a, bar, x * BW_BOX, row0, h, bb);
+    ldm3d::tma_load_4d(dst_b + x * BOX, b, bar, x * BW_BOX, row0, h, bb);
+  }
+}
+
+// Thread 0: streamed tile j of the maps `a` and `b` into stage j % BW_STAGES
+// of the ring (a's tile, then b's), once every warp has released tile
+// j - BW_STAGES there.
+template <int NB>
+__device__ __forceinline__ void bwd_load_stage(uint32_t ring, uint32_t bars, const CUtensorMap* a,
+                                               const CUtensorMap* b, int j, int h, int bb) {
+  constexpr uint32_t STR = NB * BW_TILE * 128;
+  const int s = j % BW_STAGES;
+  if (j >= BW_STAGES) ldm3d::mbar_wait(bar_empty(bars, s), (j / BW_STAGES - 1) & 1);
+  const uint32_t dst = ring + 2 * s * STR;
+  tma_load_pair<NB, BW_TILE>(dst, a, dst + STR, b, bar_full(bars, s), j * BW_TILE, h, bb);
+}
+
+// This warp is done with stage s: its products have read it.
+__device__ __forceinline__ void bwd_release(uint32_t bars, int s) {
+  __syncwarp();
+  if (threadIdx.x % 32 == 0) ldm3d::mbar_arrive(bar_empty(bars, s));
+}
+
+// c1 = A1 B1^T and c2 = A2 B2^T over the NB boxes of head dims, k-steps of
+// 16 (dims past d are TMA's zeros): A1, A2 the warpgroup's 64 rows of two
+// resident tiles (boxes A_BOX bytes apart), B1, B2 the 64 rows of two
+// streamed tiles (B_BOX apart), all K-major in the 128-byte swizzle: the
+// descriptor's start steps 32 bytes a k-step inside a row (the forward's Q
+// and K of S = Q K^T). Issued and committed, not waited for. No k-step is
+// skipped: a wgmma under a branch made ptxas serialize every wgmma of the
+// kernel (C7520, "WG.AR in divergent path"; PERF.md).
+template <int NB, uint32_t A_BOX, uint32_t B_BOX>
+__device__ __forceinline__ void wgmma_pair_over_d(float (&c1)[32], float (&c2)[32], uint32_t a1,
+                                                  uint32_t a2, uint32_t b1, uint32_t b2) {
+  ldm3d::wgmma_fence_operands(c1);
+  ldm3d::wgmma_fence_operands(c2);
+  ldm3d::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4 * NB; ++kk) {
+    const uint32_t oa = (kk / 4) * A_BOX + (kk % 4) * 32u;
+    const uint32_t ob = (kk / 4) * B_BOX + (kk % 4) * 32u;
+    ldm3d::wgmma_m64n64k16_ss(c1, ldm3d::wgmma_desc_sw128(a1 + oa, 16, 1024),
+                              ldm3d::wgmma_desc_sw128(b1 + ob, 16, 1024), kk > 0);
+    ldm3d::wgmma_m64n64k16_ss(c2, ldm3d::wgmma_desc_sw128(a2 + oa, 16, 1024),
+                              ldm3d::wgmma_desc_sw128(b2 + ob, 16, 1024), kk > 0);
+  }
+  ldm3d::wgmma_commit();
+}
+
+
+// acc += A B for one k-step of 16 rows of a streamed tile: A in registers
+// (each warp's m16n8k16 A fragment), B at `desc`, MN-major; N = 64 or 128
+// head dims.
+template <int N>
+__device__ __forceinline__ void wgmma_rs_tnspb(float (&acc)[N / 2], const uint32_t (&a)[4],
+                                               uint64_t desc) {
+  if constexpr (N == 64)
+    ldm3d::wgmma_m64n64k16_rs_tnspb(acc, a, desc, 1);
+  else
+    ldm3d::wgmma_m64n128k16_rs_tnspb(acc, a, desc, 1);
+}
+
+// The descriptor of k-step kk (rows 16 kk .. 16 kk + 15) of a streamed tile
+// as the transposed B operand from its box `box`: MN-major, LBO one 64-dim
+// box to the next, SBO one 8-row group to the next (the forward's V of P V).
+__device__ __forceinline__ uint64_t tnspb_desc(uint32_t tile, int box, int kk) {
+  return ldm3d::wgmma_desc_sw128(tile + box * (BW_TILE * 128) + kk * 16 * 128, BW_TILE * 128,
+                                 1024);
+}
+
+// The accumulators of an m64n64 wgmma as the bf16 hi and lo A registers of
+// its 4 k-steps of 16 columns: k-step kk takes n-tiles 2kk and 2kk + 1
+// (registers 0, 1 and 2, 3; rows g and g + 8; mma_sm90.cuh).
+__device__ __forceinline__ void pack_split_a(const float (&c)[32], uint32_t (&hi)[4][4],
+                                             uint32_t (&lo)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int cc = 2 * kk + half;
+      ldm3d::pack_bf16_split(c[4 * cc], c[4 * cc + 1], hi[kk][2 * half], lo[kk][2 * half]);
+      ldm3d::pack_bf16_split(c[4 * cc + 2], c[4 * cc + 3], hi[kk][2 * half + 1],
+                             lo[kk][2 * half + 1]);
+    }
+}
+
+// A warpgroup's m64nN accumulators times `mul` (rows g and g + 8 of each
+// warp's 16, columns 8c + 2t and 8c + 2t + 1) into the warp's rows
+// [row_w, row_w + 16) of a contiguous (B, rows, H, d) output from head dim
+// col0; rows past `rows` and columns past d are not stored.
+template <int N>
+__device__ __forceinline__ void store_acc(const float (&acc)[N / 2], float mul,
+                                          bf16* __restrict__ out, int b, int h, int H, int rows,
+                                          int row_w, int col0, int d) {
+  const int g = threadIdx.x % 32 / 4;
+  const int t = threadIdx.x % 4;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row_w + g + 8 * r;
+    if (row >= rows) continue;
+    bf16* o = out + ((int64_t)(b * rows + row) * H + h) * d + col0 + 2 * t;
+#pragma unroll
+    for (int c = 0; c < N / 8; ++c)
+      if (col0 + c * 8 < d)
+        *reinterpret_cast<__nv_bfloat162*>(o + c * 8) =
+            __floats2bfloat162_rn(acc[4 * c + 2 * r] * mul, acc[4 * c + 2 * r + 1] * mul);
+  }
+}
+
+// dQ. Grid (batch * heads * ceil(n / BW_ROWS)); two warpgroups of 64 query
+// rows. Thread 0 loads Q and dO once and streams the K and V tiles of 64
+// keys through the ring. A warpgroup, per tile: S = Q K^T and dP = dO V^T
+// (wgmma_pair_over_d); once both are waited for, dS = P * (dP - D) in S's
+// registers, P = exp2(S * scale * log2(e) - LSE * log2(e)) in one fma and 0
+// past kv_len, split into bf16 hi and lo A registers; dQ += dS K as two
+// wgmma m64nDMAXk16 a k-step of 16 keys (hi, then lo, on one descriptor: K
+// MN-major). The accumulators take 64 + DMAX / 2 fp32 registers a thread;
+// one block an SM.
+template <int DMAX>
+__global__ void __launch_bounds__(BW_NT, 1) flash_bwd_dq_bf16_wgmma_kernel(
+    const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
+    const __grid_constant__ CUtensorMap v_map, const __grid_constant__ CUtensorMap do_map,
+    const float* __restrict__ lse, const float* __restrict__ dvec, bf16* __restrict__ dq, int H,
+    int n, int kv_len, int d, float scale, float scale_log2) {
+  using T = BwdWgmma<DMAX>;
+  constexpr int NB = T::NBOX;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (ldm3d::smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t q_s = base;
+  const uint32_t do_s = base + T::RES;
+  const uint32_t ring = base + 2 * T::RES;  // stage s: K at + 2s STR, V after it
+  const uint32_t bars = base + T::TILES;
+
+  const int q_tiles = (n + BW_ROWS - 1) / BW_ROWS;
+  const int bh = blockIdx.x / q_tiles;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int row0 = (blockIdx.x - bh * q_tiles) * BW_ROWS;
+  const int n_kv = (kv_len + BW_TILE - 1) / BW_TILE;
+  const bool producer = threadIdx.x == 0;
+
+  bwd_barriers_init(bars);
+  if (producer) {
+    ldm3d::tma_prefetch_desc(&q_map);
+    ldm3d::tma_prefetch_desc(&k_map);
+    ldm3d::tma_prefetch_desc(&v_map);
+    ldm3d::tma_prefetch_desc(&do_map);
+    tma_load_pair<NB, BW_ROWS>(q_s, &q_map, do_s, &do_map, bars, row0, h, b);
+    for (int j = 0; j < BW_STAGES - 1 && j < n_kv; ++j)
+      bwd_load_stage<NB>(ring, bars, &k_map, &v_map, j, h, b);
+  }
+
+  const int lane = threadIdx.x % 32;
+  const int wg = threadIdx.x / 128;
+  const int row_w = row0 + wg * 64 + threadIdx.x / 32 % 4 * 16;  // the warp's 16 rows
+  const int t = lane % 4;
+  // rows g and g + 8 of the warp: -LSE * log2(e) and D
+  float nl[2], dd[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row_w + lane / 4 + 8 * r;
+    nl[r] = row < n ? -lse[(int64_t)bh * n + row] * LOG2E : 0.f;
+    dd[r] = row < n ? dvec[(int64_t)bh * n + row] : 0.f;
+  }
+  float acc[DMAX / 2];
+#pragma unroll
+  for (int i = 0; i < DMAX / 2; ++i) acc[i] = 0.f;
+  const uint32_t q_wg = q_s + wg * 64 * 128;  // the warpgroup's 64 rows of each box
+  const uint32_t do_wg = do_s + wg * 64 * 128;
+
+  float sc[32], dp[32];
+  uint32_t hi[4][4], lo[4][4];
+  // S = Q K_j^T and dP = dO V_j^T, once tile j has landed; issued, not waited for
+  auto issue_s = [&](int j) {
+    const int s = j % BW_STAGES;
+    ldm3d::mbar_wait(bar_full(bars, s), (j / BW_STAGES) & 1);
+    const uint32_t k_s = ring + 2 * s * T::STR;
+    wgmma_pair_over_d<NB, T::RES_BOX, T::STR_BOX>(sc, dp, q_wg, do_wg, k_s, k_s + T::STR);
+  };
+  // dS = P * (dP - D) in place of S, split into hi and lo A registers:
+  // register i is row g + 8 ((i / 2) % 2), key kv0 + 8 (i / 4) + 2t + i % 2
+  auto make_ds = [&](int j) {
+    const int kv0 = j * BW_TILE;
+    const bool ragged = kv0 + BW_TILE > kv_len;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i / 2) % 2;
+      float p = exp2f(fmaf(sc[i], scale_log2, nl[r]));
+      if (ragged && kv0 + 8 * (i / 4) + 2 * t + i % 2 >= kv_len) p = 0.f;
+      sc[i] = p * (dp[i] - dd[r]);
+    }
+    pack_split_a(sc, hi, lo);
+  };
+  // dQ += dS K_j, issued: keys past kv_len add dS = 0
+  auto issue_dq = [&](int j) {
+    const uint32_t k_s = ring + 2 * (j % BW_STAGES) * T::STR;
+    ldm3d::wgmma_fence_operands(acc);
+    ldm3d::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t desc = tnspb_desc(k_s, 0, kk);
+      wgmma_rs_tnspb<DMAX>(acc, hi[kk], desc);
+      wgmma_rs_tnspb<DMAX>(acc, lo[kk], desc);
+    }
+    ldm3d::wgmma_commit();
+  };
+  auto wait_all = [&] {
+    ldm3d::wgmma_wait<0>();
+    ldm3d::wgmma_fence_operands(sc);
+    ldm3d::wgmma_fence_operands(dp);
+    ldm3d::wgmma_fence_operands(acc);
+  };
+  // this warp has left tile j; thread 0 loads tile `next` into the stage of
+  // tile j - 1, once every warp has left that one
+  auto release = [&](int j, int next) {
+    bwd_release(bars, j % BW_STAGES);
+    if (producer && next < n_kv) bwd_load_stage<NB>(ring, bars, &k_map, &v_map, next, h, b);
+    __syncwarp();
+  };
+
+  ldm3d::mbar_wait(bars, 0);
+  for (int j = 0; j < n_kv; ++j) {
+    issue_s(j);
+    wait_all();
+    make_ds(j);
+    issue_dq(j);
+    wait_all();
+    release(j, j + BW_STAGES - 1);
+  }
+  store_acc<DMAX>(acc, scale, dq, b, h, H, n, row_w, 0, d);
+}
+
+// dK and dV. Grid (batch * heads * ceil(kv_len / BW_ROWS), ceil(d / DOUT));
+// two warpgroups of 64 keys. Thread 0 loads K and V once and streams the Q
+// and dO tiles of 64 queries through the ring; each warpgroup copies a
+// tile's -LSE * log2(e) and D into its own buffer in shared memory with
+// plain loads (a row of n floats is on 16 bytes only when 4 divides n, so
+// no bulk copy), behind its own barrier. A warpgroup, per tile: S^T = K Q^T
+// and dP^T = V dO^T (wgmma_pair_over_d); once both are waited for, P^T =
+// exp2(S^T * scale * log2(e) - LSE * log2(e)), 0 past n, and dS^T = P^T *
+// (dP^T - D), in place, each split into bf16 hi and lo A registers; dV +=
+// P^T dO and dK += dS^T Q as two wgmma m64nDOUTk16 each a k-step of 16
+// queries (dO and Q MN-major from head dim col0). The accumulators take
+// 64 + DOUT fp32 registers a thread; one block an SM.
+template <int DMAX>
+__global__ void __launch_bounds__(BW_NT, 1) flash_bwd_dkv_bf16_wgmma_kernel(
+    const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
+    const __grid_constant__ CUtensorMap v_map, const __grid_constant__ CUtensorMap do_map,
+    const float* __restrict__ lse, const float* __restrict__ dvec, bf16* __restrict__ dk,
+    bf16* __restrict__ dv, int H, int n, int kv_len, int d, float scale, float scale_log2) {
+  using T = BwdWgmma<DMAX>;
+  constexpr int NB = T::NBOX;
+  constexpr int DOUT = T::DOUT;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = ldm3d::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t k_s = base;
+  const uint32_t v_s = base + T::RES;
+  const uint32_t ring = base + 2 * T::RES;  // stage s: Q at + 2s STR, dO after it
+  const uint32_t bars = base + T::TILES + T::VEC;
+
+  const int k_tiles = (kv_len + BW_ROWS - 1) / BW_ROWS;
+  const int bh = blockIdx.x / k_tiles;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int key0 = (blockIdx.x - bh * k_tiles) * BW_ROWS;
+  const int col0 = blockIdx.y * DOUT;
+  const int n_q = (n + BW_TILE - 1) / BW_TILE;
+  const bool producer = threadIdx.x == 0;
+
+  bwd_barriers_init(bars);
+  if (producer) {
+    ldm3d::tma_prefetch_desc(&q_map);
+    ldm3d::tma_prefetch_desc(&k_map);
+    ldm3d::tma_prefetch_desc(&v_map);
+    ldm3d::tma_prefetch_desc(&do_map);
+    tma_load_pair<NB, BW_ROWS>(k_s, &k_map, v_s, &v_map, bars, key0, h, b);
+    for (int i = 0; i < BW_STAGES - 1 && i < n_q; ++i)
+      bwd_load_stage<NB>(ring, bars, &q_map, &do_map, i, h, b);
+  }
+
+  const int wg = threadIdx.x / 128;
+  const int x = threadIdx.x % 128;
+  const int t = threadIdx.x % 4;
+  // the warpgroup's two buffers, each a tile's 64 -LSE * log2(e) then 64 D
+  float* vec = reinterpret_cast<float*>(smem_raw + (base - raw) + T::TILES) + wg * 4 * BW_TILE;
+  float acc_k[DOUT / 2], acc_v[DOUT / 2];
+#pragma unroll
+  for (int i = 0; i < DOUT / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
+  const uint32_t k_wg = k_s + wg * 64 * 128;  // the warpgroup's 64 keys of each box
+  const uint32_t v_wg = v_s + wg * 64 * 128;
+  const int out_box = col0 / BW_BOX;
+
+  float sc[32], dp[32];
+  uint32_t ph[4][4], pl[4][4], sh[4][4], sl[4][4];
+  // S^T = K Q_i^T and dP^T = V dO_i^T once tile i has landed (issued, not
+  // waited for), and the tile's -LSE * log2(e) and D (lv) into buffer i % 2
+  // this thread's value of tile i's -LSE * log2(e) (threads 0-63 of the
+  // warpgroup) or D (64-127), 0 past n: loaded a tile ahead, since the
+  // load's latency showed when it was issued beside its store (3 % of dK/dV)
+  auto load_lv = [&](int i) {
+    const int qx = i * BW_TILE + x % BW_TILE;
+    return qx < n ? (x < BW_TILE ? -lse[(int64_t)bh * n + qx] * LOG2E : dvec[(int64_t)bh * n + qx])
+                  : 0.f;
+  };
+  float lv = load_lv(0);
+  auto issue_s = [&](int i) {
+    const int s = i % BW_STAGES;
+    ldm3d::mbar_wait(bar_full(bars, s), (i / BW_STAGES) & 1);
+    const uint32_t q_t = ring + 2 * s * T::STR;
+    wgmma_pair_over_d<NB, T::RES_BOX, T::STR_BOX>(sc, dp, k_wg, v_wg, q_t, q_t + T::STR);
+    vec[(i % 2) * 2 * BW_TILE + x] = lv;
+  };
+  // P^T in place of S^T, dS^T in place of dP^T: register e is key g + 8
+  // ((e / 2) % 2), query q0 + 8 (e / 4) + 2t + e % 2; then dV += P^T dO and
+  // dK += dS^T Q, issued: queries past n add P = dS = 0
+  auto products = [&](int i) {
+    const int q0 = i * BW_TILE;
+    const bool ragged = q0 + BW_TILE > n;
+    const float* vb = vec + (i % 2) * 2 * BW_TILE;
+    const uint32_t q_t = ring + 2 * (i % BW_STAGES) * T::STR;
+    const uint32_t o_t = q_t + T::STR;
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int col = 8 * (e / 4) + 2 * t + e % 2;
+      float p = exp2f(fmaf(sc[e], scale_log2, vb[col]));
+      if (ragged && q0 + col >= n) p = 0.f;
+      sc[e] = p;
+      dp[e] = p * (dp[e] - vb[BW_TILE + col]);
+    }
+    pack_split_a(sc, ph, pl);
+    pack_split_a(dp, sh, sl);
+    ldm3d::wgmma_fence_operands(acc_k);
+    ldm3d::wgmma_fence_operands(acc_v);
+    ldm3d::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t od = tnspb_desc(o_t, out_box, kk);
+      const uint64_t qd = tnspb_desc(q_t, out_box, kk);
+      wgmma_rs_tnspb<DOUT>(acc_v, ph[kk], od);
+      wgmma_rs_tnspb<DOUT>(acc_k, sh[kk], qd);
+      wgmma_rs_tnspb<DOUT>(acc_v, pl[kk], od);
+      wgmma_rs_tnspb<DOUT>(acc_k, sl[kk], qd);
+    }
+    ldm3d::wgmma_commit();
+  };
+  // S^T and dP^T done; the tile's -LSE log2(e) and D visible to the
+  // warpgroup: its barrier orders every thread's write of buffer i % 2
+  // before the reads, and every read of tile i - 2's (the same buffer)
+  // before the next write
+  auto wait_all = [&] {
+    ldm3d::wgmma_wait<0>();
+    ldm3d::wgmma_fence_operands(sc);
+    ldm3d::wgmma_fence_operands(dp);
+    ldm3d::wgmma_fence_operands(acc_k);
+    ldm3d::wgmma_fence_operands(acc_v);
+    ldm3d::named_barrier_sync(1 + wg, 128);
+  };
+  auto release = [&](int i, int next) {
+    bwd_release(bars, i % BW_STAGES);
+    if (producer && next < n_q) bwd_load_stage<NB>(ring, bars, &q_map, &do_map, next, h, b);
+    __syncwarp();
+  };
+
+  ldm3d::mbar_wait(bars, 0);
+  for (int i = 0; i < n_q; ++i) {
+    issue_s(i);
+    wait_all();
+    lv = load_lv(i + 1);
+    products(i);
+    ldm3d::wgmma_wait<0>();
+    ldm3d::wgmma_fence_operands(acc_k);
+    ldm3d::wgmma_fence_operands(acc_v);
+    release(i, i + BW_STAGES - 1);
+  }
+  const int key_w = key0 + wg * 64 + threadIdx.x / 32 % 4 * 16;  // the warp's 16 keys
+  store_acc<DOUT>(acc_k, scale, dk, b, h, H, kv_len, key_w, col0, d);
+  store_acc<DOUT>(acc_v, 1.f, dv, b, h, H, kv_len, key_w, col0, d);
+}
+
+// The maps of q, k, v and dO for the wgmma kernels: dQ takes q and dO in
+// boxes of BW_ROWS rows and k and v in tiles of BW_TILE, dK/dV the other way
+// round.
+void bwd_map_fields(ldm3d::MapFields (&f)[4], bool dkv, int B, int H, int n, int kv_len, int d,
+                    const Strides& st) {
+  const int q_rows = dkv ? BW_TILE : BW_ROWS;
+  const int k_rows = dkv ? BW_ROWS : BW_TILE;
+  f[0] = ldm3d::bf16_map_fields(B, n, H, d, st.q_sb, st.q_sn, st.q_sh, q_rows);
+  f[1] = ldm3d::bf16_map_fields(B, kv_len, H, d, st.k_sb, st.k_sn, st.k_sh, k_rows);
+  f[2] = ldm3d::bf16_map_fields(B, kv_len, H, d, st.v_sb, st.v_sn, st.v_sh, k_rows);
+  f[3] = ldm3d::bf16_map_fields(B, n, H, d, st.o_sb, st.o_sn, st.o_sh, q_rows);
+}
+
+// The four maps of a wgmma launch, encoded; false if the driver refuses one.
+bool encode_bwd_maps(CUtensorMap (&m)[4], bool dkv, const void* q, const void* k, const void* v,
+                     const void* dout, int B, int H, int n, int kv_len, int d, const Strides& st) {
+  ldm3d::MapFields f[4];
+  bwd_map_fields(f, dkv, B, H, n, kv_len, d, st);
+  const void* ptr[4] = {q, k, v, dout};
+  for (int i = 0; i < 4; ++i)
+    if (!ldm3d::encode_bf16_map(&m[i], ptr[i], f[i])) return false;
+  return true;
+}
+
+template <int DMAX>
+cudaError_t launch_dq_wgmma(const BwdPlan& p, const void* q, const void* k, const void* v,
+                            const void* dout, const void* lse, const void* dvec, void* dq, int B,
+                            int H, int n, int kv_len, int d, const Strides& st, float scale,
+                            cudaStream_t stream) {
+  CUtensorMap m[4];
+  if (!encode_bwd_maps(m, false, q, k, v, dout, B, H, n, kv_len, d, st))
+    return cudaErrorInvalidValue;
+  auto kernel = flash_bwd_dq_bf16_wgmma_kernel<DMAX>;
+  static std::atomic<unsigned long long> opted_in{0};
+  cudaError_t err = opt_in_once(kernel, p.smem, opted_in);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3((unsigned)p.grid_x, p.grid_y), p.threads, p.smem, stream>>>(
+      m[0], m[1], m[2], m[3], static_cast<const float*>(lse), static_cast<const float*>(dvec),
+      static_cast<bf16*>(dq), H, n, kv_len, d, scale, scale * LOG2E);
+  return cudaGetLastError();
+}
+
+template <int DMAX>
+cudaError_t launch_dkv_wgmma(const BwdPlan& p, const void* q, const void* k, const void* v,
+                             const void* dout, const void* lse, const void* dvec, void* dk,
+                             void* dv, int B, int H, int n, int kv_len, int d, const Strides& st,
+                             float scale, cudaStream_t stream) {
+  CUtensorMap m[4];
+  if (!encode_bwd_maps(m, true, q, k, v, dout, B, H, n, kv_len, d, st))
+    return cudaErrorInvalidValue;
+  auto kernel = flash_bwd_dkv_bf16_wgmma_kernel<DMAX>;
+  static std::atomic<unsigned long long> opted_in{0};
+  cudaError_t err = opt_in_once(kernel, p.smem, opted_in);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3((unsigned)p.grid_x, p.grid_y), p.threads, p.smem, stream>>>(
+      m[0], m[1], m[2], m[3], static_cast<const float*>(lse), static_cast<const float*>(dvec),
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, n, kv_len, d, scale, scale * LOG2E);
   return cudaGetLastError();
 }
 
@@ -1065,18 +1621,16 @@ __global__ void __launch_bounds__(DkvTf32<DMAX>::NT, 1)
 }
 
 template <int DMAX>
-cudaError_t launch_dq_tf32(const void* q, const void* k, const void* v, const void* dout,
-                           const void* lse, const void* dvec, void* dq, int B, int H, int n,
-                           int kv_len, int d, const Strides& st, float scale, bool vec16,
+cudaError_t launch_dq_tf32(const BwdPlan& p, const void* q, const void* k, const void* v,
+                           const void* dout, const void* lse, const void* dvec, void* dq, int H,
+                           int n, int kv_len, int d, const Strides& st, float scale, bool vec16,
                            cudaStream_t stream) {
-  using T = DqTf32<DMAX>;
-  static_assert(T::SMEM <= MAX_SMEM, "dQ tiles exceed a block's shared memory");
+  static_assert(DqTf32<DMAX>::SMEM <= MAX_SMEM, "dQ tiles exceed a block's shared memory");
   auto kernel = flash_bwd_dq_tf32x3_mma_kernel<DMAX>;
   static std::atomic<unsigned long long> opted_in{0};
-  cudaError_t err = opt_in_once(kernel, T::SMEM, opted_in);
+  cudaError_t err = opt_in_once(kernel, p.smem, opted_in);
   if (err != cudaSuccess) return err;
-  const dim3 grid((unsigned)((n + T::BM - 1) / T::BM * (int64_t)B * H));
-  kernel<<<grid, T::NT, T::SMEM, stream>>>(
+  kernel<<<dim3((unsigned)p.grid_x, p.grid_y), p.threads, p.smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(dvec), static_cast<float*>(dq), H, n, kv_len, d, st, scale,
@@ -1085,19 +1639,16 @@ cudaError_t launch_dq_tf32(const void* q, const void* k, const void* v, const vo
 }
 
 template <int DMAX>
-cudaError_t launch_dkv_tf32(const void* q, const void* k, const void* v, const void* dout,
-                            const void* lse, const void* dvec, void* dk, void* dv, int B, int H,
-                            int n, int kv_len, int d, const Strides& st, float scale, bool vec16,
-                            cudaStream_t stream) {
-  using T = DkvTf32<DMAX>;
-  static_assert(T::SMEM <= MAX_SMEM, "dK/dV tiles exceed a block's shared memory");
+cudaError_t launch_dkv_tf32(const BwdPlan& p, const void* q, const void* k, const void* v,
+                            const void* dout, const void* lse, const void* dvec, void* dk,
+                            void* dv, int H, int n, int kv_len, int d, const Strides& st,
+                            float scale, bool vec16, cudaStream_t stream) {
+  static_assert(DkvTf32<DMAX>::SMEM <= MAX_SMEM, "dK/dV tiles exceed a block's shared memory");
   auto kernel = flash_bwd_dkv_tf32x3_mma_kernel<DMAX>;
   static std::atomic<unsigned long long> opted_in{0};
-  cudaError_t err = opt_in_once(kernel, T::SMEM, opted_in);
+  cudaError_t err = opt_in_once(kernel, p.smem, opted_in);
   if (err != cudaSuccess) return err;
-  const dim3 grid((unsigned)((kv_len + T::BN - 1) / T::BN * (int64_t)B * H),
-                  (d + T::DOUT - 1) / T::DOUT);
-  kernel<<<grid, T::NT, T::SMEM, stream>>>(
+  kernel<<<dim3((unsigned)p.grid_x, p.grid_y), p.threads, p.smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(dvec), static_cast<float*>(dk), static_cast<float*>(dv), H, n,
@@ -1111,6 +1662,8 @@ cudaError_t launch_dkv_tf32(const void* q, const void* k, const void* v, const v
 constexpr int W_T = 16;     // the block is W_T x W_T threads
 constexpr int W_NT = W_T * W_T;
 constexpr int W_DC = 16;    // head dims per chunk of S and dP
+constexpr int W_DQ_BM = 64, W_DQ_DOUT = 128;    // dQ: query rows and head dims a block
+constexpr int W_DKV_BN = 32, W_DKV_DOUT = 64;   // dK/dV: keys and head dims a block
 
 // dQ, d > 256. Grid (batch * heads * ceil(n / BM), ceil(d / DOUT)). Each
 // block owns BM query rows and DOUT head dims of dQ; for each tile of BN keys
@@ -1123,7 +1676,7 @@ __global__ void __launch_bounds__(W_NT) flash_bwd_dq_wide_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ dvec,
     T* __restrict__ dq, int H, int n, int kv_len, int d, Strides st, float scale) {
-  constexpr int BM = 64, BN = 32, DOUT = 128;
+  constexpr int BM = W_DQ_BM, BN = 32, DOUT = W_DQ_DOUT;
   constexpr int RM = BM / W_T, RN = BN / W_T, RD = DOUT / W_T;
   __shared__ float qc[BM][W_DC + 1];
   __shared__ float oc[BM][W_DC + 1];
@@ -1242,7 +1795,7 @@ __global__ void __launch_bounds__(W_NT) flash_bwd_dkv_wide_kernel(
     const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ dvec,
     T* __restrict__ dk, T* __restrict__ dv, int H, int n, int kv_len, int d, Strides st,
     float scale) {
-  constexpr int BN = 32, BM = 32, DOUT = 64;
+  constexpr int BN = W_DKV_BN, BM = 32, DOUT = W_DKV_DOUT;
   constexpr int RK = BN / W_T, RQ = BM / W_T, RD = DOUT / W_T;
   __shared__ float kc[BN][W_DC + 1];
   __shared__ float vc[BN][W_DC + 1];
@@ -1368,12 +1921,11 @@ __global__ void __launch_bounds__(W_NT) flash_bwd_dkv_wide_kernel(
 }
 
 template <typename T>
-cudaError_t launch_dq_wide(const void* q, const void* k, const void* v, const void* dout,
-                           const void* lse, const void* dvec, void* dq, int B, int H, int n,
-                           int kv_len, int d, const Strides& st, float scale,
+cudaError_t launch_dq_wide(const BwdPlan& p, const void* q, const void* k, const void* v,
+                           const void* dout, const void* lse, const void* dvec, void* dq, int H,
+                           int n, int kv_len, int d, const Strides& st, float scale,
                            cudaStream_t stream) {
-  const dim3 grid((unsigned)((n + 63) / 64 * (int64_t)B * H), (d + 127) / 128);
-  flash_bwd_dq_wide_kernel<T><<<grid, W_NT, 0, stream>>>(
+  flash_bwd_dq_wide_kernel<T><<<dim3((unsigned)p.grid_x, p.grid_y), p.threads, p.smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(dvec), static_cast<T*>(dq), H, n, kv_len, d, st, scale);
@@ -1381,12 +1933,12 @@ cudaError_t launch_dq_wide(const void* q, const void* k, const void* v, const vo
 }
 
 template <typename T>
-cudaError_t launch_dkv_wide(const void* q, const void* k, const void* v, const void* dout,
-                            const void* lse, const void* dvec, void* dk, void* dv, int B, int H,
-                            int n, int kv_len, int d, const Strides& st, float scale,
-                            cudaStream_t stream) {
-  const dim3 grid((unsigned)((kv_len + 31) / 32 * (int64_t)B * H), (d + 63) / 64);
-  flash_bwd_dkv_wide_kernel<T><<<grid, W_NT, 0, stream>>>(
+cudaError_t launch_dkv_wide(const BwdPlan& p, const void* q, const void* k, const void* v,
+                            const void* dout, const void* lse, const void* dvec, void* dk,
+                            void* dv, int H, int n, int kv_len, int d, const Strides& st,
+                            float scale, cudaStream_t stream) {
+  flash_bwd_dkv_wide_kernel<T><<<dim3((unsigned)p.grid_x, p.grid_y), p.threads, p.smem,
+                                  stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(dvec), static_cast<T*>(dk), static_cast<T*>(dv), H, n, kv_len,
@@ -1415,12 +1967,75 @@ Strides to_strides(const int64_t* s) {
   return Strides{s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8], s[9], s[10], s[11]};
 }
 
+// The fp32 route's plan at DMAX (bwd_plan).
+template <int DMAX>
+BwdPlan tf32_plan(bool dkv, int n, int kv_len, int d, int64_t bh) {
+  using Q = DqTf32<DMAX>;
+  using KV = DkvTf32<DMAX>;
+  if (dkv)
+    return {ROUTE_TF32, DMAX, (kv_len + KV::BN - 1) / KV::BN * bh, (d + KV::DOUT - 1) / KV::DOUT,
+            KV::NT, KV::SMEM};
+  return {ROUTE_TF32, DMAX, (n + Q::BM - 1) / Q::BM * bh, 1, Q::NT, Q::SMEM};
+}
+
+// The route and launch of dQ (dkv false) or dK/dV at a shape: bf16 up to
+// d = 128 on wgmma, bf16 at 128 < d <= 256 on mma.sync, fp32 up to 256 on
+// 3xTF32 mma.sync, either dtype above 256 on the wide kernels. The output's
+// row tiles of one (batch, head) side by side on grid.x; dK/dV's (and the
+// wide dQ's) blocks of head dims on grid.y.
+BwdPlan bwd_plan(bool dkv, int is_bf16, int B, int H, int n, int kv_len, int d) {
+  const int64_t bh = (int64_t)B * H;
+  const auto tiles = [bh](int rows, int tile) { return (rows + tile - 1) / tile * bh; };
+  const auto split = [d](int dout) { return (d + dout - 1) / dout; };
+  const int dmax = d <= 64 ? 64 : d <= 128 ? 128 : 256;
+  if (d > 256)
+    return dkv ? BwdPlan{ROUTE_WIDE, 0, tiles(kv_len, W_DKV_BN), split(W_DKV_DOUT), W_NT, 0}
+               : BwdPlan{ROUTE_WIDE, 0, tiles(n, W_DQ_BM), split(W_DQ_DOUT), W_NT, 0};
+  if (is_bf16 && d <= 128) {
+    const int dout = dmax == 64 ? BwdWgmma<64>::DOUT : BwdWgmma<128>::DOUT;
+    const size_t smem = dmax == 64 ? (dkv ? BwdWgmma<64>::SMEM_DKV : BwdWgmma<64>::SMEM_DQ)
+                                   : (dkv ? BwdWgmma<128>::SMEM_DKV : BwdWgmma<128>::SMEM_DQ);
+    return {ROUTE_WGMMA, dmax, tiles(dkv ? kv_len : n, BW_ROWS), dkv ? split(dout) : 1, BW_NT,
+            smem};
+  }
+  if (is_bf16)
+    return dkv ? BwdPlan{ROUTE_BF16, 256, tiles(kv_len, DkvMma<256>::BN),
+                         split(DkvMma<256>::DOUT), MMA_NT, DkvMma<256>::SMEM}
+               : BwdPlan{ROUTE_BF16, 256, tiles(n, DqMma<256>::BM), 1, MMA_NT, DqMma<256>::SMEM};
+  return dmax == 64    ? tf32_plan<64>(dkv, n, kv_len, d, bh)
+         : dmax == 128 ? tf32_plan<128>(dkv, n, kv_len, d, bh)
+                       : tf32_plan<256>(dkv, n, kv_len, d, bh);
+}
+
 }  // namespace
+
+// The launch plan of ldm3d_flash_bwd_dq (dkv = 0) or ldm3d_flash_bwd_dkv
+// (dkv = 1) for a shape, as the launch reads it: out[0..4] = {route, grid_x,
+// grid_y, threads, dynamic shared-memory bytes}, route 0 for the bf16
+// mma.sync kernels, 1 the bf16 wgmma kernels, 2 the fp32 3xTF32 kernels, 3
+// the wide kernels. On route 1, out[5..48] are the tensor maps of q, k, v
+// and dO for the 12 strides (ordered as ldm3d_flash_bwd_dq's), 11 each:
+// dims (4), byte strides of dims 1-3 (3), box (4). Returns 0, or
+// cudaErrorInvalidValue for a shape the kernels do not take.
+extern "C" int ldm3d_flash_bwd_plan(int dkv, int is_bf16, int B, int H, int n, int kv_len, int d,
+                                    const int64_t* strides, int64_t* out) {
+  if (bad_shape(B, H, n, kv_len, d)) return (int)cudaErrorInvalidValue;
+  const BwdPlan p = bwd_plan(dkv != 0, is_bf16, B, H, n, kv_len, d);
+  out[0] = p.route, out[1] = p.grid_x, out[2] = p.grid_y, out[3] = p.threads, out[4] = p.smem;
+  if (p.route == ROUTE_WGMMA) {
+    ldm3d::MapFields f[4];
+    bwd_map_fields(f, dkv != 0, B, H, n, kv_len, d, to_strides(strides));
+    int64_t* o = out + 5;
+    for (const ldm3d::MapFields& m : f) o = ldm3d::put_map_fields(o, m);
+  }
+  return 0;
+}
 
 // q, dO: (B, n, H, d); k, v: (B, kv_len, H, d); each with unit stride on d,
 // and in bf16 with base pointers and strides on 16 bytes; d a multiple of 8,
-// any B * H. Routes: d <= 256 by dtype, the bf16 or the 3xTF32 tensor-core
-// kernel; d > 256 the wide kernel of either dtype.
+// any B * H. Routes (bwd_plan): bf16 d <= 128 flash_bwd_dq_bf16_wgmma_kernel,
+// 128 < d <= 256 flash_bwd_dq_bf16_mma_kernel; fp32 d <= 256
+// flash_bwd_dq_tf32x3_mma_kernel; d > 256 flash_bwd_dq_wide_kernel.
 // strides: 12 int64 element strides, (sb, sn, sh) of q, k, v, dO in that order.
 // lse, dvec: contiguous (B*H, n) fp32. dq: contiguous (B, n, H, d) in the input dtype.
 // Returns the launch's cudaError_t (0 on success); allocates nothing.
@@ -1431,22 +2046,30 @@ extern "C" int ldm3d_flash_bwd_dq(const void* q, const void* k, const void* v, c
   if (bad_shape(B, H, n, kv_len, d)) return (int)cudaErrorInvalidValue;
   const Strides st = to_strides(strides);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const BwdPlan p = bwd_plan(false, is_bf16, B, H, n, kv_len, d);
 #define LDM3D_DQ(R, D, ...) \
-  launch_dq_##R<D>(q, k, v, dout, lse, dvec, dq, B, H, n, kv_len, d, st, scale, __VA_ARGS__)
-  if (d > 256) return (int)(is_bf16 ? LDM3D_DQ(wide, bf16, s) : LDM3D_DQ(wide, float, s));
-  if (is_bf16) {
-    if (d <= 64) return (int)LDM3D_DQ(bf16, 64, s);
-    if (d <= 128) return (int)LDM3D_DQ(bf16, 128, s);
-    return (int)LDM3D_DQ(bf16, 256, s);
+  (int)launch_dq_##R<D>(p, q, k, v, dout, lse, dvec, dq, __VA_ARGS__)
+  switch (p.route) {
+    case ROUTE_WIDE:
+      return is_bf16 ? LDM3D_DQ(wide, bf16, H, n, kv_len, d, st, scale, s)
+                     : LDM3D_DQ(wide, float, H, n, kv_len, d, st, scale, s);
+    case ROUTE_WGMMA:
+      return p.dmax == 64 ? LDM3D_DQ(wgmma, 64, B, H, n, kv_len, d, st, scale, s)
+                          : LDM3D_DQ(wgmma, 128, B, H, n, kv_len, d, st, scale, s);
+    case ROUTE_BF16:
+      return LDM3D_DQ(bf16, 256, H, n, kv_len, d, st, scale, s);
+    default: {
+      const bool vec = rows_on_16_bytes(q, k, v, dout, strides);
+      if (p.dmax == 64) return LDM3D_DQ(tf32, 64, H, n, kv_len, d, st, scale, vec, s);
+      if (p.dmax == 128) return LDM3D_DQ(tf32, 128, H, n, kv_len, d, st, scale, vec, s);
+      return LDM3D_DQ(tf32, 256, H, n, kv_len, d, st, scale, vec, s);
+    }
   }
-  const bool vec = rows_on_16_bytes(q, k, v, dout, strides);
-  if (d <= 64) return (int)LDM3D_DQ(tf32, 64, vec, s);
-  if (d <= 128) return (int)LDM3D_DQ(tf32, 128, vec, s);
-  return (int)LDM3D_DQ(tf32, 256, vec, s);
 #undef LDM3D_DQ
 }
 
-// As ldm3d_flash_bwd_dq; dk, dv: contiguous (B, kv_len, H, d) in the input dtype.
+// As ldm3d_flash_bwd_dq; dk, dv: contiguous (B, kv_len, H, d) in the input
+// dtype. Routes as ldm3d_flash_bwd_dq's, with the dkv kernels.
 extern "C" int ldm3d_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                                    const void* lse, const void* dvec, void* dk, void* dv,
                                    int is_bf16, int B, int H, int n, int kv_len, int d,
@@ -1454,17 +2077,24 @@ extern "C" int ldm3d_flash_bwd_dkv(const void* q, const void* k, const void* v, 
   if (bad_shape(B, H, n, kv_len, d)) return (int)cudaErrorInvalidValue;
   const Strides st = to_strides(strides);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const BwdPlan p = bwd_plan(true, is_bf16, B, H, n, kv_len, d);
 #define LDM3D_DKV(R, D, ...) \
-  launch_dkv_##R<D>(q, k, v, dout, lse, dvec, dk, dv, B, H, n, kv_len, d, st, scale, __VA_ARGS__)
-  if (d > 256) return (int)(is_bf16 ? LDM3D_DKV(wide, bf16, s) : LDM3D_DKV(wide, float, s));
-  if (is_bf16) {
-    if (d <= 64) return (int)LDM3D_DKV(bf16, 64, s);
-    if (d <= 128) return (int)LDM3D_DKV(bf16, 128, s);
-    return (int)LDM3D_DKV(bf16, 256, s);
+  (int)launch_dkv_##R<D>(p, q, k, v, dout, lse, dvec, dk, dv, __VA_ARGS__)
+  switch (p.route) {
+    case ROUTE_WIDE:
+      return is_bf16 ? LDM3D_DKV(wide, bf16, H, n, kv_len, d, st, scale, s)
+                     : LDM3D_DKV(wide, float, H, n, kv_len, d, st, scale, s);
+    case ROUTE_WGMMA:
+      return p.dmax == 64 ? LDM3D_DKV(wgmma, 64, B, H, n, kv_len, d, st, scale, s)
+                          : LDM3D_DKV(wgmma, 128, B, H, n, kv_len, d, st, scale, s);
+    case ROUTE_BF16:
+      return LDM3D_DKV(bf16, 256, H, n, kv_len, d, st, scale, s);
+    default: {
+      const bool vec = rows_on_16_bytes(q, k, v, dout, strides);
+      if (p.dmax == 64) return LDM3D_DKV(tf32, 64, H, n, kv_len, d, st, scale, vec, s);
+      if (p.dmax == 128) return LDM3D_DKV(tf32, 128, H, n, kv_len, d, st, scale, vec, s);
+      return LDM3D_DKV(tf32, 256, H, n, kv_len, d, st, scale, vec, s);
+    }
   }
-  const bool vec = rows_on_16_bytes(q, k, v, dout, strides);
-  if (d <= 64) return (int)LDM3D_DKV(tf32, 64, vec, s);
-  if (d <= 128) return (int)LDM3D_DKV(tf32, 128, vec, s);
-  return (int)LDM3D_DKV(tf32, 256, vec, s);
 #undef LDM3D_DKV
 }

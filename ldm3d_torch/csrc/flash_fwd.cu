@@ -135,6 +135,7 @@
 
 #include "mma_sm90.cuh"
 #include "scalar_tiles.cuh"
+#include "tensor_map.cuh"
 
 namespace {
 
@@ -437,7 +438,7 @@ constexpr int WG_BM = 128;       // query rows a block: two consumer warpgroups 
 constexpr int WG_BN = 64;        // keys a K or V tile
 constexpr int WG_STAGES = 2;     // K/V tile pairs in the ring
 constexpr int WG_NT = 256;       // 2 warpgroups; thread 0 also issues the TMA loads
-constexpr int WG_BOX = 64;       // head dims a TMA box (128 bytes: the swizzle's row)
+constexpr int WG_BOX = ldm3d::TMA_BOX_DIMS;  // head dims a TMA box (128 bytes: the swizzle's row)
 constexpr int WG_NBOX = 4;       // boxes of a 256-dim row
 constexpr uint32_t WG_Q_BOX_BYTES = WG_BOX * WG_BM * 2;   // 16 KB
 constexpr uint32_t WG_KV_BOX_BYTES = WG_BOX * WG_BN * 2;  // 8 KB
@@ -680,80 +681,24 @@ __global__ void __launch_bounds__(WG_NT, 1) flash_fwd_bf16_wgmma_kernel(
   }
 }
 
-// cuTensorMapEncodeTiled, a driver call, through the runtime's entry-point
-// lookup (no link against libcuda).
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) p = nullptr;
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
-// The fields of the tensor map of a (B, rows, H, d) bf16 view with element
-// strides (sb, sn, sh) and unit stride on d: dims (d, rows, H, B), the byte
-// strides of dims 1-3, boxes of 64 dims x box_rows rows. A dim of size one
-// may have any stride; it is given a whole-16-byte one.
-struct MapFields {
-  cuuint64_t dims[4];
-  cuuint64_t strides[3];
-  cuuint32_t box[4];
-};
-
-MapFields bf16_map_fields(int B, int rows, int H, int d, int64_t sb, int64_t sn, int64_t sh,
-                          int box_rows) {
-  const auto r16 = [](int64_t x) { return (x + 15) / 16 * 16; };
-  int64_t bn = sn * 2, bhh = sh * 2, bb = sb * 2;
-  if (rows == 1) bn = r16(d * 2);
-  if (H == 1) bhh = r16(bn * rows);
-  if (B == 1) bb = r16(bhh * H);
-  return {{(cuuint64_t)d, (cuuint64_t)rows, (cuuint64_t)H, (cuuint64_t)B},
-          {(cuuint64_t)bn, (cuuint64_t)bhh, (cuuint64_t)bb},
-          {(cuuint32_t)WG_BOX, (cuuint32_t)box_rows, 1, 1}};
-}
-
 // The maps of q, k and v for the wgmma kernel (strides as ldm3d_flash_fwd's)
-void wgmma_map_fields(MapFields (&f)[3], int B, int H, int n, int kv_len, int d,
+void wgmma_map_fields(ldm3d::MapFields (&f)[3], int B, int H, int n, int kv_len, int d,
                       const int64_t* st) {
+  using ldm3d::bf16_map_fields;
   f[0] = bf16_map_fields(B, n, H, d, st[0], st[1], st[2], WG_BM);
   f[1] = bf16_map_fields(B, kv_len, H, d, st[3], st[4], st[5], WG_BN);
   f[2] = bf16_map_fields(B, kv_len, H, d, st[6], st[7], st[8], WG_BN);
-}
-
-// Encode `f` for the data at `ptr` in the 128-byte swizzle, zeros past every
-// bound. Returns false if the driver refuses the map.
-bool encode_bf16_map(CUtensorMap* map, const void* ptr, const MapFields& f) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint32_t estr[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), f.dims, f.strides,
-            f.box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 cudaError_t launch_bf16_wgmma(const FwdPlan& p, const void* q, const void* k, const void* v,
                               void* o, void* lse, int B, int H, int n, int kv_len, int d,
                               const int64_t* st, float scale, cudaStream_t stream) {
   static_assert(WG_SMEM <= MAX_SMEM, "tiles exceed the shared memory of a block");
-  MapFields f[3];
+  ldm3d::MapFields f[3];
   wgmma_map_fields(f, B, H, n, kv_len, d, st);
   CUtensorMap qm, km, vm;
-  if (!encode_bf16_map(&qm, q, f[0]) || !encode_bf16_map(&km, k, f[1]) ||
-      !encode_bf16_map(&vm, v, f[2]))
+  if (!ldm3d::encode_bf16_map(&qm, q, f[0]) || !ldm3d::encode_bf16_map(&km, k, f[1]) ||
+      !ldm3d::encode_bf16_map(&vm, v, f[2]))
     return cudaErrorInvalidValue;
   auto kernel = flash_fwd_bf16_wgmma_kernel;
   static std::atomic<unsigned long long> opted_in{0};
@@ -1204,14 +1149,10 @@ extern "C" int ldm3d_flash_fwd_plan(int is_bf16, int B, int H, int n, int kv_len
   const FwdPlan p = fwd_plan(is_bf16, B, H, n, d);
   out[0] = p.route, out[1] = p.grid_x, out[2] = p.grid_y, out[3] = p.threads, out[4] = p.smem;
   if (p.route == ROUTE_WGMMA) {
-    MapFields f[3];
+    ldm3d::MapFields f[3];
     wgmma_map_fields(f, B, H, n, kv_len, d, st);
     int64_t* o = out + 5;
-    for (const MapFields& m : f) {
-      for (int i = 0; i < 4; ++i) *o++ = (int64_t)m.dims[i];
-      for (int i = 0; i < 3; ++i) *o++ = (int64_t)m.strides[i];
-      for (int i = 0; i < 4; ++i) *o++ = (int64_t)m.box[i];
-    }
+    for (const ldm3d::MapFields& m : f) o = ldm3d::put_map_fields(o, m);
   }
   return 0;
 }

@@ -24,7 +24,7 @@ from pathlib import Path
 
 __all__ = ["BUILD_DIR", "CSRC_DIR", "SOURCES", "build_library", "build_libraries",
            "flash_fwd_library", "flash_bwd_library", "groupnorm_library", "conv3d_library",
-           "nvcc_path", "ptxas_report"]
+           "nvcc_path", "ptxas_report", "wgmma_serialized"]
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ldm3d_torch"
@@ -146,6 +146,24 @@ def ptxas_report(log: str) -> dict:
     return report
 
 
+_SERIALIZED = re.compile(r"wgmma\S*\s+instructions are serialized")
+_IN_FUNCTION = re.compile(r"function '([^']+)'")
+
+
+def wgmma_serialized(log: str) -> set:
+    """The kernels whose ``wgmma`` ``ptxas`` serializes, from ``nvcc -Xptxas
+    -v`` output (its C75xx "Potential Performance Loss: wgmma.mma_async
+    instructions are serialized ... in the function '...'" lines), by the
+    names :func:`ptxas_report` gives; ``None`` for such a line that names no
+    function."""
+    found = set()
+    for line in log.splitlines():
+        if _SERIALIZED.search(line):
+            m = _IN_FUNCTION.search(line)
+            found.add(_kernel_name(m.group(1)) if m else None)
+    return found
+
+
 def build_library(source: str) -> Path:
     """:func:`build_libraries` for one source."""
     return build_libraries([source])[0]
@@ -178,6 +196,8 @@ def flash_bwd_library() -> ctypes.CDLL:
     lib.ldm3d_flash_bwd_dkv.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                         _STRIDES, ctypes.c_float, _P]
     lib.ldm3d_flash_bwd_dkv.restype = ctypes.c_int
+    lib.ldm3d_flash_bwd_plan.argtypes = [_I, _I, _I, _I, _I, _I, _I, _STRIDES, _STRIDES]
+    lib.ldm3d_flash_bwd_plan.restype = ctypes.c_int
     return lib
 
 

@@ -22,12 +22,14 @@ Kernel notes. ``flash_fwd.cu`` replaces the TPU's ``_flash_kernel_mono`` and
 ``flash_bwd.cu`` replaces ``_flash_dq_kernel`` (``:122``) and
 ``_flash_dkv_kernel`` (``:150``). At the shapes that carry the models'
 attention time the work (4, 6 and 8 n·kv·d flops) is compute-bound on the
-H100. Up to head_dim 256 each kernel takes one route per dtype, except the
-bf16 forward, which takes two. bf16 runs FlashAttention-2 on the tensor
-cores (``mma.sync``, fp32 accumulators); above head_dim 128 the forward runs
-it on Hopper's warpgroup products (``wgmma``) over tiles that the Tensor
-Memory Accelerator (TMA) loads (:func:`flash_fwd_plan` gives each route's
-launch plan and that route's tensor maps). The forward rounds P to bf16
+H100. Up to head_dim 256 each kernel takes one route for fp32 and two for
+bf16. bf16 runs FlashAttention-2 on the tensor cores with fp32
+accumulators: the forward on ``mma.sync`` up to head_dim 128 and on Hopper's
+warpgroup products (``wgmma``) above it, over tiles that the Tensor Memory
+Accelerator (TMA) loads; the backward the other way round, on ``wgmma`` up
+to head_dim 128 and on ``mma.sync`` above it (:func:`flash_fwd_plan` and
+:func:`flash_bwd_plan` give each route's launch plan and the ``wgmma``
+routes' tensor maps). The forward rounds P to bf16
 before P·V; the backward splits P and dS into two
 bf16 parts (hi and the rounded remainder lo) and multiplies each, so that its
 gradients stay within one bf16 ulp of the largest |grad|. In fp32 the
@@ -60,11 +62,11 @@ import math
 import torch
 import torch.nn.functional as F
 
-__all__ = ["FWD_ROUTE_IDS", "FlashAttention", "attention_reference", "attention_bwd_reference",
-           "attention_bwd_dq_reference", "attention_bwd_dkv_reference", "attention_bwd_dvec",
-           "check_16_byte_rows", "flash_attention_fwd", "flash_fwd_plan", "fwd_route_id",
-           "flash_attention_bwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
-           "volumetric_attention"]
+__all__ = ["BWD_ROUTE_IDS", "FWD_ROUTE_IDS", "FlashAttention", "attention_reference",
+           "attention_bwd_reference", "attention_bwd_dq_reference", "attention_bwd_dkv_reference",
+           "attention_bwd_dvec", "bwd_route_id", "check_16_byte_rows", "flash_attention_fwd",
+           "flash_bwd_plan", "flash_fwd_plan", "fwd_route_id", "flash_attention_bwd",
+           "flash_attention_bwd_dq", "flash_attention_bwd_dkv", "volumetric_attention"]
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -190,6 +192,86 @@ def flash_fwd_plan(dtype: torch.dtype, b: int, n: int, h: int, d: int, kv_len: i
             for name, rows, st, box in (("q", n, strides[0], bm), ("k", kv_len, strides[1],
                                                                    _WG_KV_ROWS),
                                         ("v", kv_len, strides[2], _WG_KV_ROWS))}
+    return plan
+
+
+# The backward's routes (csrc/flash_bwd.cu), numbered as the route ids of
+# ``ldm3d_flash_bwd_plan``: bf16 at 128 < d <= 256 on mma.sync, bf16 up to
+# d = 128 on wgmma with TMA, fp32 up to 256 on 3xTF32 mma.sync, and either
+# dtype above 256 on the scalar wide kernels.
+BWD_ROUTE_IDS = ("bf16", "bf16_wgmma", "fp32", "wide")
+_BW_ROWS, _BW_TILE, _BW_STAGES = 128, 64, 4  # the wgmma route: resident, streamed rows; stages
+
+
+def bwd_route_id(dtype: torch.dtype, d: int) -> str:
+    """The backward's route (one of :data:`BWD_ROUTE_IDS`) for q of
+    ``dtype`` and head width ``d`` (a multiple of 8), the same for dQ and
+    dK/dV."""
+    if d > 256:
+        return "wide"
+    if dtype == torch.bfloat16:
+        return "bf16_wgmma" if d <= 128 else "bf16"
+    return "fp32"
+
+
+def _bwd_launch(kind: str, route: str, dmax: int) -> tuple[int, int, int, int]:
+    """(rows a block on grid.x, head dims a block on grid.y or 0 for all,
+    threads, dynamic shared-memory bytes) of a backward kernel: the
+    arithmetic of the tile structs of ``csrc/flash_bwd.cu``."""
+    if route == "wide":
+        return (64, 128, 256, 0) if kind == "dq" else (32, 64, 256, 0)
+    if route == "bf16_wgmma":
+        res, tile = dmax * 2 * _BW_ROWS, dmax * 2 * _BW_TILE  # bytes of a resident, streamed tile
+        tiles = 2 * res + 2 * _BW_STAGES * tile
+        bars = 8 * (1 + 2 * _BW_STAGES)
+        vec = 2 * 2 * 2 * _BW_TILE * 4 if kind == "dkv" else 0
+        return _BW_ROWS, 0 if kind == "dq" else 64, 256, tiles + vec + bars + 1024
+    if route == "bf16":  # DqMma<256>, DkvMma<256>: rows of 264 bf16
+        ld = 256 + 8
+        if kind == "dq":
+            return 128, 0, 256, (2 * 128 + 2 * 2 * 32) * ld * 2
+        return 128, 128, 256, 2 * 128 * ld * 2 + 2 * (2 * 32 * ld * 2 + 2 * 32 * 4)
+    warps = 4 if dmax > 128 else 8  # fp32: DqTf32, DkvTf32
+    if kind == "dq":
+        bn, lda, ldb = (16 if dmax > 128 else 32), dmax + 4, dmax + 8
+        return (16 * warps, 0, 32 * warps,
+                (16 * warps * (lda + ldb) + 2 * bn * (lda + ldb)) * 4)
+    bm, slots, ld = (32 if dmax <= 64 else 16), (2 if dmax > 128 else 3), dmax + 4
+    return (16 * warps, min(dmax, 128), 32 * warps,
+            (2 * 16 * warps * ld + slots * (2 * bm * ld + 2 * bm)) * 4)
+
+
+def flash_bwd_plan(kind: str, dtype: torch.dtype, b: int, n: int, h: int, d: int,
+                   kv_len: int | None = None, strides=None) -> dict:
+    """The launch plan of the backward's dQ (``kind="dq"``) or dK/dV
+    (``"dkv"``) kernel for q, dO (b, n, h, d) and k, v (b, kv_len, h, d), d a
+    multiple of 8: its ``route`` (one of :data:`BWD_ROUTE_IDS`), ``grid``
+    (row tiles of the output, dQ's queries or dK/dV's keys, of one (batch,
+    head) side by side on grid.x; blocks of head dims on grid.y), ``threads``,
+    ``smem_bytes`` and, on the wgmma route, the ``tensor_maps`` of q, k, v and
+    dO for element ``strides`` ((sb, sn, sh) each, contiguous if None): dQ's
+    q and dO in boxes of 128 rows and k, v of 64, dK/dV's the other way
+    round. The same arithmetic as ``ldm3d_flash_bwd_plan`` of the CUDA
+    library (the plan its launches read), which ``chip_smoke.py`` holds it
+    to on the card, tensor maps included."""
+    kv_len = n if kv_len is None else kv_len
+    route = bwd_route_id(dtype, d)
+    dmax = 64 if d <= 64 else 128 if d <= 128 else 256
+    rows, dout, threads, smem = _bwd_launch(kind, route, dmax)
+    out_rows = n if kind == "dq" else kv_len
+    plan = {"route": route, "grid": (-(-out_rows // rows) * b * h, -(-d // dout) if dout else 1),
+            "threads": threads, "smem_bytes": smem}
+    if route == "bf16_wgmma":
+        if strides is None:
+            strides = [(n * h * d, h * d, d)] + [(kv_len * h * d, h * d, d)] * 2 + [
+                (n * h * d, h * d, d)]
+        q_box, k_box = (_BW_ROWS, _BW_TILE) if kind == "dq" else (_BW_TILE, _BW_ROWS)
+        plan["tensor_maps"] = {
+            name: _tensor_map(rows_of, h, b, d, st, box)
+            for name, rows_of, st, box in (("q", n, strides[0], q_box),
+                                           ("k", kv_len, strides[1], k_box),
+                                           ("v", kv_len, strides[2], k_box),
+                                           ("dO", n, strides[3], q_box))}
     return plan
 
 
@@ -333,7 +415,9 @@ def _bwd_kernel_args(q, k, v, do, lse, dvec):
 def flash_attention_bwd_dq(q, k, v, do, lse, dvec, scale=None):
     """dQ of attention: the kernel ``ldm3d_flash_bwd_dq`` of ``csrc/flash_bwd.cu``
     on CUDA tensors, :func:`attention_bwd_dq_reference` on CPU tensors; ``scale``
-    as the forward's. ``flash_attention_bwd_dq.launches`` counts kernel launches."""
+    as the forward's. ``flash_attention_bwd_dq.launches`` counts kernel launches,
+    ``flash_attention_bwd_dq.route_launches`` the same launches by route (the
+    keys of :data:`BWD_ROUTE_IDS`)."""
     _check_bwd_inputs(q, k, v, do, lse, dvec)
     scale = _scale(q, scale)
     if q.device.type == "cpu":
@@ -358,17 +442,20 @@ def flash_attention_bwd_dq(q, k, v, do, lse, dvec, scale=None):
         raise RuntimeError(f"flash_bwd dQ kernel launch failed with cudaError {err} for "
                            f"q {tuple(q.shape)} k {tuple(k.shape)} {q.dtype}")
     flash_attention_bwd_dq.launches += 1
+    flash_attention_bwd_dq.route_launches[bwd_route_id(q.dtype, d)] += 1
     return dq
 
 
 flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dq.route_launches = dict.fromkeys(BWD_ROUTE_IDS, 0)
 
 
 def flash_attention_bwd_dkv(q, k, v, do, lse, dvec, scale=None):
     """(dK, dV) of attention: the kernel ``ldm3d_flash_bwd_dkv`` of
     ``csrc/flash_bwd.cu`` on CUDA tensors, :func:`attention_bwd_dkv_reference`
     on CPU tensors; ``scale`` as the forward's.
-    ``flash_attention_bwd_dkv.launches`` counts kernel launches."""
+    ``flash_attention_bwd_dkv.launches`` counts kernel launches and
+    ``flash_attention_bwd_dkv.route_launches`` the same by route."""
     _check_bwd_inputs(q, k, v, do, lse, dvec)
     scale = _scale(q, scale)
     if q.device.type == "cpu":
@@ -396,10 +483,12 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, dvec, scale=None):
         raise RuntimeError(f"flash_bwd dK/dV kernel launch failed with cudaError {err} for "
                            f"q {tuple(q.shape)} k {tuple(k.shape)} {q.dtype}")
     flash_attention_bwd_dkv.launches += 1
+    flash_attention_bwd_dkv.route_launches[bwd_route_id(q.dtype, d)] += 1
     return dk, dv
 
 
 flash_attention_bwd_dkv.launches = 0
+flash_attention_bwd_dkv.route_launches = dict.fromkeys(BWD_ROUTE_IDS, 0)
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, scale=None):

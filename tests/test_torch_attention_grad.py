@@ -134,7 +134,7 @@ MARGIN = 0.75           # the emulation stays this far inside it
 LOG2E = 1.4426950408889634
 
 
-def _bf16_bwd_emulation(q, k, v, do, lse, dvec, split=True):
+def _bf16_bwd_emulation(q, k, v, do, lse, dvec, split=True, rounded=True):
     """The arithmetic of ``flash_bwd_dq_bf16_mma_kernel`` and
     ``flash_bwd_dkv_bf16_mma_kernel`` in plain torch: bf16 q, k, v, dO;
     S = q k^T and dP = dO v^T in fp32 (products of bf16 values are exact in
@@ -142,7 +142,8 @@ def _bf16_bwd_emulation(q, k, v, do, lse, dvec, split=True):
     log2(e) folded into one fp32 factor; dS = P * (dP - D); P and dS split
     into hi = bf16(x) and lo = bf16(x - hi) (with ``split=False`` only hi,
     one rounding), each part multiplied in fp32; dQ and dK times the scale
-    and every output rounded to bf16 once. Returns ``(dq, dk, dv)``."""
+    and every output rounded to bf16 once (with ``rounded=False`` left in
+    fp32). Returns ``(dq, dk, dv)``."""
     b, n, h, d = q.shape
     scale = torch.tensor(1.0 / math.sqrt(d), dtype=torch.float32)
     c = scale * torch.tensor(LOG2E, dtype=torch.float32)
@@ -158,7 +159,8 @@ def _bf16_bwd_emulation(q, k, v, do, lse, dvec, split=True):
     dq = sum(a @ kf for a in parts(ds)) * scale
     dk = sum(a.transpose(-1, -2) @ qf for a in parts(ds)) * scale
     dv = sum(a.transpose(-1, -2) @ of for a in parts(p))
-    return tuple(x.transpose(1, 2).to(torch.bfloat16) for x in (dq, dk, dv))
+    out_dtype = torch.bfloat16 if rounded else torch.float32
+    return tuple(x.transpose(1, 2).to(out_dtype) for x in (dq, dk, dv))
 
 
 def _bf16_case(shape, seed):
@@ -205,6 +207,57 @@ def test_single_rounding_would_not_keep_the_margin():
     shape, seed = (1, 64, 1, 256), 1
     assert _emulated_shares(shape, seed, split=False)[2] > MARGIN
     assert max(_emulated_shares(shape, seed)) <= MARGIN
+
+
+def _bf16_bwd_stepped(q, k, v, do, lse, dvec, rounded=True):
+    """``_bf16_bwd_emulation``'s arithmetic in the order of the wgmma
+    kernels (``flash_bwd_{dq,dkv}_bf16_wgmma_kernel``): dQ, dK and dV summed
+    into one fp32 accumulator k-step by k-step, 16 keys (dQ) or 16 queries
+    (dK/dV) a step, the hi part's product before the lo part's, each step's
+    product rounded to fp32 once. Returns ``(dq, dk, dv)`` in bf16 (fp32 with
+    ``rounded=False``)."""
+    b, n, h, d = q.shape
+    kv = k.shape[1]
+    scale = torch.tensor(1.0 / math.sqrt(d), dtype=torch.float32)
+    c = scale * torch.tensor(LOG2E, dtype=torch.float32)
+    qf, kf, vf, of = (t.float().transpose(1, 2) for t in (q, k, v, do))
+    nl = -(lse.reshape(b, h, n, 1) * torch.tensor(LOG2E, dtype=torch.float32))
+    p = torch.exp2(qf @ kf.transpose(-1, -2) * c + nl)
+    ds = p * (of @ vf.transpose(-1, -2) - dvec.reshape(b, h, n, 1))
+
+    def stepped(a, bm, steps):
+        hi = a.to(torch.bfloat16).float()
+        lo = (a - hi).to(torch.bfloat16).float()
+        acc = torch.zeros((*a.shape[:-1], bm.shape[-1]), dtype=torch.float32)
+        for s0 in range(0, steps, 16):
+            for part in (hi, lo):
+                acc = acc + part[..., s0:s0 + 16] @ bm[..., s0:s0 + 16, :]
+        return acc
+
+    dq = stepped(ds, kf, kv) * scale
+    dk = stepped(ds.transpose(-1, -2), qf, n) * scale
+    dv = stepped(p.transpose(-1, -2), of, n)
+    out_dtype = torch.bfloat16 if rounded else torch.float32
+    return tuple(x.transpose(1, 2).to(out_dtype) for x in (dq, dk, dv))
+
+
+@pytest.mark.parametrize("shape,seed", [((20, 125, 16, 64), 0), ((2, 1000, 8, 64), 0),
+                                        ((2, 100, 3, 40), 1)])
+def test_bf16_bwd_wgmma_order_keeps_the_emulation_within_margin(shape, seed):
+    """The wgmma kernels sum the same hi and lo products as the mma.sync
+    pair, in the same order for each output element (hi before lo, k-step
+    by k-step): their order keeps dq, dk and dv within 0.75 of the card's
+    limit, and before the final bf16 rounding their fp32 sums are
+    ``_bf16_bwd_emulation``'s to 1e-5 of the largest |grad| (the order of
+    fp32 additions only)."""
+    q, k, v, g, out, lse, dvec = _bf16_case(shape, seed)
+    refs = tattn.attention_bwd_reference(q, k, v, out, lse, g)
+    got = _bf16_bwd_stepped(q, k, v, g, lse, dvec)
+    for name, share in zip(("dq", "dk", "dv"), _shares_of_limit(got, refs)):
+        assert share <= MARGIN, (name, share)
+    for name, a, b in zip(("dq", "dk", "dv"), _bf16_bwd_stepped(q, k, v, g, lse, dvec, False),
+                          _bf16_bwd_emulation(q, k, v, g, lse, dvec, rounded=False)):
+        assert (a - b).abs().max() <= 1e-5 * b.abs().max(), name
 
 
 @pytest.mark.parametrize("shape,kv_len,long", [

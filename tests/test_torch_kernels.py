@@ -468,6 +468,227 @@ def test_wgmma_forward_feeds_the_bf16_backward_on_card(d):
         assert err <= grad_tol(torch.bfloat16, want.float().abs().max().item())
 
 
+# --- the bf16 backward at d <= 128: wgmma on tiles that TMA loads
+
+# (b, n, h, d[, kv_len]): every d <= 128 shape of chip_smoke.py's kernel_bwd
+# phase (the training shapes, ragged d = 40, d = 8, 72, n = 1, kv_len != n)
+# and d = 128 beside kv_len != n at d = 96
+WGMMA_BWD_CASES = sorted({s for s in chip_smoke.BWD_SHAPES + chip_smoke.BWD_EDGE_SHAPES
+                          if s[3] <= 128} | {(2, 100, 2, 128), (1, 300, 3, 96, 70)})
+
+
+def _bwd_strides(shape):
+    """(sb, sn, sh) of q, k, v as views of fused projections (as
+    :func:`_fused_strides`) and of a contiguous dO."""
+    b, n, h, d = shape[:4]
+    return _fused_strides(shape) + [(n * h * d, h * d, d)]
+
+
+@pytest.mark.parametrize("kind", ["dq", "dkv"])
+@pytest.mark.parametrize("shape", WGMMA_BWD_CASES, ids=lambda s: "x".join(map(str, s)))
+def test_wgmma_bwd_plan_covers_each_output_once_with_legal_tensor_maps(shape, kind):
+    """The bf16 backward at d <= 128: dQ's grid (query tiles of 128 rows of
+    one (batch, head) side by side) computes every query row of every
+    (batch, head) exactly once, and dK/dV's grid every key x head-dim
+    column exactly once (key tiles of 128 on grid.x, blocks of 64 head dims
+    on grid.y); shared memory fits the
+    card; and each of the q, k, v, dO tensor maps is one TMA can take in the
+    128-byte swizzle (as the forward's), with boxes of 128 resident rows
+    (dQ's q and dO, dK/dV's k and v) or 64 streamed ones."""
+    b, n, h, d = shape[:4]
+    kv_len = shape[4] if len(shape) > 4 else n
+    d8 = -(-d // 8) * 8
+    plan = tattn.flash_bwd_plan(kind, torch.bfloat16, b, n, h, d8, kv_len, _bwd_strides(shape))
+    assert plan["route"] == "bf16_wgmma" and plan["threads"] == 256
+    assert plan["smem_bytes"] <= SMEM_LIMIT
+    rows = n if kind == "dq" else kv_len
+    dout = d8 if kind == "dq" else 64
+    tiles = math.ceil(rows / 128)
+    assert plan["grid"][0] == b * h * tiles
+    cover = np.zeros((b * h, rows, d8), dtype=np.int64)
+    for bx in range(plan["grid"][0]):
+        bh, tile = divmod(bx, tiles)
+        for by in range(plan["grid"][1]):
+            cover[bh, tile * 128:tile * 128 + 128, by * dout:by * dout + dout] += 1
+    assert (cover == 1).all()
+    maps = plan["tensor_maps"]
+    res, streamed = (("q", "dO"), ("k", "v")) if kind == "dq" else (("k", "v"), ("q", "dO"))
+    for name, m in maps.items():
+        rows_of = n if name in ("q", "dO") else kv_len
+        assert m["dims"] == (d8, rows_of, h, b)
+        assert m["box"] == (64, 128 if name in res else 64, 1, 1), (name, m["box"])
+        inner = m["box"][0] * m["element_bytes"]
+        assert inner <= m["swizzle_bytes"] == 128 and inner % 16 == 0
+        assert all(1 <= x <= 256 for x in m["box"])
+        assert all(st % 16 == 0 and 0 < st < 2**40 for st in m["strides_bytes"])
+        assert all(x < 2**32 for x in m["dims"])
+    assert set(maps) == set(res + streamed)
+
+
+@pytest.mark.parametrize("dtype,d,route", [(torch.bfloat16, 8, "bf16_wgmma"),
+                                           (torch.bfloat16, 128, "bf16_wgmma"),
+                                           (torch.bfloat16, 136, "bf16"),
+                                           (torch.bfloat16, 256, "bf16"),
+                                           (torch.float32, 64, "fp32"),
+                                           (torch.float32, 264, "wide"),
+                                           (torch.bfloat16, 320, "wide")])
+def test_bwd_routes_by_dtype_and_head_width(dtype, d, route):
+    """Both backward kernels take one route per dtype and head width: bf16
+    on wgmma up to d = 128 and on mma.sync up to 256, fp32 on 3xTF32 up to
+    256, the wide kernels above; the plan names the same route."""
+    assert tattn.bwd_route_id(dtype, d) == route
+    for kind in ("dq", "dkv"):
+        assert tattn.flash_bwd_plan(kind, dtype, 2, 100, 3, d)["route"] == route
+
+
+def _sw128(addr):
+    """The 128-byte swizzle: bits 4-6 of a shared-memory address (its
+    16-byte piece of a 128-byte row) XOR-ed with bits 7-9 (the row mod 8)."""
+    return addr ^ (((addr >> 7) & 7) << 4)
+
+
+def _tma_tile_byte(row, dim, box_bytes):
+    """Where TMA puts bf16 element (row, dim) of a tile loaded as boxes of
+    64 dims (128-byte rows, box_bytes apart) in the 128-byte swizzle, from a
+    1024-byte-aligned base."""
+    return _sw128((dim // 64) * box_bytes + row * 128 + (dim % 64) * 2)
+
+
+def _mn_major_byte(start, lbo, sbo, k, n):
+    """The byte a wgmma descriptor in the 128-byte swizzle reads for element
+    (k, n) of an MN-major (transposed) bf16 B operand: the canonical layout
+    ((8, 8, N / 64), (8, K / 8)) : ((2 bytes, 16 bytes, LBO), (128 bytes,
+    SBO)) from the descriptor's start, then swizzled (PTX ISA, wgmma shared
+    memory matrix layouts; mma_sm90.cuh wgmma_desc_sw128)."""
+    return _sw128(start + (n % 64) * 2 + (n // 64) * lbo + (k % 8) * 128 + (k // 8) * sbo)
+
+
+def _k_major_byte(start, sbo, mn, k):
+    """The same for element (mn, k < 16) of a K-major operand, k contiguous
+    in a 128-byte row: ((8, M / 8), 16) : ((128 bytes, SBO), 2 bytes)."""
+    return _sw128(start + (mn % 8) * 128 + (mn // 8) * sbo + k * 2)
+
+
+@pytest.mark.parametrize("n_dims", [64, 128])
+def test_tnspb_descriptor_reads_each_b_element_from_its_tma_byte(n_dims):
+    """The backward's transposed B operands (K of dS K; dO and Q of P^T dO
+    and dS^T Q) are streamed tiles of 64 rows x n_dims dims that TMA wrote in
+    boxes of 64 dims: k-step kk's descriptor (tnspb_desc: start at row
+    16 kk, LBO one 8 KB box to the next, SBO one 8-row group, 1024 bytes)
+    reads B[k][n] = tile[16 kk + k][n] for every k < 16 and n < n_dims. With
+    LBO and SBO swapped it reads other bytes."""
+    box = 64 * 128
+    for lbo, sbo, right in ((box, 1024, True), (1024, box, False)):
+        wrong = 0
+        for kk in range(4):
+            start = kk * 16 * 128
+            for k in range(16):
+                for n in range(n_dims):
+                    got = _mn_major_byte(start, lbo, sbo, k, n)
+                    wrong += got != _tma_tile_byte(16 * kk + k, n, box)
+        assert (wrong == 0) == right, (lbo, sbo, wrong)
+
+
+@pytest.mark.parametrize("rows,dims", [(64, 64), (64, 128), (128, 128)])
+def test_k_major_descriptor_reads_each_element_from_its_tma_byte(rows, dims):
+    """S = Q K^T, dP = dO V^T and their transposes take both operands
+    K-major: the descriptor of k-step kk of a warpgroup's 64 rows starts at
+    box kk / 4, 32 bytes a k-step inside the swizzled row (SBO 1024), and
+    reads element (mn, k) = tile[row0 + mn][16 kk + k] for both warpgroups'
+    rows of a resident tile of 128 rows and a streamed tile of 64."""
+    box = rows * 128
+    for row0 in range(0, rows, 64):
+        for kk in range(dims // 16):
+            start = (kk // 4) * box + row0 * 128 + (kk % 4) * 32
+            for mn in range(64):
+                for k in range(16):
+                    assert _k_major_byte(start, 1024, mn, k) == _tma_tile_byte(
+                        row0 + mn, 16 * kk + k, box)
+
+
+def test_wgmma_bwd_accumulators_split_hi_lo_are_the_transposed_a_operands():
+    """dK/dV: the accumulators of S^T and dP^T (64 keys x 64 queries of a
+    warpgroup) packed by pack_split_a are the A registers of P^T dO and
+    dS^T Q: k-step kk's register 2 hf + rr holds accumulators 4c + 2rr and
+    4c + 2rr + 1 of n-tile c = 2kk + hf, hi and lo each. Through the two
+    fragment layouts every packed value lands at its own (key, query), hi
+    is the value rounded to bf16, hi + lo carries it to about 2^-16 of
+    itself; and accumulator e of a thread is query 8 (e / 4) + 2t + e % 2,
+    the column whose LSE and D the kernel reads, at key g + 8 ((e / 2) % 2)."""
+    rng = np.random.default_rng(1)
+    st = rng.standard_normal((64, 64)).astype(np.float32) * 3.0
+    hi = np.full((64, 64), np.nan, dtype=np.float32)
+    lo = np.full((64, 64), np.nan, dtype=np.float32)
+
+    def split(x):
+        h = torch.tensor(x).to(torch.bfloat16).float()
+        return h.item(), (torch.tensor(x) - h).to(torch.bfloat16).float().item()
+
+    for warp in range(4):
+        for lane in range(32):
+            g, t = divmod(lane, 4)
+            regs = [st[_wgmma_acc_pos(warp, lane, e)] for e in range(32)]
+            for e in range(32):
+                assert _wgmma_acc_pos(warp, lane, e) == (16 * warp + g + 8 * (e // 2 % 2),
+                                                         8 * (e // 4) + 2 * t + e % 2)
+            for kk in range(4):
+                for hf in range(2):
+                    for rr in range(2):
+                        c = 2 * kk + hf
+                        for half in range(2):
+                            key, k = _wgmma_a_pos(warp, lane, 2 * hf + rr, half)
+                            hi[key, 16 * kk + k], lo[key, 16 * kk + k] = split(
+                                regs[4 * c + 2 * rr + half])
+    assert np.array_equal(hi, torch.from_numpy(st).to(torch.bfloat16).float().numpy())
+    assert np.abs(hi + lo - st).max() <= 2.0**-16 * np.abs(st).max()
+
+
+def test_wgmma_serialized_names_each_kernel():
+    """ptxas's warnings that it serialized a kernel's wgmma (C75xx), by the
+    kernel's name; one that names no function gives None; other lines give
+    nothing."""
+    from ldm3d_torch.ops._kernels import wgmma_serialized
+
+    log = (
+        "ptxas info    : (C7515) Potential Performance Loss: wgmma.mma_async instructions are "
+        "serialized due to the presence of Extern calls in the function "
+        "'_ZN12_GLOBAL__N_130flash_bwd_dq_bf16_wgmma_kernelILi64EEEv14CUtensorMap_stS1_S1_S1_"
+        "PKfS3_P13__nv_bfloat16iiiiff'\n"
+        "ptxas warning : (C7520) Potential Performance Loss: wgmma.mma_async instructions are "
+        "serialized due to non wgmma instructions defining accumulator registers\n"
+        "ptxas info    : Used 168 registers, used 1 barriers\n")
+    assert wgmma_serialized(log) == {"flash_bwd_dq_bf16_wgmma_kernel<64>", None}
+    assert wgmma_serialized("ptxas info    : Used 168 registers\n") == set()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", WGMMA_BWD_CASES, ids=lambda s: "x".join(map(str, s)))
+def test_wgmma_bwd_plan_is_the_cuda_libraries_plan_on_card(shape):
+    """ldm3d_flash_bwd_plan, the plan the backward's launches read, equals
+    flash_bwd_plan for dQ and dK/dV, tensor maps included."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel library is built there")
+    import ctypes
+
+    from ldm3d_torch.ops._kernels import flash_bwd_library
+
+    b, n, h, d = shape[:4]
+    kv_len = shape[4] if len(shape) > 4 else n
+    d8 = -(-d // 8) * 8
+    strides = _bwd_strides(shape)
+    for kind in ("dq", "dkv"):
+        out = (ctypes.c_int64 * 49)()
+        assert flash_bwd_library().ldm3d_flash_bwd_plan(
+            int(kind == "dkv"), 1, b, h, n, kv_len, d8,
+            (ctypes.c_int64 * 12)(*(x for st in strides for x in st)), out) == 0
+        py = tattn.flash_bwd_plan(kind, torch.bfloat16, b, n, h, d8, kv_len, strides)
+        assert [tattn.BWD_ROUTE_IDS[out[0]], (out[1], out[2]), out[3], out[4]] == [
+            py["route"], py["grid"], py["threads"], py["smem_bytes"]]
+        assert [tuple(out[5 + 11 * i:16 + 11 * i]) for i in range(4)] == [
+            (*m["dims"], *m["strides_bytes"], *m["box"])
+            for m in (py["tensor_maps"][x] for x in ("q", "k", "v", "dO"))]
+
+
 # the shapes of chip_smoke.py's kernel phase: the flagship's attention at 80^3
 # and 96^3, batch 1 and 2, a ragged odd case, the training shapes, and the
 # edge shapes (every head-width instantiation, ragged token counts, kv != n)
@@ -693,18 +914,27 @@ BWD_CARD_CASES = [(2, 100, 3, 40), (2, 125, 4, 64), (1, 300, 1, 256), (2, 63, 3,
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shape", BWD_CARD_CASES)
 def test_flash_bwd_kernels_match_plain_on_card(dtype, shape):
+    """Each dtype's backward route (bf16 on wgmma up to d = 128, on mma.sync
+    above; fp32 on 3xTF32) against the plain version: one launch of each
+    kernel on its route (the wrappers' route counts), every gradient within
+    its limit, and the same bits on a second run."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
     dt = getattr(torch, dtype)
     q, k, v, out, lse, do = _attn_case(shape, dt, seed=shape[1])
-    before = (tattn.flash_attention_bwd_dq.launches, tattn.flash_attention_bwd_dkv.launches)
+    route = tattn.bwd_route_id(dt, -(-shape[3] // 8) * 8)
+    assert (route == "bf16_wgmma") == (dt == torch.bfloat16 and shape[3] <= 128)
+    wrappers = (tattn.flash_attention_bwd_dq, tattn.flash_attention_bwd_dkv)
+    before = [(fn.launches, fn.route_launches[route]) for fn in wrappers]
     grads = tattn.flash_attention_bwd(q, k, v, out, lse, do)
+    again = tattn.flash_attention_bwd(q, k, v, out, lse, do)
     torch.cuda.synchronize()
-    assert (tattn.flash_attention_bwd_dq.launches,
-            tattn.flash_attention_bwd_dkv.launches) == (before[0] + 1, before[1] + 1)
+    assert [(fn.launches, fn.route_launches[route]) for fn in wrappers] == [
+        (x + 2, y + 2) for x, y in before]
     refs = tattn.attention_bwd_reference(q, k, v, out, lse, do)
-    for name, got, want in zip(("dq", "dk", "dv"), grads, refs):
+    for name, got, repeat, want in zip(("dq", "dk", "dv"), grads, again, refs):
+        assert torch.equal(got, repeat), name
         assert got.dtype == dt and got.shape == want.shape
         ref_max = want.float().abs().max().item()
         err = (got.float() - want.float()).abs().max().item()
@@ -785,10 +1015,11 @@ def test_flash_bwd_raises_on_misaligned_bf16_views_and_fp32_takes_them():
 @pytest.mark.cuda
 def test_flash_bwd_routes_by_dtype_and_counts_exact_launches_on_card():
     """One backward through autograd launches exactly one dQ and one dK/dV
-    kernel: the bf16 tensor-core kernels in bf16 and the 3xTF32 tensor-core
-    kernels in fp32 (no scalar kernel), by the kernels' names in the
-    profiler's trace. A head_dim that is not a multiple of 8 runs
-    zero-padded, one launch of each."""
+    kernel: at d = 64 the bf16 wgmma kernels in bf16 (not the mma.sync
+    pair) and the 3xTF32 tensor-core kernels in fp32 (no scalar kernel), by
+    the kernels' names in the profiler's trace and by the wrappers' route
+    counts. A head_dim that is not a multiple of 8 runs zero-padded, one
+    launch of each."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     gen = torch.Generator(device="cuda").manual_seed(4)
@@ -802,17 +1033,19 @@ def test_flash_bwd_routes_by_dtype_and_counts_exact_launches_on_card():
 
         step()
         torch.cuda.synchronize()
-        before = (tattn.flash_attention_bwd_dq.launches, tattn.flash_attention_bwd_dkv.launches)
+        route = "bf16_wgmma" if dtype == torch.bfloat16 else "fp32"
+        wrappers = (tattn.flash_attention_bwd_dq, tattn.flash_attention_bwd_dkv)
+        before = [(fn.launches, fn.route_launches[route]) for fn in wrappers]
         step()
         torch.cuda.synchronize()
-        assert (tattn.flash_attention_bwd_dq.launches,
-                tattn.flash_attention_bwd_dkv.launches) == (before[0] + 1, before[1] + 1)
+        assert [(fn.launches, fn.route_launches[route]) for fn in wrappers] == [
+            (x + 1, y + 1) for x, y in before]
         names[dtype] = _kernel_names(step, "flash_bwd", 2)
         assert all(n == 1 for n in names[dtype].values()), names[dtype]
     for kind in ("dq", "dkv"):
-        assert any(f"flash_bwd_{kind}_bf16_mma_kernel" in x for x in names[torch.bfloat16])
+        assert any(f"flash_bwd_{kind}_bf16_wgmma_kernel" in x for x in names[torch.bfloat16])
         assert any(f"flash_bwd_{kind}_tf32x3_mma_kernel" in x for x in names[torch.float32])
-    assert not any("tf32" in x for x in names[torch.bfloat16])
+    assert not any("tf32" in x or "bf16_mma_kernel" in x for x in names[torch.bfloat16])
     assert not any("bf16" in x or "fp32_kernel" in x for x in names[torch.float32])
     odd = torch.randn((1, 16, 2, 12), device="cuda", dtype=torch.bfloat16)
     before = (tattn.flash_attention_bwd_dq.launches, tattn.flash_attention_bwd_dkv.launches)
