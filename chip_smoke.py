@@ -4,8 +4,9 @@
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 CUDA device, ``nvcc`` and the port's sources; it exits non-zero, without a
 result line, when any of them is missing or any phase fails. ``--phases
-kernel,kernel_conv`` (any of kernel, kernel_bwd, kernel_c2, kernel_conv) runs
-only those kernel phases after device and build, and prints no result line.
+kernel,kernel_conv`` (any of kernel, kernel_bwd, kernel_c2, kernel_conv,
+train_ae, train_ae_fp32, stage1_card_vs_cpu) runs only those phases after
+device and build, and prints no result line.
 Phases, each printing JSON lines:
 
 1. device: the card's name and power limit (``nvidia-smi``);
@@ -21,7 +22,8 @@ Phases, each printing JSON lines:
    version on the card, at the attention shapes of the flagship model
    (``config_train_32g.json``) at 80^3 and 96^3 and at the edge shapes of
    the ``cuda`` tests (every head width instantiation, ragged token counts,
-   kv_len != n) and at its training shapes (batch 20), in bf16 (the bf16
+   kv_len != n), at its training shapes (batch 20) and at the stage-1
+   patch's (1, 4096, 1, 256), in bf16 (the bf16
    mma.sync route up to d = 128, the wgmma route on TMA-loaded tiles at
    128 < d <= 256) and fp32 (the 3xTF32 tensor-core route), and at
    the head widths and head counts the kernels once refused (d = 36, 320,
@@ -34,8 +36,9 @@ Phases, each printing JSON lines:
    wgmma route replaced (``recorded_earlier_ms``, EARLIER_FWD_MS: a recorded
    figure, not measured in this run);
 4. kernel_bwd: the flash-attention backward kernels (dQ, dK/dV) against
-   their plain versions, at the training shapes, a ragged case and a d = 256
-   case and at the edge shapes of the ``cuda`` tests (every head width
+   their plain versions, at the training shapes, a ragged case, the d = 256
+   cases (1, 8000, 1, 256) and stage 1's (1, 4096, 1, 256) and at the edge
+   shapes of the ``cuda`` tests (every head width
    instantiation, ragged token counts, kv_len != n, the training shapes at
    batch 2), in bf16 (the wgmma route on TMA-loaded tiles up to d = 128,
    the mma.sync route above) and fp32 (the 3xTF32 tensor-core route), and
@@ -69,6 +72,21 @@ Phases, each printing JSON lines:
 6b. main path, fp32 training: the same run without ``--amp`` (the CLI's
    default): fp32 throughout, so the attention backward takes the 3xTF32
    route; the same checks and launch counts, and one step profiled;
+6c. main path, stage-1 training: ``ldm3d_torch.cli.train_autoencoder.main``
+   with ``--amp --no-images`` on the full-width ``config_train_32g.json``
+   autoencoder, the CLI's discriminator (3 layers, 32 channels) and LPIPS,
+   at the preset's batch 1 and 64^3 crop of synthetic 80^3 pairs, through a
+   copy of the preset with warmup_epochs 0, val_interval 1 and 2 epochs (a
+   warm-up epoch of generator steps, an adversarial epoch of generator and
+   discriminator steps, each validated): finite losses, the exact launches
+   by route (a step's 4 attention forwards on the wgmma route, 4 dQ and 4
+   dK/dV on the bf16 mma.sync route at d = 256, the GroupNorm sums of the
+   VAE's GroupNorms and of the discriminator's instance norms), the
+   ``autoencoder_best.pt`` it wrote loaded through ``load_frozen_autoencoder``,
+   the resumable ``last``; then one adversarial step profiled, with the
+   ops' input shapes, which file LPIPS's 2D convolutions apart;
+6d. main path, fp32 stage-1 training: the same without ``--amp``: every
+   attention launch on the 3xTF32 route;
 7. kernel_gn: the GroupNorm voxel-sums kernels (forward and backward sums)
    against their plain versions at every input the main-path runs gave
    them: the wrappers record each launch's (shape, dtype, strides of x and
@@ -95,17 +113,20 @@ Phases, each printing JSON lines:
    the scalar kernel it replaced (``recorded_earlier_ms``, EARLIER_CONV_MS: a
    recorded figure, not measured in this run), its launch plan held to
    ``conv3d_plan``'s; the untargeted shapes raise on the card too;
-10. card against CPU: the ``config_tiny_cpu.json`` sample (as before) and
-   one ``config_tiny_cpu.json`` train step, same weights and draws on the
-   card (kernels) and on the CPU (plain), fp32 with TF32 off.
+10. card against CPU: the ``config_tiny_cpu.json`` sample (as before), one
+   ``config_tiny_cpu.json`` train step, and one adversarial stage-1 step (G
+   and D, the CLI's discriminator, LPIPS), same weights and draws on the
+   card (kernels) and on the CPU (plain), fp32 with TF32 off; the train
+   steps hold their losses, their gradients and the updated params.
 
 The GroupNorm kernel phase (7) runs after the serving path, and replays the
-inputs of all four main-path runs.
+inputs of all six main-path runs (the discriminator's instance norms, g =
+C, among them).
 
 Precision: the kernel phases (3, 4, 9, 10) run with both ``allow_tf32``
 flags False, so that the plain versions, SDPA and cuDNN compute in full
 fp32, and restore the flags after them. Before each main path's entry point
-(the inference and training CLIs' ``main``, ``ModelServer.load_model``) the
+(the inference and both training CLIs' ``main``, ``ModelServer.load_model``) the
 script sets both flags True, and each main-path line records them as the
 entry point left them: every entry point must pin both to False (full fp32).
 
@@ -168,10 +189,12 @@ def grad_tol(dtype: str, ref_max: float) -> float:
 PEAK_FLOPS = {"float32": 495e12 / 3, "bfloat16": 989e12}
 HBM_BYTES_PER_S = 3.35e12
 # (B, n, h, d): UNet level 1 and 2 and VAE level 2 at 80^3 (the CLI's patch)
-# and at 96^3 (BASELINE.json's size); a batch-2 case; a ragged odd case
+# and at 96^3 (BASELINE.json's size); a batch-2 case; a ragged odd case; the
+# VAE's level 2 at the stage-1 training patch (64^3)
 MAIN_SHAPES = [(1, 1000, 8, 64), (1, 125, 16, 64), (1, 8000, 1, 256)]
 SHAPES = MAIN_SHAPES + [(1, 1728, 8, 64), (1, 216, 16, 64), (1, 13824, 1, 256),
-                        (2, 1000, 8, 64), (2, 125, 16, 64), (2, 8000, 1, 256), (2, 100, 3, 40)]
+                        (2, 1000, 8, 64), (2, 125, 16, 64), (2, 8000, 1, 256), (2, 100, 3, 40),
+                        (1, 4096, 1, 256)]
 # launches of each MAIN_SHAPES entry in one flagship sample (batch 1, DDIM-50):
 # 5 UNet level-1 and 6 level-2 attentions per step, 2 in the encoder, 2 in the decoder
 LAUNCHES_PER_SAMPLE = {MAIN_SHAPES[0]: 250, MAIN_SHAPES[1]: 300, MAIN_SHAPES[2]: 4}
@@ -229,7 +252,19 @@ TRAIN_SHAPES = [(20, 1000, 8, 64), (20, 125, 16, 64), (20, 8000, 1, 256)]
 # also runs 2 VAE encodes x 2 encoder attentions
 TRAIN_FWD_PER_STEP = {TRAIN_SHAPES[0]: 5, TRAIN_SHAPES[1]: 6, TRAIN_SHAPES[2]: 4}
 TRAIN_BWD_PER_STEP = {TRAIN_SHAPES[0]: 5, TRAIN_SHAPES[1]: 6}
-BWD_SHAPES = TRAIN_SHAPES[:2] + [(2, 100, 3, 40), (1, 8000, 1, 256)]
+# Stage-1 main path: config_train_32g.json's autoencoder_train (batch 1, a
+# 64^3 random crop) on synthetic 80^3 pairs, through a copy of the preset
+# with warmup_epochs 0, val_interval 1 and 2 epochs: epoch 0 runs the
+# warm-up generator step, epoch 1 the adversarial generator and
+# discriminator steps, each epoch ends with one validation batch (80^3,
+# the 1.5x-rounded crop clamped to the volume). 6 pairs: 6 steps an epoch.
+AE_PAIRS = 6
+AE_PATCH = (64, 64, 64)
+AE_VOLUME = (80, 80, 80)
+# the VAE's d = 256 attention at the 64^3 training patch (level 2: 16^3
+# tokens); the validation batch runs MAIN_SHAPES[2], (1, 8000, 1, 256)
+AE_TRAIN_SHAPE = (1, 4096, 1, 256)
+BWD_SHAPES = TRAIN_SHAPES[:2] + [(2, 100, 3, 40), (1, 8000, 1, 256), AE_TRAIN_SHAPE]
 # (B, n, h, d[, kv_len]): the backward edge cases of the ``cuda`` tests, in
 # both dtypes: every instantiation (DMAX 64, 128, 256, and dK/dV's head-dim
 # split at d > 128), token counts off the row and key tiles of either route, n = 1
@@ -309,6 +344,9 @@ PR5_GN_SUMS = {"sampling": {"ms": 15.96, "host_ms": 209.0}, "serving": {"ms": 79
 TRAIN_LOSS_REL = 1e-5
 TRAIN_GRAD_REL = 1e-3
 TINY_LR = 1e-4
+# card-vs-CPU stage-1 step: every metric (losses, the gradient norm, the
+# discriminator's loss) within 1e-3 relative, as the tiny sample card vs CPU
+STAGE1_REL = 1e-3
 
 # Serving main path: the flagship models in fp32 (as the JAX server serves),
 # 80^3, DDIM-50, batch 2; a dpm-20 override. The served volumes are min-max
@@ -881,7 +919,7 @@ def phase_kernel_gn(torch, paths: dict) -> dict:
             tot["launches"] = sum(cases.values())
             tot["ms_per_call"] = tot["ms"] / tot["launches"]
             tot["host_ms_per_call"] = tot["host_ms"] / tot["launches"]
-            if kernel == "gn_sums" and path != "training_fp32":
+            if kernel == "gn_sums" and path in PR5_GN_SUMS:
                 tot["pr5"] = PR5_GN_SUMS[path]
             totals[(path, kernel)] = tot
             emit({"phase": "kernel_gn_path", "path": path, "kernel": kernel, **tot,
@@ -966,20 +1004,25 @@ def _write_env(model_dir: Path, **extra) -> Path:
 
 
 def _module_counts(torch, ns) -> dict:
-    """GroupNorms and attention blocks per model part, from models built on
-    the meta device."""
+    """GroupNorms (the discriminator's instance norms among them) and
+    attention blocks per model part, from models built on the meta device."""
+    from ldm3d_torch.cli.train_autoencoder import build_discriminator
     from ldm3d_torch.configs import define_instance
     from ldm3d_torch.nn.blocks import AttentionBlock3D, GroupNorm32
+    from ldm3d_torch.nn.discriminator import _InstanceNorm
 
     with torch.device("meta"):
         ae = define_instance(ns, "autoencoder_def")
         unet = define_instance(ns, "diffusion_def")
+        disc = build_discriminator(ns)
 
     def count(module, cls):
         return sum(isinstance(m, cls) for m in module.modules())
 
-    return {part: {"gn": count(mod, GroupNorm32), "attn": count(mod, AttentionBlock3D)}
-            for part, mod in (("encoder", ae.encoder), ("decoder", ae.decoder), ("unet", unet))}
+    parts = (("encoder", ae.encoder), ("decoder", ae.decoder), ("unet", unet),
+             ("discriminator", disc))
+    return {part: {"gn": count(mod, (GroupNorm32, _InstanceNorm)),
+                   "attn": count(mod, AttentionBlock3D)} for part, mod in parts}
 
 
 def _reset_counts() -> None:
@@ -1007,6 +1050,11 @@ def _read_counts() -> dict:
             "flash_bwd_dq_wgmma": A.flash_attention_bwd_dq.route_launches["bf16_wgmma"],
             "flash_bwd_dkv": A.flash_attention_bwd_dkv.launches,
             "flash_bwd_dkv_wgmma": A.flash_attention_bwd_dkv.route_launches["bf16_wgmma"],
+            "flash_fwd_fp32": A.flash_attention_fwd.route_launches["fp32"],
+            "flash_bwd_dq_mma": A.flash_attention_bwd_dq.route_launches["bf16"],
+            "flash_bwd_dkv_mma": A.flash_attention_bwd_dkv.route_launches["bf16"],
+            "flash_bwd_dq_fp32": A.flash_attention_bwd_dq.route_launches["fp32"],
+            "flash_bwd_dkv_fp32": A.flash_attention_bwd_dkv.route_launches["fp32"],
             "gn_sums": G.gn_sums.launches, "gn_bwd_sums": G.gn_bwd_sums.launches,
             "conv3d_igemm": C.conv3d_igemm.launches}
 
@@ -1099,14 +1147,18 @@ OP_CATEGORIES = (
     ("convolution", ("aten::conv3d", "aten::convolution", "aten::convolution_backward")),
     ("matmul (Dense)", ("aten::linear", "aten::addmm", "aten::mm", "aten::matmul")),
     ("dtype casts (weights; GroupNorm coefficients)", ("aten::to", "aten::_to_copy")),
-    ("optimizer (Adam)", ("Optimizer.step#Adam.step",)),
+    ("optimizer (AdamW)", ("Optimizer.step#AdamW.step",)),
 )
+# A convolution op whose input is 4-D is a 2D convolution: LPIPS's SqueezeNet
+# (filed so only when the profile recorded the ops' input shapes)
+CONV2D_CATEGORY = "convolution 2D (LPIPS)"
 # Any other kernel (the port's own kernels, launched through ctypes outside
 # any aten op, among them) by its name; first match wins.
 KERNEL_CATEGORIES = (
     ("attention forward (flash_fwd)", ("flash_fwd_",)),
     ("attention backward (flash_bwd)", ("flash_bwd_dq_", "flash_bwd_dkv_")),
-    ("GroupNorm sums (groupnorm_sums)", ("gn_sums_onepass", "partial_sums", "combine(")),
+    ("GroupNorm sums forward (B4, gn_sums_onepass)", ("gn_sums_onepass",)),
+    ("GroupNorm sums backward (B5, partial_sums + combine)", ("partial_sums", "combine(")),
     ("convolution", ("fprop", "dgrad", "wgrad", "conv", "winograd", "implicit")),
     ("matmul (Dense)", ("gemm", "gemv", "nvjet", "cublas", "cutlass", "splitk")),
     ("reduction", ("reduce",)),
@@ -1117,10 +1169,14 @@ KERNEL_CATEGORIES = (
 
 
 def _op_category(ev) -> str | None:
-    """Category of the outermost op of OP_CATEGORIES enclosing ``ev``."""
+    """Category of the outermost op of OP_CATEGORIES enclosing ``ev``; a
+    convolution whose input is 4-D is CONV2D_CATEGORY."""
     cat = None
     while ev is not None:
-        cat = next((c for c, ops in OP_CATEGORIES if ev.name in ops), cat)
+        found = next((c for c, ops in OP_CATEGORIES if ev.name in ops), None)
+        if found == "convolution" and ev.input_shapes and len(ev.input_shapes[0]) == 4:
+            found = CONV2D_CATEGORY
+        cat = found or cat
         ev = ev.cpu_parent
     return cat
 
@@ -1129,10 +1185,11 @@ def _is_memory_op(name: str) -> bool:
     return name.startswith("Memcpy") or name.startswith("Memset")
 
 
-def _profiled(torch, fn):
+def _profiled(torch, fn, record_shapes: bool = False):
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=record_shapes) as prof:
         out = fn()
     return prof, out
 
@@ -1163,7 +1220,7 @@ def _profile_summary(torch, prof, window_ms: float) -> dict:
         names = names_by_cat.setdefault(cat, {})
         names[name[:200]] = names.get(name[:200], 0.0) + ms
 
-    # a host range (such as Optimizer.step#Adam.step) is mirrored on the
+    # a host range (such as Optimizer.step#AdamW.step) is mirrored on the
     # device's track as a span over its kernels: it is not a kernel
     averages = prof.key_averages()
     host_names = {ev.key for ev in averages if ev.device_type == DeviceType.CPU}
@@ -1346,6 +1403,165 @@ def phase_train_profile(torch, ns, model_dir: Path, scale_factor: float, dt) -> 
           **_profile_summary(torch, prof, window_ms)})
     del state, unet, ae, batch
     torch.cuda.empty_cache()
+
+def phase_train_ae(torch, ns, counts, workdir: Path, card: str, smi_line: str,
+                   amp: bool = True) -> dict:
+    """Full-width stage-1 training through ``cli.train_autoencoder``: the
+    ``config_train_32g.json`` VAE, the CLI's discriminator and LPIPS at
+    batch 1 on 64^3 crops of synthetic 80^3 pairs, 2 epochs (a warm-up
+    epoch, then an adversarial one), each validated; in bf16 with ``--amp``
+    or in fp32 without it. Returns its record."""
+    from ldm3d_torch.ckpt import CheckpointManager
+    from ldm3d_torch.cli.train_autoencoder import main as train_ae_main
+    from ldm3d_torch.cli.train_diffusion import load_frozen_autoencoder
+    from ldm3d_torch.configs import load_json, preset_path
+
+    t0 = time.perf_counter()
+    dtype = "bfloat16" if amp else "float32"
+    model_dir = workdir / f"train_ae_{dtype}"
+    model_dir.mkdir(parents=True)
+    cfg = load_json(preset_path("config_train_32g.json"))
+    check(tuple(cfg["autoencoder_train"]["patch_size"]) == AE_PATCH
+          and cfg["autoencoder_train"]["batch_size"] == 1,
+          f"the preset's stage-1 patch is not batch 1 at {AE_PATCH}")
+    cfg["autoencoder_train"].update(warmup_epochs=0, val_interval=1, max_epochs=2)
+    cfg_path = model_dir / "config.json"
+    cfg_path.write_text(json.dumps(cfg))
+    env = _write_env(model_dir, synthetic_num=AE_PAIRS, synthetic_shape=list(AE_VOLUME),
+                     resume_ckpt=False)
+    setup_s = time.perf_counter() - t0
+
+    timings: dict = {}
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    unpin_precision(torch)
+    t_run = time.perf_counter()
+    best_val = train_ae_main(["-c", str(cfg_path), "-e", str(env), *(["--amp"] if amp else []),
+                              "--no-images"], timings=timings)
+    run_s = time.perf_counter() - t_run
+    launches, gn_cases = _read_counts(), _read_gn_cases()
+    flags = pinned_precision(torch, "cli.train_autoencoder.main")
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+
+    adv = timings["adv_active"]
+    warm, steps_adv = adv.count(False), adv.count(True)
+    steps, val_batches = len(adv), sum(timings["val_batches"])
+    check(warm == steps_adv == AE_PAIRS and val_batches == 2,
+          f"expected {AE_PAIRS} warm-up and {AE_PAIRS} adversarial steps and 2 validation "
+          f"batches, got {warm}, {steps_adv}, {val_batches}")
+    losses = {k: timings[k] for k in ("g_loss", "d_loss", "recon_loss", "kl_loss",
+                                      "perceptual_loss", "adv_loss", "g_grad_norm")}
+    check(all(math.isfinite(x) for v in losses.values() for x in v) and math.isfinite(best_val),
+          f"non-finite stage-1 losses: {losses}, val {best_val}")
+    check(min(losses["d_loss"][warm:]) > 0 and max(losses["d_loss"][:warm]) == 0,
+          f"the discriminator's loss is not 0 in warm-up and > 0 after it: {losses['d_loss']}")
+    # exact launches: the VAE's 4 attentions (d = 256) a forward, backward
+    # in every step; its GroupNorms and, in an adversarial step, the
+    # discriminator's instance norms in D(recon) for G and D(recon), D(real)
+    # for D, forward and backward
+    attn = counts["encoder"]["attn"] + counts["decoder"]["attn"]
+    vae_gn = counts["encoder"]["gn"] + counts["decoder"]["gn"]
+    d_gn = counts["discriminator"]["gn"]
+    fwd_route, bwd_route = ("wgmma", "mma") if amp else ("fp32", "fp32")
+    expected = {
+        "flash_fwd": attn * (steps + val_batches),
+        f"flash_fwd_{fwd_route}": attn * (steps + val_batches),
+        "flash_bwd_dq": attn * steps, "flash_bwd_dkv": attn * steps,
+        f"flash_bwd_dq_{bwd_route}": attn * steps, f"flash_bwd_dkv_{bwd_route}": attn * steps,
+        "gn_sums": vae_gn * (steps + val_batches) + 3 * d_gn * steps_adv,
+        "gn_bwd_sums": vae_gn * steps + 3 * d_gn * steps_adv,
+        "conv3d_igemm": 0,
+    }
+    for name, n in expected.items():
+        check(launches[name] == n, f"{name} launched {launches[name]} times in stage-1 "
+                                   f"training ({dtype}), expected {n}")
+    per_step = {"warmup": {"flash_fwd": attn, "flash_bwd_dq": attn, "flash_bwd_dkv": attn,
+                           "gn_sums": vae_gn, "gn_bwd_sums": vae_gn},
+                "adversarial": {"flash_fwd": attn, "flash_bwd_dq": attn, "flash_bwd_dkv": attn,
+                                "gn_sums": vae_gn + 3 * d_gn, "gn_bwd_sums": vae_gn + 3 * d_gn},
+                "validation_batch": {"flash_fwd": attn, "gn_sums": vae_gn}}
+
+    # the checkpoints: stage 2 loads the autoencoder's best; last resumes both
+    args = SimpleNamespace(**cfg, model_dir=str(model_dir))
+    ae = load_frozen_autoencoder(args, torch.device("cuda"), getattr(torch, dtype))
+    check(all(bool(torch.isfinite(p).all()) for p in ae.parameters()),
+          "the stage-1 autoencoder_best.pt holds non-finite params")
+    n_params = sum(p.numel() for p in ae.parameters())
+    del ae
+    last = CheckpointManager(str(model_dir), "autoencoder").load("last", map_location="cpu")
+    check(last["g"]["step"] == steps and last["d"]["step"] == steps_adv
+          and last["meta"]["epoch"] == 1, f"stage-1 last at G step {last['g']['step']}, "
+                                          f"D step {last['d']['step']}")
+    check(CheckpointManager(str(model_dir), "discriminator").exists("best"),
+          "discriminator_best.pt not written")
+    del last
+
+    step_ms = timings["train_step_ms"]
+    med_warm = statistics.median(step_ms[1:warm])
+    med_adv = statistics.median(step_ms[warm + 1:])
+    record = {"steps": steps, "warmup_steps": warm, "adversarial_steps": steps_adv,
+              "val_batches": val_batches, "launches": launches, "expected_launches": expected,
+              "launches_per_step": per_step, "train_step_ms": step_ms,
+              "median_warmup_step_ms": med_warm, "median_adversarial_step_ms": med_adv,
+              "volumes_per_s_trained": 1e3 / med_adv, "val_ms": timings["val_ms"],
+              "losses": losses, "val_loss": timings["val_loss"], "best_val_loss": best_val,
+              "peak_device_memory_gib": peak_gib}
+    emit({"phase": "train_ae_main_path" if amp else "train_ae_fp32_main_path",
+          "config": "config_train_32g.json", "patch": list(AE_PATCH),
+          "volume": list(AE_VOLUME), "batch": 1, "dtype": dtype,
+          "autoencoder_params": n_params, "setup_s": round(setup_s, 3),
+          "run_s": round(run_s, 3), **record, "allow_tf32": flags, "card": card,
+          "nvidia_smi": smi_line})
+    record["profile"] = phase_train_ae_profile(torch, ns, getattr(torch, dtype), med_adv)
+    shutil.rmtree(model_dir)
+    return {**record, "gn_cases": gn_cases}
+
+
+def phase_train_ae_profile(torch, ns, dt, step_ms: float) -> dict:
+    """One adversarial stage-1 step (G and D, batch 1, 64^3, in ``dt``)
+    under torch.profiler with the ops' input shapes (which file LPIPS's 2D
+    convolutions apart), after a warm-up step, built from the library's
+    pieces with the CLI's models. Besides the idle share of the profiled
+    window (which holds the profiler's own host cost), the idle share of
+    ``step_ms``, the unprofiled step's median."""
+    from ldm3d_torch.cli.train_autoencoder import build_discriminator, build_lpips
+    from ldm3d_torch.configs import define_instance
+    from ldm3d_torch.nn import init_weights_
+    from ldm3d_torch.training import (Stage1Config, TrainState, make_optimizer,
+                                      make_stage1_train_step)
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    with torch.device("cuda"):
+        ae = init_weights_(define_instance(ns, "autoencoder_def"), gen)
+        disc = init_weights_(build_discriminator(ns), gen)
+    ae.compute_dtype = disc.compute_dtype = dt
+    lpips = build_lpips(SimpleNamespace(), dt, torch.device("cuda"))
+    g_state = TrainState(ae, make_optimizer(ae.parameters(), lambda count: 1e-5))
+    d_state = TrainState(disc, make_optimizer(disc.parameters(), lambda count: 1e-5))
+    step = make_stage1_train_step(ae, disc, lpips, Stage1Config(
+        kl_weight=ns.autoencoder_train["kl_weight"],
+        perceptual_weight=ns.autoencoder_train["perceptual_weight"]))
+    images = torch.rand((1, *AE_PATCH, 1), generator=gen, device="cuda")
+    step(g_state, d_state, images, True, gen)
+    torch.cuda.synchronize()
+
+    def one_step():
+        t0 = time.perf_counter()
+        step(g_state, d_state, images, True, gen)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    prof, window_ms = _profiled(torch, one_step, record_shapes=True)
+    dtype = str(dt).removeprefix("torch.")
+    summary = _profile_summary(torch, prof, window_ms)
+    summary["unprofiled_step_ms"] = step_ms
+    summary["device_idle_share_of_unprofiled_step"] = 1.0 - summary["device_busy_ms"] / step_ms
+    emit({"phase": "profile", "path": f"stage-1 adversarial step (batch 1, 64^3, {dtype})",
+          **summary})
+    del g_state, d_state, ae, disc, lpips, images
+    torch.cuda.empty_cache()
+    return summary
+
 
 def _post(port: int, body: dict) -> tuple[int, dict, float]:
     """POST /generate on the local server; (status, JSON reply, seconds)."""
@@ -1686,14 +1902,102 @@ def phase_train_card_vs_cpu(torch) -> None:
           "card_launches": launched})
 
 
+@full_fp32
+def phase_stage1_card_vs_cpu(torch) -> None:
+    """One ``config_tiny_cpu.json`` adversarial stage-1 step (G, then D) on
+    the card (kernels) and on the CPU (plain): the same weights (the CLI's
+    discriminator, LPIPS's fixed init), batch and draws, fp32 with TF32 off;
+    every metric within STAGE1_REL relative; the gradients each update
+    applied (G's from the generator loss, D's from the discriminator loss,
+    each after the global-norm clip, a positive scale) within TRAIN_GRAD_REL
+    of the model's largest |g|, so the backward of the discriminator's
+    instance norms (B5) is held too (the bound is the model's, as
+    ``tests/test_torch_discriminator.py`` holds D: a conv bias before an
+    instance norm has a gradient of rounding noise only); both models'
+    params after the updates within 2 lr + 1e-6."""
+    import copy
+
+    from ldm3d_torch.cli.train_autoencoder import build_discriminator
+    from ldm3d_torch.configs import define_instance, load_json, preset_path
+    from ldm3d_torch.nn import LPIPS, init_lpips_, init_weights_
+    from ldm3d_torch.training import (Stage1Config, Stage1Draws, TrainState, make_optimizer,
+                                      make_stage1_train_step)
+
+    cfg = load_json(preset_path("config_tiny_cpu.json"))
+    ns = SimpleNamespace(**cfg)
+    gen = torch.Generator().manual_seed(12)
+    ae = init_weights_(define_instance(ns, "autoencoder_def"), gen)
+    disc = init_weights_(build_discriminator(ns), gen)
+    lpips = init_lpips_(LPIPS()).requires_grad_(False)
+    b, patch = 2, cfg["autoencoder_train"]["patch_size"]
+    latent = (b, *[p // ae.downsample_factor for p in patch], cfg["latent_channels"])
+    images = torch.rand((b, *patch, 1), generator=gen) * 1.2 - 0.1
+    draws = Stage1Draws(torch.randn(latent, generator=gen),
+                        tuple(torch.randperm(n, generator=gen)[:math.ceil(0.2 * n)]
+                              for n in patch))
+    s1cfg = Stage1Config(kl_weight=cfg["autoencoder_train"]["kl_weight"], perceptual_weight=0.1)
+    out = {}
+    for device in ("cuda", "cpu"):
+        _reset_counts()
+        a, d, lp = (copy.deepcopy(m).to(device) for m in (ae, disc, lpips))
+        g_state = TrainState(a, make_optimizer(a.parameters(), lambda count: TINY_LR))
+        d_state = TrainState(d, make_optimizer(d.parameters(), lambda count: TINY_LR))
+        m = make_stage1_train_step(a, d, lp, s1cfg)(g_state, d_state, images.to(device), True,
+                                                    draws=draws.to(device))
+        leaves = [(f"{name}.{n}", p) for name, model in (("g", a), ("d", d))
+                  for n, p in model.named_parameters()]
+        out[device] = {"metrics": {k: float(v) for k, v in m.items()},
+                       "grads": {n: p.grad.cpu() for n, p in leaves},
+                       "params": {n: p.detach().cpu() for n, p in leaves},
+                       "launches": _read_counts()}
+    card, cpu = out["cuda"], out["cpu"]
+    rel = {k: abs(card["metrics"][k] - v) / max(abs(v), 1e-30)
+           for k, v in cpu["metrics"].items()}
+    largest = {model: max(g.abs().max().item() for n, g in cpu["grads"].items()
+                          if n.startswith(model + ".")) for model in ("g", "d")}
+    grad_rel = {n: (card["grads"][n] - g).abs().max().item() / max(largest[n[0]], 1e-30)
+                for n, g in cpu["grads"].items()}
+    grad_leaf = max(grad_rel, key=grad_rel.get)
+    param_worst = max((card["params"][n] - p).abs().max().item()
+                      for n, p in cpu["params"].items())
+    check(max(rel.values()) <= STAGE1_REL, f"card and CPU stage-1 metrics differ: {rel}")
+    check(grad_rel[grad_leaf] <= TRAIN_GRAD_REL,
+          f"card and CPU stage-1 gradients of {grad_leaf} differ by {grad_rel[grad_leaf]} of "
+          f"the model's largest |g|")
+    check(param_worst <= 2 * TINY_LR + 1e-6, f"card and CPU stage-1 params differ by "
+                                              f"{param_worst}")
+    launched = card["launches"]
+    check(all(launched[k] > 0 for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "gn_sums",
+                                         "gn_bwd_sums")),
+          f"a kernel did not run in the card's stage-1 step: {launched}")
+    check(all(cpu["launches"][k] == 0 for k in ("flash_fwd", "gn_sums", "gn_bwd_sums")),
+          "the CPU stage-1 step launched a kernel")
+    emit({"phase": "stage1_card_vs_cpu", "config": "config_tiny_cpu.json", "batch": b,
+          "metrics_card": card["metrics"], "metrics_cpu": cpu["metrics"],
+          "metric_rel_diff": rel,
+          "grad_worst_rel_to_model_max": {
+              model: max(v for n, v in grad_rel.items() if n.startswith(model + "."))
+              for model in ("g", "d")},
+          "grad_worst_leaf": grad_leaf, "param_max_abs_diff": param_worst,
+          "tol": {"metric_rel": STAGE1_REL, "grad_rel": TRAIN_GRAD_REL,
+                  "param_abs": 2 * TINY_LR + 1e-6},
+          "card_launches": launched})
+
+
 def _kernel_summary(fwd: dict, bwd: dict, gn: dict, sample_launches: dict,
-                    train: dict, train_fp32: dict, serve: dict, conv: dict) -> list:
+                    train: dict, train_fp32: dict, serve: dict, conv: dict,
+                    train_ae: dict, train_ae_fp32: dict) -> list:
     """The kernels line: each kernel's ms, plain_ms, bound_ms and library_ms
     are summed over the ``launches`` it counts (one flagship sample for
     flash_fwd, the bf16 training main path's run for the other four; the
     GroupNorm kernels also over the sample, as ``sample_*``); the served
     launches of flash_fwd and gn_sums are ``serve_launches``; the backward
     kernels' ``fp32_*`` fields are one step of the fp32 training run.
+    The stage-1 runs' launches are ``train_ae_launches`` (bf16) and
+    ``train_ae_fp32_launches``; the attention kernels' ``train_ae_step_*``
+    (and ``train_ae_fp32_step_*``) are one stage-1 step's launches at
+    AE_TRAIN_SHAPE, the GroupNorm kernels' ``train_ae_*`` the sums over the
+    bf16 stage-1 run's launches (``train_ae_fp32_*`` the fp32 run's).
     conv3d_igemm's launches are the A/B tool's run; its times are per call
     at the tool's headline shape."""
     def per(results, weights, key, by=None, dtype="bfloat16"):
@@ -1709,6 +2013,17 @@ def _kernel_summary(fwd: dict, bwd: dict, gn: dict, sample_launches: dict,
 
     def larger(fn):
         return max(("operations", "bytes"), key=fn)
+
+    ae_attn = train_ae["launches_per_step"]["warmup"]["flash_fwd"]
+
+    def ae_attention(results, keys, prefix):
+        """One stage-1 step's ``ae_attn`` launches at AE_TRAIN_SHAPE, both dtypes."""
+        out = {}
+        for dtype, tag in (("bfloat16", "train_ae_step"), ("float32", "train_ae_fp32_step")):
+            r = results[(AE_TRAIN_SHAPE, dtype)]
+            for key, name in keys:
+                out[f"{tag}_{name}"] = ae_attn * r[f"{prefix}{key}"]
+        return out
 
     run_note = (f"the training main path's run ({steps} steps of batch 20 at 80^3, "
                 f"{train['val_batches']} validation batch, the scale-factor encode; bf16): the "
@@ -1745,6 +2060,20 @@ def _kernel_summary(fwd: dict, bwd: dict, gn: dict, sample_launches: dict,
                            "launches at the two UNet shapes"}
         for key in ("ms", "plain_ms", "bound_ms", "host_ms"):
             row[f"fp32_{key}"] = per_bwd(f"{kind}_{key}", dtype="float32")
+        for run, tag, route in ((train_ae, "train_ae", "mma"), (train_ae_fp32, "train_ae_fp32",
+                                                                "fp32")):
+            check(run["launches"][f"{name}_{route}"] == run["launches"][name]
+                  == ae_attn * run["steps"],
+                  f"{name}: stage-1 launches {run['launches']} are not {run['steps']} steps' "
+                  f"worth on the {route} route")
+            row[f"{tag}_launches"] = run["launches"][name]
+        row.update(ae_attention(bwd, (("_ms", "ms"), ("_plain_ms", "plain_ms"),
+                                      ("_bound_ms", "bound_ms")), kind))
+        for dtype, tag in (("bfloat16", "train_ae_step"), ("float32", "train_ae_fp32_step")):
+            row[f"{tag}_library_ms"] = ae_attn * bwd[(AE_TRAIN_SHAPE, dtype)]["sdpa_bwd_ms"]
+        row["train_ae_per"] = (f"one stage-1 step's {ae_attn} launches at {AE_TRAIN_SHAPE} "
+                               "(the VAE's d = 256 attention at the 64^3 patch; bf16 on the "
+                               "mma.sync route, fp32 on 3xTF32); library: SDPA's whole backward")
         return row
 
     def gn_row(name, replaces, library_note):
@@ -1767,6 +2096,15 @@ def _kernel_summary(fwd: dict, bwd: dict, gn: dict, sample_launches: dict,
             row.update(serve_launches=se["launches"], serve_ms=se["ms"],
                        serve_plain_ms=se["plain_ms"], serve_bound_ms=se["bound_ms"],
                        serve_host_ms=se["host_ms"])
+        for path, tag in (("training_ae", "train_ae"), ("training_ae_fp32", "train_ae_fp32")):
+            ae = gn["totals"][(path, name)]
+            run = train_ae if path == "training_ae" else train_ae_fp32
+            check(ae["launches"] == run["launches"][name],
+                  f"{name}: recorded inputs cover {ae['launches']} of {run['launches'][name]} "
+                  f"{path} launches")
+            row.update({f"{tag}_launches": ae["launches"], f"{tag}_ms": ae["ms"],
+                        f"{tag}_plain_ms": ae["plain_ms"], f"{tag}_bound_ms": ae["bound_ms"],
+                        f"{tag}_host_ms": ae["host_ms"]})
         sa = gn["totals"].get(("sampling", name))
         if sa is not None:
             check(sa["launches"] == sample_launches[name],
@@ -1814,6 +2152,7 @@ def _kernel_summary(fwd: dict, bwd: dict, gn: dict, sample_launches: dict,
                "encoder and decoder attention); train_*: one bf16 training step's 4 launches "
                "at (20, 8000, 1, 256)",
         "train_launches": train["launches"]["flash_fwd_wgmma"],
+        "train_ae_launches": train_ae["launches"]["flash_fwd_wgmma"],
         "train_step_ms": per(fwd, wg_step, "kernel_ms"),
         "train_step_plain_ms": per(fwd, wg_step, "plain_ms"),
         "train_step_bound_ms": per(fwd, wg_step, "bound_ms"),
@@ -1850,7 +2189,14 @@ def _kernel_summary(fwd: dict, bwd: dict, gn: dict, sample_launches: dict,
          "serve_call_fp32_library_ms": per(fwd, SERVE_FWD_PER_CALL, "library_ms",
                                            dtype="float32"),
          "serve_call_note": "fp32, one merged batch-2 DDIM-50 serving call: the sum over its "
-                            "556 launches (SERVE_FWD_PER_CALL)"},
+                            "556 launches (SERVE_FWD_PER_CALL)",
+         "train_ae_launches": train_ae["launches"]["flash_fwd"],
+         "train_ae_fp32_launches": train_ae_fp32["launches"]["flash_fwd"],
+         **ae_attention(fwd, (("kernel_ms", "ms"), ("plain_ms", "plain_ms"),
+                              ("bound_ms", "bound_ms"), ("library_ms", "library_ms")), ""),
+         "train_ae_per": f"one stage-1 step's {ae_attn} launches at {AE_TRAIN_SHAPE} (bf16 on "
+                         "the wgmma route, fp32 on 3xTF32); each validation batch adds "
+                         f"{ae_attn} at {MAIN_SHAPES[2]}"},
         flash_bwd("flash_bwd_dq", "dq", "ldm3d_tpu/ops/attention.py:122",
                   "dQ, dK and dV together: the backward of scaled_dot_product_attention (its "
                   "forward + backward less its forward)"),
@@ -1869,7 +2215,9 @@ def _kernel_summary(fwd: dict, bwd: dict, gn: dict, sample_launches: dict,
     return rows
 
 
-KERNEL_PHASES = ("kernel", "kernel_bwd", "kernel_c2", "kernel_conv")
+# phases that ``--phases`` runs alone, after device and build
+ALONE_PHASES = ("kernel", "kernel_bwd", "kernel_c2", "kernel_conv", "train_ae", "train_ae_fp32",
+                "stage1_card_vs_cpu")
 
 
 def main(argv=None) -> int:
@@ -1878,8 +2226,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Drive ldm3d_torch on one GPU and check it; with "
                                              "no arguments, every phase.")
     ap.add_argument("--phases", default=None,
-                    help="comma-separated kernel phases to run alone after device and build "
-                         f"(of {', '.join(KERNEL_PHASES)}); prints no result line")
+                    help="comma-separated phases to run alone after device and build "
+                         f"(of {', '.join(ALONE_PHASES)}); prints no result line")
     args = ap.parse_args(argv)
     import torch
 
@@ -1894,15 +2242,25 @@ def main(argv=None) -> int:
 
     if args.phases:
         phases = args.phases.split(",")
-        check(set(phases) <= set(KERNEL_PHASES), f"unknown phases {phases}")
-        _, smi_line = phase_device(torch)
+        check(set(phases) <= set(ALONE_PHASES), f"unknown phases {phases}")
+        ns = SimpleNamespace(**load_json(preset_path("config_train_32g.json")))
+        counts = _module_counts(torch, ns)
+        card, smi_line = phase_device(torch)
         phase_build()
-        run = {"kernel": lambda: phase_kernel(torch, F),
-               "kernel_bwd": lambda: phase_kernel_bwd(torch, F),
-               "kernel_c2": lambda: phase_kernel_c2(torch),
-               "kernel_conv": lambda: phase_kernel_conv(torch)}
-        for name in phases:
-            run[name]()
+        workdir_root = ROOT / "build" / "chip_smoke"
+        workdir_root.mkdir(parents=True, exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=workdir_root) as workdir:
+            run = {"kernel": lambda: phase_kernel(torch, F),
+                   "kernel_bwd": lambda: phase_kernel_bwd(torch, F),
+                   "kernel_c2": lambda: phase_kernel_c2(torch),
+                   "kernel_conv": lambda: phase_kernel_conv(torch),
+                   "train_ae": lambda: phase_train_ae(torch, ns, counts, Path(workdir), card,
+                                                      smi_line),
+                   "train_ae_fp32": lambda: phase_train_ae(torch, ns, counts, Path(workdir),
+                                                           card, smi_line, amp=False),
+                   "stage1_card_vs_cpu": lambda: phase_stage1_card_vs_cpu(torch)}
+            for name in phases:
+                run[name]()
         emit({"phase": "done", "phases": phases})
         print(smi_line, flush=True)
         return 0
@@ -1921,18 +2279,24 @@ def main(argv=None) -> int:
                                                      smi_line)
         train = phase_train(torch, ns, counts, Path(workdir), card, smi_line)
         train_fp32 = phase_train(torch, ns, counts, Path(workdir), card, smi_line, amp=False)
+        train_ae = phase_train_ae(torch, ns, counts, Path(workdir), card, smi_line)
+        train_ae_fp32 = phase_train_ae(torch, ns, counts, Path(workdir), card, smi_line,
+                                       amp=False)
         serve = phase_serve(torch, ns, counts, Path(workdir), card, smi_line)
     gn = phase_kernel_gn(torch, {"sampling": sample_gn, "training": train.pop("gn_cases"),
                                  "training_fp32": train_fp32.pop("gn_cases"),
+                                 "training_ae": train_ae.pop("gn_cases"),
+                                 "training_ae_fp32": train_ae_fp32.pop("gn_cases"),
                                  "serving": serve.pop("gn_cases")})
     phase_gn_host(torch)
     conv = phase_kernel_conv(torch)
     phase_card_vs_cpu(torch)
     phase_train_card_vs_cpu(torch)
+    phase_stage1_card_vs_cpu(torch)
 
     emit({"phase": "done"})
     emit({"kernels": _kernel_summary(fwd, bwd, gn, sample_launches, train, train_fp32, serve,
-                                     conv)})
+                                     conv, train_ae, train_ae_fp32)})
     print(smi_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": card,
                                  "count": torch.cuda.device_count()}})

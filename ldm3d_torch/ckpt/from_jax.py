@@ -4,10 +4,12 @@ The port's modules carry the Flax tree's names, so a leaf at
 ``encoder/down_0_res_0/conv1/kernel`` becomes ``encoder.down_0_res_0.conv1.weight``.
 The leaf rules:
 
-* conv ``kernel`` ``(D, H, W, I, O)`` -> ``weight`` ``(O, I, D, H, W)``;
+* 3D conv ``kernel`` ``(D, H, W, I, O)`` -> ``weight`` ``(O, I, D, H, W)``;
+* 2D conv ``kernel`` ``(H, W, I, O)`` -> ``weight`` ``(O, I, H, W)`` (LPIPS);
 * Dense ``kernel`` ``(in, out)`` -> ``weight`` ``(out, in)``;
 * GroupNorm ``scale`` -> ``weight``; every ``bias`` -> ``bias``
-  (``Upsample3D``'s parameters sit at ``conv/{kernel,bias}`` in both trees).
+  (``Upsample3D``'s parameters sit at ``conv/{kernel,bias}`` in both trees);
+* LPIPS's per-stage channel weights ``lin_{i}`` keep their name.
 
 The tree's leaves are numpy arrays (``jax.device_get`` of the params). The
 bridge raises if a leaf has no parameter to go to, if a parameter is left
@@ -16,13 +18,17 @@ unfilled, or if a shape disagrees.
 
 from __future__ import annotations
 
+import re
 from typing import Any, Mapping
 
 import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["state_dict_from_jax", "unet_state_dict_from_jax", "autoencoder_state_dict_from_jax"]
+__all__ = ["state_dict_from_jax", "unet_state_dict_from_jax", "autoencoder_state_dict_from_jax",
+           "discriminator_state_dict_from_jax", "lpips_state_dict_from_jax"]
+
+_LIN = re.compile(r"lin_\d+")
 
 
 def _flatten(tree: Mapping[str, Any], prefix: tuple = ()) -> dict[tuple, np.ndarray]:
@@ -40,6 +46,8 @@ def _convert(path: tuple, arr: np.ndarray) -> tuple[str, np.ndarray]:
     if leaf == "kernel":
         if arr.ndim == 5:
             arr = arr.transpose(4, 3, 0, 1, 2)
+        elif arr.ndim == 4:
+            arr = arr.transpose(3, 2, 0, 1)
         elif arr.ndim == 2:
             arr = arr.T
         else:
@@ -47,7 +55,7 @@ def _convert(path: tuple, arr: np.ndarray) -> tuple[str, np.ndarray]:
         leaf = "weight"
     elif leaf == "scale":
         leaf = "weight"
-    elif leaf != "bias":
+    elif leaf != "bias" and not (_LIN.fullmatch(leaf) and arr.ndim == 1):
         raise ValueError(f"{'/'.join(path)}: unknown leaf {leaf!r}")
     return ".".join([*mods, leaf]), np.ascontiguousarray(arr, dtype=np.float32)
 
@@ -82,4 +90,18 @@ def unet_state_dict_from_jax(params: Mapping[str, Any], model: nn.Module) -> dic
 def autoencoder_state_dict_from_jax(params: Mapping[str, Any],
                                     model: nn.Module) -> dict[str, torch.Tensor]:
     """``AutoencoderKL`` params -> the port's ``AutoencoderKL`` state_dict."""
+    return state_dict_from_jax(params, model)
+
+
+def discriminator_state_dict_from_jax(params: Mapping[str, Any],
+                                      model: nn.Module) -> dict[str, torch.Tensor]:
+    """``PatchDiscriminator3D`` params -> the port's ``PatchDiscriminator3D``
+    state_dict (its InstanceNorms have no parameters in either tree)."""
+    return state_dict_from_jax(params, model)
+
+
+def lpips_state_dict_from_jax(params: Mapping[str, Any],
+                              model: nn.Module) -> dict[str, torch.Tensor]:
+    """``LPIPS`` params (the SqueezeNet trunk's 2D convs and ``lin_{i}``) ->
+    the port's ``LPIPS`` state_dict."""
     return state_dict_from_jax(params, model)

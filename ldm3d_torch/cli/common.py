@@ -102,7 +102,7 @@ def build_parser(description: str) -> argparse.ArgumentParser:
 # the port runs, ROADMAP.md queue A item); any other value raises
 _PARALLEL = "'Parallelism'"
 _PIPELINE = "'UNet mid_depth stack, then pipeline parallelism'"
-_FOLLOW_UPS = "'Stage-2 training follow-ups'"
+_FOLLOW_UPS = "'Training follow-ups'"
 UNPORTED = (
     ("gpus", (0, 1), _PARALLEL),
     ("multihost", (False,), _PARALLEL),

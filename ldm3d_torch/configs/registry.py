@@ -5,8 +5,8 @@ name the JAX package's classes (``ldm3d_tpu.nn.AutoencoderKL``) and the
 reference configs name MONAI's (``monai.networks.nets.AutoencoderKL``) or a
 stale local alias (``networks.AutoencoderKL``); every one of those names
 resolves to the corresponding ``ldm3d_torch`` module here, so the same JSON
-files build the port's models unchanged. The discriminator is not ported in
-this slice.
+files build the port's models unchanged, the stage-1 discriminator (MONAI's
+``PatchDiscriminator``) included.
 """
 
 from __future__ import annotations
@@ -20,12 +20,15 @@ def default_registry() -> Mapping[str, Callable]:
     # imported lazily so the config layer stays importable without the models
     from ldm3d_torch.nn.autoencoder_kl import AutoencoderKL
     from ldm3d_torch.nn.diffusion_unet import DiffusionUNet3D
+    from ldm3d_torch.nn.discriminator import PatchDiscriminator3D
 
     reg: dict[str, Callable] = {}
     for prefix in ("ldm3d_torch.nn", "ldm3d_tpu.nn"):
         reg[f"{prefix}.AutoencoderKL"] = AutoencoderKL.from_config
         reg[f"{prefix}.DiffusionUNet3D"] = DiffusionUNet3D.from_config
+        reg[f"{prefix}.PatchDiscriminator3D"] = PatchDiscriminator3D.from_config
     for prefix in ("monai.networks.nets", "networks"):
         reg[f"{prefix}.AutoencoderKL"] = AutoencoderKL.from_config
         reg[f"{prefix}.DiffusionModelUNet"] = DiffusionUNet3D.from_config
+    reg["monai.networks.nets.PatchDiscriminator"] = PatchDiscriminator3D.from_config
     return reg

@@ -4,7 +4,7 @@ device computes.
 
 The port's copy of ``BatchLoader`` from ``ldm3d_tpu/data/loader.py`` for one
 process: ``device_prefetch`` and the multi-host shard of the loader wait for
-ROADMAP.md queue A, 'Stage-2 training follow-ups'.
+ROADMAP.md queue A, 'Training follow-ups'.
 """
 
 from __future__ import annotations

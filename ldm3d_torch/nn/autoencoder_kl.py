@@ -3,10 +3,11 @@
 Counterpart of ``ldm3d_tpu/nn/autoencoder_kl.py``: GroupNorm + SiLU
 ResBlocks, self-attention at the configured levels (one head over all
 channels), separate 1x1 quant convs for (mu, log_sigma), and the stage-2
-contract ``encode_stage_2_inputs`` / ``decode_stage_2_outputs``.
+contract ``encode_stage_2_inputs`` / ``decode_stage_2_outputs``; the call
+itself (``forward``) is stage 1's encode -> sample -> decode.
 
 Public functions take and return NDHWC. The posterior noise of
-``encode_stage_2_inputs`` is an argument: the caller draws it.
+``encode_stage_2_inputs`` and of the call is an argument: the caller draws it.
 """
 
 from __future__ import annotations
@@ -191,3 +192,12 @@ class AutoencoderKL(nn.Module):
 
     def decode_stage_2_outputs(self, z: torch.Tensor) -> torch.Tensor:
         return self.decode(z)
+
+    def forward(self, x: torch.Tensor,
+                eps: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Encode, sample the posterior with the caller's standard-normal
+        ``eps`` (the latent's NDHWC shape), decode: ``(recon, z_mu,
+        z_sigma)``, NDHWC, the stage-1 training call."""
+        z_mu, z_sigma = self.encode(x)
+        recon = self.decode(z_mu + z_sigma * eps.to(z_mu.dtype))
+        return recon, z_mu, z_sigma

@@ -6,10 +6,11 @@ the EMA tensors are updated in place (one copy of each in device memory),
 and :meth:`TrainState.state_dict` gathers them for a checkpoint, so a resume
 continues the schedule exactly.
 
-:class:`ClippedAdam` is ``optax.chain(clip_by_global_norm(c), adam(lr))``:
-the global-norm clip is optax's rule, ``g`` kept when ``||g|| < c`` and
-``(g / ||g||) * c`` otherwise, not ``torch.nn.utils.clip_grad_norm_``, whose
-``+1e-6`` in the denominator scales every clipped update differently.
+:class:`ClippedAdam` is ``optax.chain(clip_by_global_norm(c), adamw(lr))``,
+with a weight decay of 0 (``adam``, stage 2) or not (stage 1): the
+global-norm clip is optax's rule, ``g`` kept when ``||g|| < c`` and
+``(g / ||g||) * c`` otherwise, not ``torch.nn.utils.clip_grad_norm_``,
+whose ``+1e-6`` in the denominator scales every clipped update differently.
 """
 
 from __future__ import annotations
@@ -44,15 +45,21 @@ def clip_by_global_norm_(tensors: list[torch.Tensor], max_norm: float,
 
 
 class ClippedAdam:
-    """Global-norm clip, then Adam (b1 0.9, b2 0.999, eps 1e-8) at the
-    learning rate ``lr_schedule(count)`` of the update's count."""
+    """Global-norm clip, then AdamW (by default b1 0.9, b2 0.999, eps 1e-8)
+    at the learning rate ``lr_schedule(count)`` of the update's count, as
+    optax's ``adamw``: every parameter decays by ``lr * weight_decay`` times
+    its value before the update, besides the Adam step
+    (``torch.optim.AdamW``'s decoupled decay is the same sum). At the
+    default ``weight_decay`` 0 the decay multiplies by exactly 1: Adam."""
 
     def __init__(self, params: Iterable[torch.nn.Parameter], lr_schedule: Callable[[int], float],
-                 grad_clip: float = 1.0):
+                 grad_clip: float = 1.0, betas: tuple[float, float] = (0.9, 0.999),
+                 eps: float = 1e-8, weight_decay: float = 0.0):
         self.params = [p for p in params if p.requires_grad]
         self.lr_schedule = lr_schedule
         self.grad_clip = grad_clip
-        self.adam = torch.optim.Adam(self.params, lr=lr_schedule(0), betas=(0.9, 0.999), eps=1e-8)
+        self.adam = torch.optim.AdamW(self.params, lr=lr_schedule(0), betas=betas, eps=eps,
+                                      weight_decay=weight_decay)
 
     def zero_grad(self) -> None:
         self.adam.zero_grad(set_to_none=True)

@@ -1,12 +1,14 @@
 """Every flag of the JAX package's CLI parser (``ldm3d_tpu/cli/common.py``
-``build_parser``) parses in the port's two CLIs.
+``build_parser``) parses in the port's three CLIs.
 
 One case per flag per CLI: the CLI runs with ``--device cpu`` on the tiny
 preset and an empty model directory. A flag whose path the port runs goes on
 to the checkpoint load, which raises ``FileNotFoundError`` there (the point
 past the parser, the flag checks, the config merge and, in training, the
-data loaders); a flag whose path is not ported raises
-``NotImplementedError`` naming its ROADMAP item.
+data loaders); the stage-1 trainer loads no checkpoint, and goes on to its
+LPIPS weights, which the environment sets to a missing file. A flag whose
+path is not ported raises ``NotImplementedError`` naming its ROADMAP item,
+and ``--pipeline`` in the stage-1 trainer the JAX CLI's ``ValueError``.
 """
 
 import json
@@ -14,12 +16,13 @@ import json
 import pytest
 
 from ldm3d_torch.cli.inference import main as port_inference
+from ldm3d_torch.cli.train_autoencoder import main as port_train_ae
 from ldm3d_torch.cli.train_diffusion import main as port_train
 from ldm3d_torch.configs import preset_path
 
 PARALLEL = "'Parallelism'"
 PIPELINE = "'UNet mid_depth stack, then pipeline parallelism'"
-FOLLOW_UPS = "'Stage-2 training follow-ups'"
+FOLLOW_UPS = "'Training follow-ups'"
 
 # (argv, None if the flag runs, else the ROADMAP item its error names)
 FLAGS = {
@@ -46,7 +49,8 @@ FLAGS = {
     "--pipeline-microbatches": [(["--pipeline-microbatches", "2"], PIPELINE)],
 }
 CASES = [(flag, argv, item) for flag, cases in FLAGS.items() for argv, item in cases]
-CLIS = {"inference": port_inference, "train_diffusion": port_train}
+CLIS = {"inference": port_inference, "train_diffusion": port_train,
+        "train_autoencoder": port_train_ae}
 
 
 def test_cases_cover_every_flag_of_the_jax_parser():
@@ -61,7 +65,8 @@ def test_cases_cover_every_flag_of_the_jax_parser():
 def env_file(tmp_path):
     env = {"model_dir": str(tmp_path / "ckpt"), "output_dir": str(tmp_path / "out"),
            "tfevent_path": str(tmp_path / "tb"), "seed": 0, "synthetic_data": True,
-           "synthetic_num": 2, "synthetic_shape": [32, 32, 32], "resume_ckpt": False}
+           "synthetic_num": 2, "synthetic_shape": [32, 32, 32], "resume_ckpt": False,
+           "lpips_weights": str(tmp_path / "missing_lpips.pt")}
     path = tmp_path / "env.json"
     path.write_text(json.dumps(env))
     return str(path)
@@ -72,8 +77,11 @@ def env_file(tmp_path):
                          ids=[" ".join(argv) for _, argv, _ in CASES])
 def test_jax_flag_parses_then_runs_or_names_its_item(cli, flag, argv, item, env_file):
     args = ["-c", preset_path("config_tiny_cpu.json"), "-e", env_file, "--device", "cpu", *argv]
-    if item is None:
-        with pytest.raises(FileNotFoundError, match="checkpoint|No such file"):
+    if cli == "train_autoencoder" and flag == "--pipeline":
+        with pytest.raises(ValueError, match="^--pipeline applies to stage 2"):
+            CLIS[cli](args)
+    elif item is None:
+        with pytest.raises(FileNotFoundError, match="checkpoint|No such file|lpips_weights"):
             CLIS[cli](args)
     else:
         with pytest.raises(NotImplementedError, match=f"^{flag if flag != '-g' else '--gpus'} "

@@ -52,6 +52,8 @@ def test_port_imports_without_nvcc_gpu_or_triton(tmp_path):
         "import ldm3d_torch.ops.attention, ldm3d_torch.ops.groupnorm, ldm3d_torch.nn\n"
         "import ldm3d_torch.ops.conv3d, ldm3d_torch.tools.conv_ab\n"
         "import ldm3d_torch.cli.inference, ldm3d_torch.cli.train_diffusion\n"
+        "import ldm3d_torch.cli.train_autoencoder, ldm3d_torch.training.stage1\n"
+        "import ldm3d_torch.nn.discriminator, ldm3d_torch.nn.lpips, ldm3d_torch.losses\n"
         "import ldm3d_torch.serving.api_server, ldm3d_torch.serving.score\n"
         "import ldm3d_torch.serving.health_check\n"
         "import ldm3d_torch.ops._kernels as k\n"

@@ -247,28 +247,38 @@ def test_bf16_kernel_raises_on_misaligned_views_and_fp32_takes_them():
                 assert tattn.flash_attention_fwd.launches == before + 1
 
 
-def _kernel_names(fn, part: str, launches: int) -> dict:
+def _kernel_names(fn, part: str, launches: int, calls: int = 5, tries: int = 3) -> dict:
     """The device kernels whose names hold ``part`` that one call of ``fn``
-    launches (after a warm-up call), with their launch counts, from the
-    profiler's trace. ``launches``: how many such kernels the call makes. A
-    trace that holds fewer or more is taken again, up to three times: the
-    profiler now and then hands back a session that lost some or all of its
-    device events (seen on the card with torch 2.11)."""
+    launches (after a warm-up call), with their launch counts a call, from
+    the profiler's trace. ``launches``: how many such kernels one call makes.
+
+    The profiler traces CPU and CUDA activity together over a window of
+    ``calls`` calls, and the names are taken from that window: a trace of
+    the card alone came back now and then with no device events at all
+    (torch 2.11). A window that holds other than ``launches * calls`` such
+    kernels is taken again, up to ``tries`` times in all, and the test then
+    fails with what the traces held: an empty trace never passes."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
+    seen = []
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
             torch.cuda.synchronize()
-        names = {ev.key: ev.count for ev in prof.key_averages()
-                 if ev.device_type == DeviceType.CUDA and part in ev.key
-                 and not ev.key.startswith(("Memcpy", "Memset"))}
-        if sum(names.values()) == launches:
-            break
-    return names
+        averages = prof.key_averages()
+        host = {ev.key for ev in averages if ev.device_type == DeviceType.CPU}
+        device = {ev.key: ev.count for ev in averages if ev.device_type == DeviceType.CUDA
+                  and ev.key not in host and not ev.key.startswith(("Memcpy", "Memset"))}
+        names = {k: n for k, n in device.items() if part in k}
+        if sum(names.values()) == launches * calls:
+            return {k: n // calls if n % calls == 0 else n / calls for k, n in names.items()}
+        seen.append({"device_kernels": device, "host_events": len(host)})
+    pytest.fail(f"the profiler's window of {calls} calls did not hold {launches} kernel(s) "
+                f"named *{part}* a call in {tries} tries; the traces held: {seen}")
 
 
 @pytest.mark.cuda

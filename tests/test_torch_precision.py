@@ -77,3 +77,18 @@ def test_train_cli_pins_full_fp32(tmp_path, tf32_on):
     best = main(["-c", cfg, "-e", env, "--device", "cpu", "--max-epochs", "1", "--no-images"])
     assert best == best  # not NaN
     assert _flags() == (False, False)
+
+
+def test_train_autoencoder_cli_pins_full_fp32(tmp_path, tf32_on):
+    from ldm3d_torch.cli.train_autoencoder import main
+    from ldm3d_torch.configs import preset_path
+
+    env = tmp_path / "env.json"
+    env.write_text(json.dumps({"model_dir": str(tmp_path / "ckpt"),
+                               "tfevent_path": str(tmp_path / "tb"), "seed": 0,
+                               "synthetic_data": True, "synthetic_num": 1,
+                               "synthetic_shape": [16, 16, 16], "resume_ckpt": False}))
+    best = main(["-c", preset_path("config_micro_cpu.json"), "-e", str(env), "--device", "cpu",
+                 "--max-epochs", "1", "--no-images"])
+    assert best == best  # not NaN
+    assert _flags() == (False, False)
