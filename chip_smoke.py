@@ -16,7 +16,8 @@ Phases, each printing JSON lines:
    tensor-core attention kernels (bf16 forward on mma.sync and on wgmma,
    bf16 backward on wgmma and on mma.sync, the 3xTF32 fp32 forward and
    backward), of the wide (d > 256) attention kernels, of the one-launch
-   GroupNorm sums or of the tensor-core conv spills, or if ptxas serializes
+   GroupNorm sums (forward and backward) or of the tensor-core conv spills,
+   or if ptxas serializes
    the wgmma of the backward's wgmma kernels;
 3. kernel: the flash-attention forward kernel against its plain PyTorch
    version on the card, at the attention shapes of the flagship model
@@ -91,10 +92,13 @@ Phases, each printing JSON lines:
    against their plain versions at every input the main-path runs gave
    them: the wrappers record each launch's (shape, dtype, strides of x and
    dy), and each recorded input is rebuilt with those strides, checked in
-   bf16 and fp32 (the forward sums also for the same bits on two runs) and
-   timed; the device and host times are summed over each path's launches
-   and set beside PR 5's; gn_host: what the forward wrapper's host time a
-   call goes to, piece by piece;
+   bf16 and fp32 (each kernel also for the same bits on two runs) and
+   timed, the backward sums beside ``aten.native_group_norm_backward``
+   with one group a (batch, channel) (``library_ms``); the device and host
+   times are summed over each path's launches and set beside the recorded
+   figures of the kernels each replaced (for B5 EARLIER_GN_BWD_SUMS; not
+   measured in this run); gn_host and gn_bwd_host: what each wrapper's host time a call goes
+   to, piece by piece;
 8. main path, serving: ``ModelServer`` on the full-width
    ``config_train_32g.json`` models (random weights from a seed), 80^3,
    fp32, DDIM-50, batch 2, behind the port's stdlib HTTP server on
@@ -285,7 +289,8 @@ NO_SPILL = {
                       ("flash_bwd_dq_tf32x3_mma_kernel<", 3),
                       ("flash_bwd_dkv_tf32x3_mma_kernel<", 3),
                       ("flash_bwd_dq_wide_kernel<", 2), ("flash_bwd_dkv_wide_kernel<", 2)),
-    "libgroupnorm_sums-": (("gn_sums_onepass<", 8),),  # 2 dtypes x 2 load widths x 2 combines
+    # B4 and B5 each: 2 dtypes x 2 load widths x 2 combines
+    "libgroupnorm_sums-": (("gn_sums_onepass<", 8), ("gn_bwd_sums_onepass<", 8)),
     "libconv3d_igemm-": (("conv3d_igemm_wgmma_kernel", 1), ("conv3d_igemm_tf32x3_kernel", 1)),
 }
 # wgmma kernels whose products ptxas must not serialize (its C75xx "wgmma
@@ -336,6 +341,44 @@ EARLIER_CONV_MS = {((8, 64, 64, 64, 64), "bfloat16"): 29.47, ((8, 64, 64, 64, 64
 PR5_GN_SUMS = {"sampling": {"ms": 15.96, "host_ms": 209.0}, "serving": {"ms": 79.84,
                "host_ms": 777.9}, "training": {"ms": 36.73, "host_ms": 33.20},
                "host_ms_per_call": 0.090}
+# Recorded figures, not measured by this script: B5's split pass + combine
+# pair that gn_bwd_sums_onepass replaced, as commit ee8c90c has it, timed by
+# that commit's own chip_smoke.py (PERF.md, H100 80GB HBM3 at 700 W): device
+# and host ms summed over each path's launches (396 a stage-1 run), and
+# device ms (and host ms at gn_bwd_host's input) a call by input, x and dy
+# channels_last_3d
+EARLIER_GN_BWD_SUMS = {
+    "host_ms": {((1, 256, 16, 16, 16), "bfloat16"): 0.0439},
+    "paths": {"training_ae": {"ms": 8.681, "host_ms": 27.17},
+              "training_ae_fp32": {"ms": 11.22, "host_ms": 30.25},
+              "training": {"ms": 6.856, "host_ms": 12.26},
+              "training_fp32": {"ms": 10.14, "host_ms": 10.47}},
+    "ms": {((1, 64, 16, 16, 16), "bfloat16"): 0.006722, ((1, 64, 16, 16, 16), "float32"): 0.006514,
+           ((1, 64, 32, 32, 32), "bfloat16"): 0.01163, ((1, 64, 32, 32, 32), "float32"): 0.01215,
+           ((1, 64, 64, 64, 64), "bfloat16"): 0.05392, ((1, 64, 64, 64, 64), "float32"): 0.07143,
+           ((1, 128, 8, 8, 8), "bfloat16"): 0.006133, ((1, 128, 8, 8, 8), "float32"): 0.005957,
+           ((1, 128, 16, 16, 16), "bfloat16"): 0.006782,
+           ((1, 128, 16, 16, 16), "float32"): 0.00663,
+           ((1, 128, 32, 32, 32), "bfloat16"): 0.01312, ((1, 128, 32, 32, 32), "float32"): 0.01471,
+           ((1, 128, 64, 64, 64), "bfloat16"): 0.07608, ((1, 128, 64, 64, 64), "float32"): 0.1044,
+           ((1, 256, 16, 16, 16), "bfloat16"): 0.006829,
+           ((1, 256, 16, 16, 16), "float32"): 0.006752,
+           ((1, 256, 32, 32, 32), "bfloat16"): 0.01846, ((1, 256, 32, 32, 32), "float32"): 0.03393,
+           ((20, 256, 10, 10, 10), "bfloat16"): 0.009488,
+           ((20, 256, 10, 10, 10), "float32"): 0.01329,
+           ((20, 256, 20, 20, 20), "bfloat16"): 0.08519, ((20, 256, 20, 20, 20), "float32"): 0.1235,
+           ((20, 512, 5, 5, 5), "bfloat16"): 0.006218, ((20, 512, 5, 5, 5), "float32"): 0.006408,
+           ((20, 512, 10, 10, 10), "bfloat16"): 0.01856, ((20, 512, 10, 10, 10), "float32"): 0.03392,
+           ((20, 512, 20, 20, 20), "bfloat16"): 0.1578, ((20, 512, 20, 20, 20), "float32"): 0.2289,
+           ((20, 768, 10, 10, 10), "bfloat16"): 0.03098, ((20, 768, 10, 10, 10), "float32"): 0.04775,
+           ((20, 768, 20, 20, 20), "bfloat16"): 0.2281, ((20, 768, 20, 20, 20), "float32"): 0.3337,
+           ((20, 1024, 5, 5, 5), "bfloat16"): 0.007267, ((20, 1024, 5, 5, 5), "float32"): 0.007829,
+           ((20, 1024, 10, 10, 10), "bfloat16"): 0.04044,
+           ((20, 1024, 10, 10, 10), "float32"): 0.06166,
+           ((20, 1536, 5, 5, 5), "bfloat16"): 0.008701, ((20, 1536, 5, 5, 5), "float32"): 0.009958,
+           ((20, 1536, 10, 10, 10), "bfloat16"): 0.05596,
+           ((20, 1536, 10, 10, 10), "float32"): 0.08712,
+           ((20, 2048, 5, 5, 5), "bfloat16"): 0.01001, ((20, 2048, 5, 5, 5), "float32"): 0.01827}}
 # card-vs-CPU train step: loss relative 1e-5; each gradient leaf within 1e-3
 # of its largest |g| (fp32 convolutions summed in other orders through the
 # whole UNet forward and back); parameters within 2 lr + 1e-6: Adam's first
@@ -833,7 +876,11 @@ def _gn_check(torch, G, kernel: str, x, dy, mean, inv) -> tuple[float, float]:
         terms = (xf, xf * xf)
     else:
         got = G.gn_bwd_sums(dy, x, mean, inv)
+        again = G.gn_bwd_sums(dy, x, mean, inv)
         torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"gn_bwd_sums gave other sums on a second run at {tuple(x.shape)} strides "
+              f"{x.stride()}, dy strides {dy.stride()} {x.dtype}")
         want = G.gn_bwd_sums_reference(dy, x, mean, inv)
         shape = mean.shape + (1,) * len(dims)
         dyf = dy.float()
@@ -849,13 +896,67 @@ def _gn_check(torch, G, kernel: str, x, dy, mean, inv) -> tuple[float, float]:
     return abs_err, worst
 
 
+def _library_gn_bwd(torch, dy, x, mean, inv) -> dict:
+    """B5's yardstick: ``aten.native_group_norm_backward`` on dy and x viewed
+    as one sample of B * C channels, one group a channel, so that its
+    per-group mean and rstd are B5's mean_c and inv_c: it returns (dX
+    unasked, sum_v dy * x_hat, sum_v dy) per (batch, channel), B5's two sums
+    at any batch. The stats and the weight take the first dtype the op takes
+    on CUDA (fp32, else x's). Timed on the path's tensors with the NCDHW
+    copies that the view needs (``library_ms``; the op reads NCDHW memory),
+    and on premade NCDHW copies, the op alone (``library_ncdhw_ms``). Its
+    largest difference from the plain version, over GN_REL of the absolute
+    sums, says that it computed the same sums."""
+    from ldm3d_torch.ops.groupnorm import gn_bwd_sums_reference
+
+    op = torch.ops.aten.native_group_norm_backward
+    b, c = x.shape[:2]
+    bc, hw = b * c, x[0, 0].numel()
+    flat = (1, bc, hw)
+    xc, dyc = x.contiguous().view(flat), dy.contiguous().view(flat)
+    errors = []
+    for stats_dt in (torch.float32, x.dtype):
+        m, r = mean.to(stats_dt).view(1, bc), inv.to(stats_dt).view(1, bc)
+        w = torch.ones(bc, dtype=stats_dt, device=x.device)
+        try:
+            _, dgamma, dbeta = op(dyc, xc, m, r, w, 1, bc, hw, bc, [False, True, True])
+            torch.cuda.synchronize()
+            break
+        except RuntimeError as e:
+            errors.append(f"{stats_dt}: {str(e).splitlines()[0]}")
+    else:
+        raise RuntimeError(f"native_group_norm_backward takes none of the stats dtypes: {errors}")
+    dims = tuple(range(2, x.dim()))
+    shape = mean.shape + (1,) * len(dims)
+    dyf = dy.float()
+    terms = (dyf, dyf * (x.float() - mean.reshape(shape)) * inv.reshape(shape))
+    err = max(((got.view(b, c).double() - want.double()).abs()
+               / (GN_REL * t.abs().sum(dim=dims, dtype=torch.float64))).max().item()
+              for got, want, t in zip((dbeta, dgamma), gn_bwd_sums_reference(dy, x, mean, inv),
+                                      terms))
+    del dyf, terms
+    rec = {"library_ms": cuda_ms(torch, lambda: op(dy.contiguous().view(flat),
+                                                   x.contiguous().view(flat), m, r, w, 1, bc,
+                                                   hw, bc, [False, True, True])),
+           "library_ncdhw_ms": cuda_ms(torch, lambda: op(dyc, xc, m, r, w, 1, bc, hw, bc,
+                                                         [False, True, True])),
+           "library_stats_dtype": str(stats_dt).removeprefix("torch."),
+           "library_err_over_tol": err}
+    if errors:
+        rec["library_refused"] = errors
+    return rec
+
+
 def phase_kernel_gn(torch, paths: dict) -> dict:
     """GroupNorm sums kernels against their plain versions at every input the
     main paths gave them. ``paths`` maps a path's name to the wrappers'
     ``cases`` from its run: {kernel: {(shape, dtype, x strides[, dy
     strides]): launches}}. Each input is rebuilt with its strides, checked in
-    bf16 and fp32 and timed in its own dtype; returns each path's totals over
-    its launches and the largest errors."""
+    bf16 and fp32 (B4 and B5 each giving the same bits on a second run) and
+    timed in its own dtype, B5 beside its library yardstick
+    (:func:`_library_gn_bwd`) and the replaced kernels' recorded time
+    (EARLIER_GN_BWD_SUMS); returns
+    each path's totals over its launches and the largest errors."""
     from ldm3d_torch.ops import groupnorm as G
 
     gen = torch.Generator(device="cuda").manual_seed(4)
@@ -893,6 +994,9 @@ def phase_kernel_gn(torch, paths: dict) -> dict:
                         run = lambda: G.gn_bwd_sums(dy, x, mean, inv)  # noqa: E731
                         plain = lambda: G.gn_bwd_sums_reference(dy, x, mean, inv)  # noqa: E731
                         nbytes = 2.0 * b * v * c * isz + 16.0 * b * c
+                        row["recorded_earlier_ms"] = EARLIER_GN_BWD_SUMS["ms"].get(
+                            (tuple(shape), dtype))
+                        row.update(_library_gn_bwd(torch, dy, x, mean, inv))
                     row.update(ms=cuda_ms(torch, run), host_ms=host_ms(torch, run),
                                plain_ms=cuda_ms(torch, plain),
                                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
@@ -914,13 +1018,17 @@ def phase_kernel_gn(torch, paths: dict) -> dict:
                 continue
             rows = [(n, measured[(kernel, key)]) for key, n in cases.items()]
             tot = {k: sum(n * r[k] for n, r in rows)
-                   for k in ("ms", "host_ms", "plain_ms", "bound_ms", "var_mean_ms")
-                   if k in rows[0][1]}
+                   for k in ("ms", "host_ms", "plain_ms", "bound_ms", "var_mean_ms", "library_ms",
+                             "library_ncdhw_ms")
+                   if all(k in r for _, r in rows)}
             tot["launches"] = sum(cases.values())
             tot["ms_per_call"] = tot["ms"] / tot["launches"]
             tot["host_ms_per_call"] = tot["host_ms"] / tot["launches"]
+            tot["share_of_bound"] = tot["bound_ms"] / tot["ms"]
             if kernel == "gn_sums" and path in PR5_GN_SUMS:
                 tot["pr5"] = PR5_GN_SUMS[path]
+            if kernel == "gn_bwd_sums" and path in EARLIER_GN_BWD_SUMS["paths"]:
+                tot["recorded_earlier"] = EARLIER_GN_BWD_SUMS["paths"][path]
             totals[(path, kernel)] = tot
             emit({"phase": "kernel_gn_path", "path": path, "kernel": kernel, **tot,
                   "distinct_inputs": len(cases), "x_layouts": _layout_tally(torch, cases, 2),
@@ -945,7 +1053,8 @@ def phase_gn_host(torch) -> dict:
     piece, at a batch-1 UNet input (1, 1024, 5, 5, 5) fp32: the whole call,
     then each step it takes alone, and the steps PR 5's wrapper took that
     this one does not (a device guard around the current stream, a ctypes
-    stride array)."""
+    stride array); then the backward wrapper's own steps at a stage-1 input
+    (:func:`_gn_bwd_host`)."""
     import ctypes
 
     from ldm3d_torch.ops import groupnorm as G
@@ -992,6 +1101,45 @@ def phase_gn_host(torch) -> dict:
     torch.cuda.synchronize()
     emit({"phase": "gn_host", "shape_bcdhw": list(x.shape), "dtype": "float32",
           "host_us": rec, "pr5_host_us_per_call": PR5_GN_SUMS["host_ms_per_call"] * 1e3})
+    return {"gn_sums": rec, "gn_bwd_sums": _gn_bwd_host(torch)}
+
+
+def _gn_bwd_host(torch) -> dict:
+    """The backward GroupNorm wrapper's host time a call, piece by piece, at
+    a stage-1 input, (1, 256, 16, 16, 16) bf16 with x and dy channels_last_3d:
+    the whole call and each step it takes alone; the rest of the call is
+    its checks of mean and inv and its launch count. The replaced wrapper's
+    host time is the recorded figure beside it."""
+    from ldm3d_torch.ops import groupnorm as G
+
+    shape = (1, 256, 16, 16, 16)
+    x, dy = (torch.randn(shape, device="cuda").to(torch.bfloat16).contiguous(
+        memory_format=torch.channels_last_3d) for _ in range(2))
+    mean, inv = torch.zeros(shape[:2], device="cuda"), torch.ones(shape[:2], device="cuda")
+    G.gn_bwd_sums(dy, x, mean, inv)
+    dev = x.device
+    plan = G.gn_bwd_sums_plan_of(dy, x, mean, inv)
+    out = torch.empty((2, plan.b, plan.c), device="cuda")
+    torch.cuda.synchronize()
+    pieces = {
+        "whole_call": lambda: G.gn_bwd_sums(dy, x, mean, inv),
+        "plan_lookup": lambda: G.gn_bwd_sums_plan_of(dy, x, mean, inv),
+        "checks_and_plan_on_a_new_input": lambda: G.gn_bwd_sums_plan_of(dy, x, mean, inv,
+                                                                        cached=False),
+        "output_allocation": lambda: torch.empty((2, plan.b, plan.c), device=dev),
+        "workspace_stream_and_launch": lambda: G._launch_bwd_sums(
+            plan, dy.data_ptr(), x.data_ptr(), mean, inv, out, x.dtype, dev),
+        "cases_key": lambda: (tuple(x.shape), "bfloat16", x.stride(), dy.stride()),
+        "output_unbind": lambda: out.unbind(0),
+    }
+    rec = {name: _host_us(f) for name, f in pieces.items()}
+    torch.cuda.synchronize()
+    earlier = EARLIER_GN_BWD_SUMS["paths"]["training_ae"]
+    emit({"phase": "gn_bwd_host", "shape_bcdhw": list(shape), "dtype": "bfloat16",
+          "host_us": rec,
+          "recorded_earlier_stage1_host_us_per_call": earlier["host_ms"] / 396 * 1e3,
+          "recorded_earlier_host_us_this_input":
+              EARLIER_GN_BWD_SUMS["host_ms"][(shape, "bfloat16")] * 1e3})
     return rec
 
 
@@ -1158,7 +1306,7 @@ KERNEL_CATEGORIES = (
     ("attention forward (flash_fwd)", ("flash_fwd_",)),
     ("attention backward (flash_bwd)", ("flash_bwd_dq_", "flash_bwd_dkv_")),
     ("GroupNorm sums forward (B4, gn_sums_onepass)", ("gn_sums_onepass",)),
-    ("GroupNorm sums backward (B5, partial_sums + combine)", ("partial_sums", "combine(")),
+    ("GroupNorm sums backward (B5, gn_bwd_sums_onepass)", ("gn_bwd_sums_onepass",)),
     ("convolution", ("fprop", "dgrad", "wgrad", "conv", "winograd", "implicit")),
     ("matmul (Dense)", ("gemm", "gemv", "nvjet", "cublas", "cutlass", "splitk")),
     ("reduction", ("reduce",)),
@@ -1192,6 +1340,14 @@ def _profiled(torch, fn, record_shapes: bool = False):
                  record_shapes=record_shapes) as prof:
         out = fn()
     return prof, out
+
+
+def _device_kernel_count(torch, prof, patterns) -> int:
+    """Launches of the device kernels whose names hold any of ``patterns``."""
+    from torch.autograd import DeviceType
+
+    return sum(ev.count for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA
+               and any(p in ev.key for p in patterns))
 
 
 def _busy_ms(spans) -> float:
@@ -1551,9 +1707,21 @@ def phase_train_ae_profile(torch, ns, dt, step_ms: float) -> dict:
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3
 
+    from ldm3d_torch.ops import groupnorm as G
+
+    before = G.gn_bwd_sums.launches
     prof, window_ms = _profiled(torch, one_step, record_shapes=True)
+    calls = G.gn_bwd_sums.launches - before
     dtype = str(dt).removeprefix("torch.")
+    # B5 is one kernel a call: as many gn_bwd_sums_onepass kernels as calls,
+    # none of the split pass and combine pass it replaced
+    b5 = _device_kernel_count(torch, prof, ("gn_bwd_sums_onepass",))
+    replaced = _device_kernel_count(torch, prof, ("partial_sums", "combine("))
+    check(calls > 0 and b5 == calls and replaced == 0,
+          f"profiled stage-1 step: {b5} gn_bwd_sums_onepass kernels for {calls} gn_bwd_sums "
+          f"calls, {replaced} partial_sums/combine kernels")
     summary = _profile_summary(torch, prof, window_ms)
+    summary["gn_bwd_sums_calls"], summary["gn_bwd_sums_kernels"] = calls, b5
     summary["unprofiled_step_ms"] = step_ms
     summary["device_idle_share_of_unprofiled_step"] = 1.0 - summary["device_busy_ms"] / step_ms
     emit({"phase": "profile", "path": f"stage-1 adversarial step (batch 1, 64^3, {dtype})",
@@ -2084,8 +2252,11 @@ def _kernel_summary(fwd: dict, bwd: dict, gn: dict, sample_launches: dict,
         row = {"name": name, "route": "cuda", "source": "ldm3d_torch/csrc/groupnorm_sums.cu",
                "replaces": replaces, "launches": tr["launches"],
                "max_abs_err": gn["max_abs_err"][name], "ms": tr["ms"], "plain_ms": tr["plain_ms"],
-               "bound_ms": tr["bound_ms"], "bound_by": "bytes", "library_ms": None,
-               "library_note": library_note, "host_ms": tr["host_ms"], "per": run_note}
+               "bound_ms": tr["bound_ms"], "bound_by": "bytes",
+               "library_ms": tr.get("library_ms"), "library_note": library_note,
+               "host_ms": tr["host_ms"], "per": run_note}
+        if "library_ncdhw_ms" in tr:
+            row["library_ncdhw_ms"] = tr["library_ncdhw_ms"]
         if "var_mean_ms" in tr:
             row["var_mean_ms"] = tr["var_mean_ms"]
         se = gn["totals"].get(("serving", name))
@@ -2105,6 +2276,8 @@ def _kernel_summary(fwd: dict, bwd: dict, gn: dict, sample_launches: dict,
             row.update({f"{tag}_launches": ae["launches"], f"{tag}_ms": ae["ms"],
                         f"{tag}_plain_ms": ae["plain_ms"], f"{tag}_bound_ms": ae["bound_ms"],
                         f"{tag}_host_ms": ae["host_ms"]})
+            row.update({f"{tag}_{k}": ae[k] for k in ("library_ms", "library_ncdhw_ms")
+                        if k in ae})
         sa = gn["totals"].get(("sampling", name))
         if sa is not None:
             check(sa["launches"] == sample_launches[name],
@@ -2207,7 +2380,11 @@ def _kernel_summary(fwd: dict, bwd: dict, gn: dict, sample_launches: dict,
                "squares; torch.var_mean (Welford mean and variance) is timed beside it as "
                "var_mean_ms"),
         gn_row("gn_bwd_sums", "ldm3d_tpu/ops/groupnorm.py:144",
-               "no single PyTorch call returns sum(dy) and sum(dy * x_hat)"),
+               "torch.ops.aten.native_group_norm_backward(..., [False, True, True]) on dy and "
+               "x viewed as one sample of batch * channels, one group a channel, returns both "
+               "per-(batch, channel) sums: library_ms and *_library_ms time it over each "
+               "run's launches with the NCDHW copies that view needs, *_library_ncdhw_ms on "
+               "premade NCDHW copies"),
         conv_row,
     ]
     rows.insert(1, wgmma_row)

@@ -11,7 +11,9 @@ Checkpoints under ``model_dir``: ``autoencoder_last.pt`` holds the whole
 resumable state, both models, both optimizers, both update counts, the
 random generator's state and (in its meta) the epoch, so a resume
 (``resume_ckpt``) continues the run exactly; it is written at each
-validation. ``autoencoder_best.pt`` and ``discriminator_best.pt`` hold each
+validation. As in the reference, a resumed run restarts the best validation
+loss at inf and the TensorBoard step count at 0: its first validation
+rewrites ``best``. ``autoencoder_best.pt`` and ``discriminator_best.pt`` hold each
 model's params under ``"state_dict"``, written when the validation loss
 improves: the first is what stage 2 (``cli.train_diffusion``) loads.
 
@@ -157,7 +159,7 @@ def main(argv=None, timings: dict | None = None) -> float:
     # checkpoints: G and D resume from one 'last' file -----------------------------
     g_ckpt = CheckpointManager(args.model_dir, "autoencoder")
     d_ckpt = CheckpointManager(args.model_dir, "discriminator")
-    start_epoch, best_val, total_step = 0, float("inf"), 0
+    start_epoch = 0
     if getattr(args, "resume_ckpt", False):
         restored, ok = g_ckpt.try_restore("last", map_location=device)
         if ok:
@@ -166,11 +168,12 @@ def main(argv=None, timings: dict | None = None) -> float:
             gen.set_state(restored["generator"].cpu())
             meta = restored["meta"]
             start_epoch = int(meta.get("epoch", -1)) + 1
-            best_val = float(meta.get("best_val", best_val))
-            total_step = int(meta.get("total_step", 0))
             log.info("resumed autoencoder from epoch %d", start_epoch)
         else:
             log.info("train autoencoder from scratch")
+    # as the reference, a resumed run starts both afresh: its first validation
+    # writes 'best', and its _iter scalars count from step 1 again
+    best_val, total_step = float("inf"), 0
 
     train_step = make_stage1_train_step(ae, disc, lpips, s1cfg)
     eval_step = make_stage1_eval_step(ae, lpips, s1cfg)
@@ -237,8 +240,7 @@ def main(argv=None, timings: dict | None = None) -> float:
         writer.add_scalar("val_recon_loss", val_loss, epoch)
         is_best = val_loss < best_val
         best_val = min(best_val, val_loss)
-        meta = {"epoch": epoch, "val_loss": val_loss, "best_val": best_val,
-                "total_step": total_step}
+        meta = {"epoch": epoch, "val_loss": val_loss, "best_val": best_val}
         g_ckpt.save("last", {"g": g_state.state_dict(), "d": d_state.state_dict(),
                              "generator": gen.get_state()}, meta)
         if is_best:

@@ -7,7 +7,10 @@ trains the UNet with the epsilon-MSE through concat conditioning (Adam, the
 configured LR schedule, global-norm clip 1.0), validates with the same loss
 every ``val_interval`` epochs, saves the ``best``/``last`` (and with
 ``--ema-decay`` the ``ema``) diffusion checkpoints, and periodically samples
-one volume conditionally with the DDPM scheduler for TensorBoard.
+one volume conditionally with the DDPM scheduler for TensorBoard. A resume
+(``resume_ckpt``) restores the train state from ``last`` and, as in the
+reference, restarts the best validation loss at inf and the TensorBoard step
+count at 0, so its first validation rewrites ``best``.
 
 Randomness: one ``torch.Generator`` on the training device, seeded from the
 environment's ``seed``, gives every draw (posterior noise, noise, timesteps,
@@ -151,17 +154,19 @@ def main(argv=None, timings: dict | None = None) -> float:
                        ema_decay=args.ema_decay)
 
     u_ckpt = CheckpointManager(args.model_dir, "diffusion")
-    start_epoch, best_val = 0, float("inf")
+    start_epoch = 0
     if getattr(args, "resume_ckpt", False):
         restored, ok = u_ckpt.try_restore("last", map_location=device)
         if ok:
             state.load_state_dict(restored)
             meta = restored["meta"]
             start_epoch = int(meta.get("epoch", -1)) + 1
-            best_val = float(meta.get("best_val", best_val))
             log.info("resumed diffusion model from epoch %d", start_epoch)
         else:
             log.info("train diffusion model from scratch")
+    # as the reference, a resumed run starts both afresh: its first validation
+    # writes 'best', and its _iter scalars count from step 1 again
+    best_val, total_step = float("inf"), 0
 
     eval_step = make_stage2_eval_step(unet, ae, scheduler, s2cfg)
     if args.cache_latents:
@@ -179,7 +184,6 @@ def main(argv=None, timings: dict | None = None) -> float:
             writer.add_image(f"train_label_{axis}",
                              visualize_one_slice_in_3d_image(first["label"][0, ..., 0], axis), 1)
 
-    total_step = state.step
     for epoch in range(start_epoch, max_epochs):
         t0 = time.time()
         losses = []
@@ -220,8 +224,7 @@ def main(argv=None, timings: dict | None = None) -> float:
             log.info("Epoch %d val_diffusion_loss: %.5f", epoch, val_loss)
             is_best = val_loss < best_val
             best_val = min(best_val, val_loss)
-            meta = {"epoch": epoch, "val_loss": val_loss, "best_val": best_val,
-                    "scale_factor": scale_factor}
+            meta = {"epoch": epoch, "val_loss": val_loss, "scale_factor": scale_factor}
             u_ckpt.save_best_and_last(state.state_dict(), is_best, meta)
             if is_best:
                 if state.ema_params is not None:

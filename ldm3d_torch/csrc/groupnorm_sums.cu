@@ -22,36 +22,40 @@
 // blocks even at batch 1. x is read in the activations' channels_last_3d
 // memory, (B, V, C) with unit channel stride.
 //
-// * gn_sums (B4): one launch a call, gn_sums_onepass<T, VEC>.
-//   - Loads: where x's base, voxel and batch strides sit on 16 bytes and VEC
-//     divides C, each thread reads VEC = 16 bytes of neighbouring channels
-//     (4 fp32 or 8 bf16), and the 8 threads of a voxel row cover 8 * VEC
-//     channels, one 128-byte line; otherwise VEC = 1, one element a thread,
-//     32 threads a row. The block is CT x (256 / CT) threads, CT a power of
-//     two up to 32 (ldm3d_torch/ops/groupnorm.py gn_sums_plan picks it):
-//     few channels a block and many voxel rows, so that a small volume at
-//     batch 1 still spreads over many blocks with few loads a thread.
-//   - Combine, "last block combines": each block reduces its voxel rows in
-//     shared memory and writes fp32 partials, then __threadfence() and one
-//     ticket from the arrival counter of its (batch, channel group); the
-//     block that takes the last ticket adds the partials in a fixed order
-//     (256 / (CT * VEC) threads a channel, each over every so many splits,
-//     then their sums), writes S1 and S2, and sets the counter back to 0.
-//     With one chunk a block writes S1 and S2 itself. The partials and the
+// Both are one launch a call, gn_sums_onepass<T, VEC, CLUSTER> (B4) and
+// gn_bwd_sums_onepass<T, VEC, CLUSTER> (B5), two kernels over one body,
+// onepass(), that differ only in what a thread loads and adds (SumsTerms,
+// BwdTerms); ldm3d_torch/ops/groupnorm.py gn_sums_plan and gn_bwd_sums_plan
+// lay out their grids.
+//   - Loads: where every operand's base, voxel and batch strides sit on 16
+//     bytes, its channel stride is 1 and VEC divides C, each thread reads VEC
+//     = 16 bytes of neighbouring channels of each operand (4 fp32 or 8 bf16),
+//     and the 8 threads of a voxel row cover 8 * VEC channels, one 128-byte
+//     line; otherwise VEC = 1, one element a thread, 32 threads a row (B5's
+//     dy then takes any channel stride). The block is CT x (256 / CT)
+//     threads, CT a power of two up to 32: few channels a block and many
+//     voxel rows, so that a small volume at batch 1 still spreads over many
+//     blocks. B5 keeps the VEC means and inverse deviations of its channels
+//     in registers, loaded once a thread.
+//   - Combine, "last block combines": each block reduces its voxel rows (by
+//     warp shuffles, then the warps in order) and writes fp32 partials, then
+//     __threadfence() and one ticket from the arrival counter of its (batch,
+//     channel group); the block that takes the last ticket adds the partials
+//     in a fixed order, writes S1 and S2, and sets the counter back to 0. Its
+//     threads read 16 bytes (4 channels) of partials a load where VEC > 1,
+//     up to 256 / 16 = 16 chunks at once, each thread several in flight. With
+//     one chunk a block writes S1 and S2 itself. The partials and the
 //     counters live in buffers per device that the wrapper keeps (the
-//     counters zeroed once); they assume that the calls that share them run
-//     in order, as calls on one stream do.
+//     counters zeroed once) and that B4 and B5 share; they assume that the
+//     calls that share them run in order, as calls on one stream do.
 //   - Combine, cluster: where up to 8 chunks do (a small volume), the
 //     blocks of a channel group form one thread-block cluster instead, and
 //     its first block adds the others' sums from their shared memory in
-//     chunk order: no global round trip, no fence and no counter. On the
-//     H100 it was 0.5 to 0.7 us a call faster than the last-block combine at
-//     the same chunks (PERF.md), and the grid plan takes it where it can.
-// * gn_bwd_sums (B5): two launches a call. partial_sums writes each chunk's
-//   fp32 partials (a block of 32 x 8 threads takes 32 neighbouring channels
-//   over 8 voxel rows, then reduces its 8 rows in shared memory) and combine
-//   adds them in a fixed order. x's voxel and batch strides, and all three of
-//   dy's, are arguments, so dy may have another layout than x.
+//     chunk order: no global round trip, no fence and no counter. The plans
+//     take it where it measured faster on the H100 (PERF.md): B4 at up to 8
+//     chunks, B5 only at a few voxel rows a thread (in bf16 at large volumes
+//     a cluster of 2 to 8 blocks ran up to 1.7 times slower than the same
+//     blocks without one).
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -62,116 +66,30 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int CW = 32;   // channels per block of the split pass
-constexpr int VR = 8;    // voxel rows per block of the split pass
-constexpr int NT = 256;  // threads per block of the combine pass
+constexpr int GN_NT = 256;  // threads per block
+constexpr int GN_WARPS = GN_NT / 32;
+constexpr int GN_MAX_CW = 64;  // channels a block: 8 lanes of 8 bf16, or 32 of one
+constexpr int GN_MAX_CLUSTER = 8;  // blocks in a cluster (the portable limit)
+// shared sums: the warps' (GN_WARPS * GN_MAX_CW) or the last-block combine's
+// (GN_NT threads of up to 4 channels)
+constexpr int GN_RED = 4 * GN_NT;
+// blocks an SM holds at least (the registers capped to fit): 6 keeps
+// gn_sums_onepass at the 40 registers it had before its loads were
+// unrolled, which the batch-20 grids of thousands of blocks need; 4 for
+// gn_bwd_sums_onepass, which holds twice the loads (PERF.md)
+constexpr int GN_SUMS_MIN_BLOCKS = 6;
+constexpr int GN_BWD_MIN_BLOCKS = 4;
+// voxel rows (or the combine's chunks) whose loads a thread issues before
+// their adds: within those registers without a spill (4 spilled in bf16,
+// PERF.md)
+constexpr int GN_UNROLL = 2;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
 
-struct View {
-  int64_t sb, sv, sc;
-};
-
-// The two running sums of one element of the backward: dy and dy * x-hat.
-template <typename T>
-struct Terms {
-  const T* x;
-  const T* dy;
-  const float* mean;
-  const float* inv;
-  View xv, dv;
-  int C;
-
-  __device__ __forceinline__ void add(int b, int v, int c, float& a1, float& a2) const {
-    const float xe = to_float(x[b * xv.sb + (int64_t)v * xv.sv + c * xv.sc]);
-    const float g = to_float(dy[b * dv.sb + (int64_t)v * dv.sv + c * dv.sc]);
-    const float xh = (xe - mean[b * C + c]) * inv[b * C + c];
-    a1 += g;
-    a2 = fmaf(g, xh, a2);
-  }
-};
-
-// grid (ceil(C / CW), nsplit, B), block (CW, VR); partials (B, nsplit, C).
-template <typename T>
-__global__ void __launch_bounds__(CW * VR) partial_sums(
-    Terms<T> terms, float* __restrict__ p1, float* __restrict__ p2, int V, int chunk) {
-  __shared__ float r1[VR][CW];
-  __shared__ float r2[VR][CW];
-  const int C = terms.C;
-  const int c = blockIdx.x * CW + threadIdx.x;
-  const int split = blockIdx.y;
-  const int b = blockIdx.z;
-  const int v0 = split * chunk;
-  const int v1 = min(V, v0 + chunk);
-  float a1 = 0.f, a2 = 0.f;
-  if (c < C)
-    for (int v = v0 + threadIdx.y; v < v1; v += VR) terms.add(b, v, c, a1, a2);
-  r1[threadIdx.y][threadIdx.x] = a1;
-  r2[threadIdx.y][threadIdx.x] = a2;
-  __syncthreads();
-  if (threadIdx.y == 0 && c < C) {
-    float s1 = 0.f, s2 = 0.f;
-#pragma unroll
-    for (int r = 0; r < VR; ++r) {
-      s1 += r1[r][threadIdx.x];
-      s2 += r2[r][threadIdx.x];
-    }
-    const int64_t o = ((int64_t)b * gridDim.y + split) * C + c;
-    p1[o] = s1;
-    p2[o] = s2;
-  }
-}
-
-// grid (ceil(C / NT), B): out[b, c] = sum over splits in order.
-__global__ void __launch_bounds__(NT) combine(const float* __restrict__ p1,
-                                              const float* __restrict__ p2,
-                                              float* __restrict__ s1, float* __restrict__ s2,
-                                              int nsplit, int C) {
-  const int c = blockIdx.x * NT + threadIdx.x;
-  const int b = blockIdx.y;
-  if (c >= C) return;
-  float a1 = 0.f, a2 = 0.f;
-  for (int s = 0; s < nsplit; ++s) {
-    const int64_t o = ((int64_t)b * nsplit + s) * C + c;
-    a1 += p1[o];
-    a2 += p2[o];
-  }
-  s1[(int64_t)b * C + c] = a1;
-  s2[(int64_t)b * C + c] = a2;
-}
-
-template <typename T>
-cudaError_t run(const Terms<T>& terms, float* s1, float* s2, float* scratch, int B, int V,
-                int C, int nsplit, cudaStream_t stream) {
-  const int chunk = (V + nsplit - 1) / nsplit;
-  float* p1 = scratch;
-  float* p2 = scratch + (int64_t)B * nsplit * C;
-  const dim3 grid((C + CW - 1) / CW, nsplit, B);
-  partial_sums<T><<<grid, dim3(CW, VR), 0, stream>>>(terms, p1, p2, V, chunk);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  combine<<<dim3((C + NT - 1) / NT, B), NT, 0, stream>>>(p1, p2, s1, s2, nsplit, C);
-  return cudaGetLastError();
-}
-
-// The sizes the grids take, and x channels minor.
-bool bad_args(int B, int V, int C, int nsplit, const int64_t* x_strides) {
-  return B <= 0 || V <= 0 || C <= 0 || nsplit <= 0 || nsplit > V || B > 65535 ||
-         nsplit > 65535 || C > 65535 || x_strides[2] != 1;
-}
-
-// ---------------------------------------------------------------------------
-// B4: the forward sums in one launch
-
-constexpr int GN_NT = 256;  // threads per block of gn_sums_onepass
-constexpr int GN_WARPS = GN_NT / 32;
-constexpr int GN_MAX_CW = 64;  // channels a block: 8 lanes of 8 bf16, or 32 of one
-constexpr int GN_MAX_CLUSTER = 8;  // blocks in a cluster (the portable limit)
-
 // VEC neighbouring elements as fp32: one 16-byte load where VEC > 1
 template <typename T, int VEC>
-__device__ __forceinline__ void load_vec(const T* __restrict__ p, float (&out)[VEC]) {
+__device__ __forceinline__ void load_vec(const T* p, float (&out)[VEC]) {
   if constexpr (VEC == 1) {
     out[0] = to_float(*p);
   } else if constexpr (sizeof(T) == 4) {
@@ -194,22 +112,133 @@ __device__ __forceinline__ void load_vec(const T* __restrict__ p, float (&out)[V
   }
 }
 
-// Grid (ceil(C / (ct * VEC)), nsplit, B), GN_NT threads as ct channel lanes
-// x (GN_NT / ct) voxel rows. Block (group, split, b) sums channels
-// [group * ct * VEC, + ct * VEC) over voxels [split * chunk, + chunk) of
-// batch b; thread (tx, ty) takes channels tx * VEC .. + VEC - 1 of the group
-// at voxels ty, ty + GN_NT / ct, ... of the chunk. The block adds its rows
-// in a fixed order: within a warp by shuffles, then the warps' sums in order.
-// out: S1 (B, C), S2 (B, C); partials: for the last-block combine P1, P2
-// (B, nsplit, C); all fp32; counters: one per (b, group), 0 between calls. With CLUSTER the nsplit blocks of a (group, b) form one thread-block
-// cluster, and its first block adds the others' sums from their shared
-// memory, in split order.
-template <typename T, int VEC, bool CLUSTER>
-__global__ void __launch_bounds__(GN_NT) gn_sums_onepass(
-    const T* __restrict__ x, int64_t sb, int64_t sv, float* __restrict__ out,
-    float* __restrict__ partials, unsigned* __restrict__ counters, int V, int C, int ct,
-    int chunk) {
-  __shared__ float red[2][GN_WARPS * GN_MAX_CW];
+// B4's terms of voxel v: x and x^2. p: x at (b, the thread's first channel).
+template <typename T, int VEC>
+struct SumsTerms {
+  const T* p;
+  int64_t sv;
+
+  __device__ __forceinline__ void add(int v, float (&a1)[VEC], float (&a2)[VEC]) const {
+    float xe[VEC];
+    load_vec<T, VEC>(p + (int64_t)v * sv, xe);
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) {
+      a1[e] += xe[e];
+      a2[e] = fmaf(xe[e], xe[e], a2[e]);
+    }
+  }
+};
+
+// B5's terms of voxel v: dy and dy * x-hat, with x-hat = (x - mean) * inv
+// formed explicitly (not inv * (dy * x - mean * dy), which cancels where
+// |mean| * inv is large). xp, dp: x and dy at (b, the thread's first
+// channel); m, iv: its channels' mean and inv.
+template <typename T, int VEC>
+struct BwdTerms {
+  const T* xp;
+  const T* dp;
+  int64_t xsv, dsv;
+  float m[VEC], iv[VEC];
+
+  __device__ __forceinline__ void add(int v, float (&a1)[VEC], float (&a2)[VEC]) const {
+    float xe[VEC], g[VEC];
+    load_vec<T, VEC>(xp + (int64_t)v * xsv, xe);
+    load_vec<T, VEC>(dp + (int64_t)v * dsv, g);
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) {
+      a1[e] += g[e];
+      a2[e] = fmaf(g[e], (xe[e] - m[e]) * iv[e], a2[e]);
+    }
+  }
+};
+
+// Q partials of neighbouring channels, from L2 (other blocks wrote them)
+template <int Q>
+__device__ __forceinline__ void load_partial(const float* p, float (&out)[Q]) {
+  if constexpr (Q == 1) {
+    out[0] = __ldcg(p);
+  } else {
+    static_assert(Q == 4, "16 bytes of partials");
+    const float4 v = __ldcg(reinterpret_cast<const float4*>(p));
+    out[0] = v.x;
+    out[1] = v.y;
+    out[2] = v.z;
+    out[3] = v.w;
+  }
+}
+
+// The last block's sum of the nsplit partials of channels [group * cw, + cw)
+// of batch b, in a fixed order. A thread takes Q neighbouring channels (Q = 4
+// where cw and C are multiples of 4), tr = cw / Q threads cover a chunk's
+// row and ways = GN_NT / tr rows run at once: thread row r adds chunks r,
+// r + ways, r + 2 ways, ... in order (unrolled, so that the loads of several
+// chunks are in flight), then the block adds the rows' sums in order of r.
+template <int Q>
+__device__ __forceinline__ void combine_partials(const float* __restrict__ partials,
+                                                 float* __restrict__ out,
+                                                 float (&red)[2][GN_RED], int b, int group,
+                                                 int cw, int nsplit, int C, int64_t BC) {
+  const int tr = cw / Q;
+  const int ways = GN_NT / tr;
+  const int r = threadIdx.x / tr;
+  const int j = (threadIdx.x % tr) * Q;
+  const int c = group * cw + j;
+  float s1[Q], s2[Q];
+#pragma unroll
+  for (int e = 0; e < Q; ++e) s1[e] = s2[e] = 0.f;
+  if (c < C) {
+    const float* p1 = partials + (int64_t)b * nsplit * C + c;
+    const float* p2 = p1 + (int64_t)nsplit * BC;
+    const int n = (nsplit - r + ways - 1) / ways;
+#pragma unroll GN_UNROLL
+    for (int k = 0; k < n; ++k) {
+      float u1[Q], u2[Q];
+      load_partial<Q>(p1 + (int64_t)(r + k * ways) * C, u1);
+      load_partial<Q>(p2 + (int64_t)(r + k * ways) * C, u2);
+#pragma unroll
+      for (int e = 0; e < Q; ++e) {
+        s1[e] += u1[e];
+        s2[e] += u2[e];
+      }
+    }
+  }
+  // every thread read its entries of red before the ticket
+#pragma unroll
+  for (int e = 0; e < Q; ++e) {
+    red[0][r * cw + j + e] = s1[e];
+    red[1][r * cw + j + e] = s2[e];
+  }
+  __syncthreads();
+  const int i = threadIdx.x;
+  if (i < cw && group * cw + i < C) {
+    float t1 = 0.f, t2 = 0.f;
+    for (int w = 0; w < ways; ++w) {
+      t1 += red[0][w * cw + i];
+      t2 += red[1][w * cw + i];
+    }
+    out[(int64_t)b * C + group * cw + i] = t1;
+    out[BC + (int64_t)b * C + group * cw + i] = t2;
+  }
+}
+
+// The body of both kernels. Grid (ceil(C / (ct * VEC)), nsplit, B), GN_NT
+// threads as ct channel lanes x (GN_NT / ct) voxel rows. Block (group,
+// split, b) sums channels [group * ct * VEC, + ct * VEC) over voxels
+// [split * chunk, + chunk) of batch b; thread (tx, ty) takes channels
+// tx * VEC .. + VEC - 1 of the group (where ``active``: they start below C)
+// at voxels ty, ty + GN_NT / ct, ... of the chunk, through ``terms``. The
+// block adds its rows in a fixed order: within a warp by shuffles, then the
+// warps' sums in order. out: S1 (B, C), S2 (B, C); partials: for the
+// last-block combine P1, P2 (B, nsplit, C); all fp32; counters: one per
+// (b, group), 0 between calls. With CLUSTER the nsplit blocks of a (group,
+// b) form one thread-block cluster, and its first block adds the others'
+// sums from their shared memory, in split order.
+template <int VEC, bool CLUSTER, typename Terms>
+__device__ __forceinline__ void onepass(const Terms& terms, bool active, float* __restrict__ out,
+                                        float* __restrict__ partials,
+                                        unsigned* __restrict__ counters, int V, int C, int ct,
+                                        int chunk) {
+  __shared__ float red[2][GN_RED];
   __shared__ float part[2][GN_MAX_CW];
   __shared__ bool last;
   const int cw = ct * VEC;  // channels of the group
@@ -222,25 +251,18 @@ __global__ void __launch_bounds__(GN_NT) gn_sums_onepass(
   const int split = blockIdx.y;
   const int nsplit = gridDim.y;
   const int b = blockIdx.z;
-  const int c0 = group * cw + tx * VEC;
   const int v0 = split * chunk;
   const int v1 = min(V, v0 + chunk);
 
   float a1[VEC], a2[VEC];
 #pragma unroll
   for (int e = 0; e < VEC; ++e) a1[e] = a2[e] = 0.f;
-  if (c0 < C) {
-    const T* xb = x + b * sb + c0;
-#pragma unroll 4
-    for (int v = v0 + ty; v < v1; v += rows) {
-      float xe[VEC];
-      load_vec<T, VEC>(xb + (int64_t)v * sv, xe);
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) {
-        a1[e] += xe[e];
-        a2[e] = fmaf(xe[e], xe[e], a2[e]);
-      }
-    }
+  if (active) {
+    // a counted loop: unrolled, it issues GN_UNROLL rows' loads before their
+    // adds (a loop on v < v1 branched after each row's loads)
+    const int n = (v1 - v0 - ty + rows - 1) / rows;
+#pragma unroll GN_UNROLL
+    for (int k = 0; k < n; ++k) terms.add(v0 + ty + k * rows, a1, a2);
   }
   // the warp's 32 / ct rows, then lanes < ct keep the warp's sum
   for (int off = ct; off < 32; off <<= 1)
@@ -287,7 +309,6 @@ __global__ void __launch_bounds__(GN_NT) gn_sums_onepass(
       out[BC + (int64_t)b * C + c] = t2;
     }
     cluster.sync();  // the first block has read the others' shared memory
-    return;
   } else {
     if (nsplit == 1) {
       if (i < cw && c < C) {
@@ -301,10 +322,7 @@ __global__ void __launch_bounds__(GN_NT) gn_sums_onepass(
       partials[o] = s1;
       partials[(int64_t)nsplit * BC + o] = s2;
     }
-
-    // the last block of (b, group) to arrive adds the partials: GN_NT / cw
-    // threads a channel, thread r taking splits r, r + GN_NT / cw, ... in
-    // order, then their sums in order of r
+    // the last block of (b, group) to arrive adds the partials
     __threadfence();
     __syncthreads();
     unsigned* counter = counters + (int64_t)b * gridDim.x + group;
@@ -312,46 +330,51 @@ __global__ void __launch_bounds__(GN_NT) gn_sums_onepass(
     __syncthreads();
     if (!last) return;
     __threadfence();
-    const int ways = GN_NT / cw;
-    const int r = threadIdx.x / cw;
-    const int cr = group * cw + threadIdx.x % cw;
-    float p1s = 0.f, p2s = 0.f;
-    if (cr < C) {
-      const float* p1 = partials + (int64_t)b * nsplit * C + cr;
-      const float* p2 = p1 + (int64_t)nsplit * BC;
-#pragma unroll 4
-      for (int s = r; s < nsplit; s += ways) {
-        p1s += __ldcg(p1 + (int64_t)s * C);
-        p2s += __ldcg(p2 + (int64_t)s * C);
-      }
-    }
-    red[0][threadIdx.x] = p1s;  // every thread read its entries of red before the ticket
-    red[1][threadIdx.x] = p2s;
-    __syncthreads();
-    if (r == 0 && cr < C) {
-      float t1 = 0.f, t2 = 0.f;
-      for (int w = 0; w < ways; ++w) {
-        t1 += red[0][w * cw + threadIdx.x];
-        t2 += red[1][w * cw + threadIdx.x];
-      }
-      out[(int64_t)b * C + cr] = t1;
-      out[BC + (int64_t)b * C + cr] = t2;
-    }
+    combine_partials<(VEC > 1 ? 4 : 1)>(partials, out, red, b, group, cw, nsplit, C, BC);
     if (threadIdx.x == 0) *counter = 0u;
   }
 }
 
-template <typename T, int VEC>
-cudaError_t launch_onepass(const void* x, int64_t sb, int64_t sv, float* out, float* partials,
-                           unsigned* counters, int B, int V, int C, int ct, int nsplit, int chunk,
-                           bool cluster, cudaStream_t stream) {
-  const dim3 grid((C + ct * VEC - 1) / (ct * VEC), nsplit, B);
-  const T* xp = static_cast<const T*>(x);
-  if (!cluster) {
-    gn_sums_onepass<T, VEC, false><<<grid, GN_NT, 0, stream>>>(xp, sb, sv, out, partials,
-                                                               counters, V, C, ct, chunk);
-    return cudaGetLastError();
+// B4: x (B, V, C) with unit channel stride, batch and voxel strides sb, sv.
+template <typename T, int VEC, bool CLUSTER>
+__global__ void __launch_bounds__(GN_NT, GN_SUMS_MIN_BLOCKS) gn_sums_onepass(
+    const T* __restrict__ x, int64_t sb, int64_t sv, float* __restrict__ out,
+    float* __restrict__ partials, unsigned* __restrict__ counters, int V, int C, int ct,
+    int chunk) {
+  const int c0 = blockIdx.x * ct * VEC + (threadIdx.x % ct) * VEC;
+  const SumsTerms<T, VEC> terms{x + blockIdx.z * sb + c0, sv};
+  onepass<VEC, CLUSTER>(terms, c0 < C, out, partials, counters, V, C, ct, chunk);
+}
+
+// B5: x as B4's; dy (B, V, C) through its own three strides (unit channel
+// stride where VEC > 1); mean, inv: contiguous (B, C) fp32.
+template <typename T, int VEC, bool CLUSTER>
+__global__ void __launch_bounds__(GN_NT, GN_BWD_MIN_BLOCKS) gn_bwd_sums_onepass(
+    const T* __restrict__ x, const T* __restrict__ dy, const float* __restrict__ mean,
+    const float* __restrict__ inv, int64_t xsb, int64_t xsv, int64_t dsb, int64_t dsv,
+    int64_t dsc, float* __restrict__ out, float* __restrict__ partials,
+    unsigned* __restrict__ counters, int V, int C, int ct, int chunk) {
+  const int b = blockIdx.z;
+  const int c0 = blockIdx.x * ct * VEC + (threadIdx.x % ct) * VEC;
+  const bool active = c0 < C;
+  BwdTerms<T, VEC> terms;
+  terms.xp = x + b * xsb + c0;
+  terms.dp = dy + b * dsb + c0 * dsc;
+  terms.xsv = xsv;
+  terms.dsv = dsv;
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) {
+    terms.m[e] = active ? mean[(int64_t)b * C + c0 + e] : 0.f;
+    terms.iv[e] = active ? inv[(int64_t)b * C + c0 + e] : 0.f;
   }
+  onepass<VEC, CLUSTER>(terms, active, out, partials, counters, V, C, ct, chunk);
+}
+
+// One launch of ``kernel`` on grid (groups, nsplit, B), as a cluster of the
+// nsplit blocks of a channel group where ``cluster``.
+template <typename... KArgs, typename... Args>
+cudaError_t launch(void (*kernel)(KArgs...), dim3 grid, bool cluster, cudaStream_t stream,
+                   Args... args) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;
   cfg.blockDim = dim3(GN_NT);
@@ -360,12 +383,49 @@ cudaError_t launch_onepass(const void* x, int64_t sb, int64_t sv, float* out, fl
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = 1;
-  attr[0].val.clusterDim.y = nsplit;
+  attr[0].val.clusterDim.y = grid.y;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, gn_sums_onepass<T, VEC, true>, xp, sb, sv, out, partials,
-                            counters, V, C, ct, chunk);
+  cfg.numAttrs = cluster ? 1 : 0;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+template <typename T, int VEC>
+cudaError_t launch_sums(const void* x, int64_t sb, int64_t sv, float* out, float* partials,
+                        unsigned* counters, int B, int V, int C, int ct, int nsplit, int chunk,
+                        bool cluster, cudaStream_t stream) {
+  const dim3 grid((C + ct * VEC - 1) / (ct * VEC), nsplit, B);
+  auto* kernel = cluster ? &gn_sums_onepass<T, VEC, true> : &gn_sums_onepass<T, VEC, false>;
+  return launch(kernel, grid, cluster, stream, static_cast<const T*>(x), sb, sv, out, partials,
+                counters, V, C, ct, chunk);
+}
+
+template <typename T, int VEC>
+cudaError_t launch_bwd_sums(const void* dy, const void* x, const float* mean, const float* inv,
+                            int64_t xsb, int64_t xsv, int64_t dsb, int64_t dsv, int64_t dsc,
+                            float* out, float* partials, unsigned* counters, int B, int V, int C,
+                            int ct, int nsplit, int chunk, bool cluster, cudaStream_t stream) {
+  const dim3 grid((C + ct * VEC - 1) / (ct * VEC), nsplit, B);
+  auto* kernel =
+      cluster ? &gn_bwd_sums_onepass<T, VEC, true> : &gn_bwd_sums_onepass<T, VEC, false>;
+  return launch(kernel, grid, cluster, stream, static_cast<const T*>(x), static_cast<const T*>(dy),
+                mean, inv, xsb, xsv, dsb, dsv, dsc, out, partials, counters, V, C, ct, chunk);
+}
+
+// A plan the grids cannot take: sizes, lanes, chunks (none empty), cluster
+// size, and the load width (16 bytes of the dtype dividing C, or 1).
+bool bad_plan(int is_bf16, int B, int V, int C, int vec, int ct, int nsplit, int chunk,
+              int cluster) {
+  const bool ct_ok = ct >= 1 && ct <= 32 && (ct & (ct - 1)) == 0 && ct * vec <= GN_MAX_CW;
+  return B <= 0 || V <= 0 || C <= 0 || B > 65535 || nsplit <= 0 || nsplit > 65535 || !ct_ok ||
+         chunk <= 0 || (int64_t)(nsplit - 1) * chunk >= V || (int64_t)nsplit * chunk < V ||
+         (cluster && nsplit > GN_MAX_CLUSTER) ||
+         (vec != 1 && (vec != (is_bf16 ? 8 : 4) || C % vec != 0));
+}
+
+// An operand that 16-byte loads of vec elements cannot read.
+bool misaligned(const void* p, int64_t sb, int64_t sv, int vec) {
+  return sb % vec != 0 || sv % vec != 0 || reinterpret_cast<uintptr_t>(p) % 16 != 0;
 }
 
 }  // namespace
@@ -384,12 +444,8 @@ cudaError_t launch_onepass(const void* x, int64_t sb, int64_t sv, float* out, fl
 extern "C" int ldm3d_gn_sums(const void* x, void* out, void* partials, void* counters, int is_bf16,
                              int B, int V, int C, int64_t sb, int64_t sv, int vec, int ct,
                              int nsplit, int chunk, int cluster, void* stream) {
-  const bool ct_ok = ct >= 1 && ct <= 32 && (ct & (ct - 1)) == 0 && ct * vec <= GN_MAX_CW;
-  if (B <= 0 || V <= 0 || C <= 0 || B > 65535 || nsplit <= 0 || nsplit > 65535 || !ct_ok ||
-      chunk <= 0 || (int64_t)(nsplit - 1) * chunk >= V || (int64_t)nsplit * chunk < V ||
-      (cluster && nsplit > GN_MAX_CLUSTER) ||
-      (vec != 1 && (vec != (is_bf16 ? 8 : 4) || C % vec != 0 || sb % vec != 0 ||
-                    sv % vec != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0)))
+  if (bad_plan(is_bf16, B, V, C, vec, ct, nsplit, chunk, cluster) ||
+      (vec != 1 && misaligned(x, sb, sv, vec)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* o = static_cast<float*>(out);
@@ -398,40 +454,47 @@ extern "C" int ldm3d_gn_sums(const void* x, void* out, void* partials, void* cou
   const bool cl = cluster != 0;
   if (is_bf16) {
     if (vec == 8)
-      return (int)launch_onepass<__nv_bfloat16, 8>(x, sb, sv, o, p, cnt, B, V, C, ct, nsplit,
-                                                   chunk, cl, s);
-    return (int)launch_onepass<__nv_bfloat16, 1>(x, sb, sv, o, p, cnt, B, V, C, ct, nsplit,
-                                                 chunk, cl, s);
+      return (int)launch_sums<__nv_bfloat16, 8>(x, sb, sv, o, p, cnt, B, V, C, ct, nsplit, chunk,
+                                                cl, s);
+    return (int)launch_sums<__nv_bfloat16, 1>(x, sb, sv, o, p, cnt, B, V, C, ct, nsplit, chunk,
+                                              cl, s);
   }
   if (vec == 4)
-    return (int)launch_onepass<float, 4>(x, sb, sv, o, p, cnt, B, V, C, ct, nsplit, chunk, cl, s);
-  return (int)launch_onepass<float, 1>(x, sb, sv, o, p, cnt, B, V, C, ct, nsplit, chunk, cl, s);
+    return (int)launch_sums<float, 4>(x, sb, sv, o, p, cnt, B, V, C, ct, nsplit, chunk, cl, s);
+  return (int)launch_sums<float, 1>(x, sb, sv, o, p, cnt, B, V, C, ct, nsplit, chunk, cl, s);
 }
 
-// dy, x: (B, V, C) read through strides[0..2] = (sb, sv, sc) of x, whose sc
-// must be 1 (channels minor), and strides[3..5] of dy, in elements; mean,
-// inv: contiguous (B, C) fp32. s1, s2: contiguous (B, C) fp32. scratch:
-// 2 * B * nsplit * C fp32. Runs the split pass and the combine pass on
-// `stream`; returns the first failing launch's cudaError_t (0 on success);
-// allocates nothing.
+// dy, x: (B, V, C) of one dtype; x with unit channel stride through its
+// batch and voxel element strides xsb, xsv, dy through dsb, dsv, dsc. mean,
+// inv: contiguous (B, C) fp32. vec, ct, nsplit, chunk, cluster, out,
+// partials and counters as ldm3d_gn_sums's; with vec > 1 both x and dy sit
+// on 16 bytes with batch and voxel strides that vec divides, and dsc = 1.
+// One launch; returns its cudaError_t (0 on success); allocates nothing.
 extern "C" int ldm3d_gn_bwd_sums(const void* dy, const void* x, const void* mean, const void* inv,
-                                 void* s1, void* s2, void* scratch, int is_bf16, int B, int V,
-                                 int C, const int64_t* strides, int nsplit, void* stream) {
-  if (bad_args(B, V, C, nsplit, strides)) return (int)cudaErrorInvalidValue;
-  const View xv{strides[0], strides[1], strides[2]};
-  const View dv{strides[3], strides[4], strides[5]};
+                                 void* out, void* partials, void* counters, int is_bf16, int B,
+                                 int V, int C, int64_t xsb, int64_t xsv, int64_t dsb, int64_t dsv,
+                                 int64_t dsc, int vec, int ct, int nsplit, int chunk, int cluster,
+                                 void* stream) {
+  if (bad_plan(is_bf16, B, V, C, vec, ct, nsplit, chunk, cluster) ||
+      (vec != 1 && (misaligned(x, xsb, xsv, vec) || misaligned(dy, dsb, dsv, vec) || dsc != 1)))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* o1 = static_cast<float*>(s1);
-  float* o2 = static_cast<float*>(s2);
-  float* sc = static_cast<float*>(scratch);
   const auto* m = static_cast<const float*>(mean);
   const auto* iv = static_cast<const float*>(inv);
+  float* o = static_cast<float*>(out);
+  float* p = static_cast<float*>(partials);
+  unsigned* cnt = static_cast<unsigned*>(counters);
+  const bool cl = cluster != 0;
   if (is_bf16) {
-    Terms<__nv_bfloat16> t{static_cast<const __nv_bfloat16*>(x),
-                                 static_cast<const __nv_bfloat16*>(dy), m, iv, xv, dv, C};
-    return (int)run(t, o1, o2, sc, B, V, C, nsplit, s);
+    if (vec == 8)
+      return (int)launch_bwd_sums<__nv_bfloat16, 8>(dy, x, m, iv, xsb, xsv, dsb, dsv, dsc, o, p,
+                                                    cnt, B, V, C, ct, nsplit, chunk, cl, s);
+    return (int)launch_bwd_sums<__nv_bfloat16, 1>(dy, x, m, iv, xsb, xsv, dsb, dsv, dsc, o, p,
+                                                  cnt, B, V, C, ct, nsplit, chunk, cl, s);
   }
-  Terms<float> t{static_cast<const float*>(x), static_cast<const float*>(dy), m, iv, xv,
-                       dv, C};
-  return (int)run(t, o1, o2, sc, B, V, C, nsplit, s);
+  if (vec == 4)
+    return (int)launch_bwd_sums<float, 4>(dy, x, m, iv, xsb, xsv, dsb, dsv, dsc, o, p, cnt, B, V,
+                                          C, ct, nsplit, chunk, cl, s);
+  return (int)launch_bwd_sums<float, 1>(dy, x, m, iv, xsb, xsv, dsb, dsv, dsc, o, p, cnt, B, V, C,
+                                        ct, nsplit, chunk, cl, s);
 }

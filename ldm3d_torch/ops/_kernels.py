@@ -208,8 +208,8 @@ def groupnorm_library() -> ctypes.CDLL:
     lib.ldm3d_gn_sums.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_int64,
                                   ctypes.c_int64, _I, _I, _I, _I, _I, _P]
     lib.ldm3d_gn_sums.restype = ctypes.c_int
-    lib.ldm3d_gn_bwd_sums.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _STRIDES,
-                                      _I, _P]
+    lib.ldm3d_gn_bwd_sums.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                      *(ctypes.c_int64,) * 5, _I, _I, _I, _I, _I, _P]
     lib.ldm3d_gn_bwd_sums.restype = ctypes.c_int
     return lib
 

@@ -21,6 +21,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_kernels import GN_CARD_SHAPES, GN_STAGE1_SHAPES
 
 from ldm3d_torch.nn.blocks import GroupNorm32
 from ldm3d_torch.ops import groupnorm as tgn
@@ -176,3 +177,120 @@ def test_gn_sums_plan_covers_every_element_once(shape, dtype, strides, align, ve
 def test_gn_sums_plan_raises_on_channels_not_minor():
     with pytest.raises(ValueError, match="unit channel stride"):
         tgn.gn_sums_plan(2, 60, 8, torch.float32, (480, 1, 60))
+
+
+# --- the launch plan of the one-launch gn_bwd_sums kernel
+
+def _axis_hits(plan):
+    """How often the kernel's threads read each channel and each voxel of a
+    batch under ``plan`` (the reads of (b, v, c) are the product of the two,
+    for every b < grid[2]): lane tx of group g reads channels
+    g * ct * vec + tx * vec + e where they start below C; row ty of split s
+    voxels s * chunk + ty, + rows, ... below the chunk's end and V."""
+    groups, nsplit, _ = plan.grid
+    c0 = (np.arange(groups)[:, None] * plan.ct + np.arange(plan.ct)).ravel() * plan.vec
+    chans = np.bincount((c0[c0 < plan.c][:, None] + np.arange(plan.vec)).ravel(),
+                        minlength=plan.c)
+    voxels = np.zeros(plan.v, np.int64)
+    for s in range(nsplit):
+        v0, v1 = s * plan.chunk, min(plan.v, (s + 1) * plan.chunk)
+        steps = np.arange(-(-(v1 - v0) // plan.rows)) * plan.rows
+        idx = (v0 + np.arange(plan.rows)[:, None] + steps).ravel()
+        voxels += np.bincount(idx[idx < v1], minlength=plan.v)
+    return chans, voxels
+
+
+def _bwd_plan_cases():
+    """(shape, dtype, dy layout, x and dy pointer offsets, expected vec): both
+    operands channels_last_3d at every shape the card sees, then the layouts
+    and offsets that must read one element a thread."""
+    cases = []
+    for shape in GN_STAGE1_SHAPES + GN_CARD_SHAPES:
+        for dtype, per16 in ((torch.bfloat16, 8), (torch.float32, 4)):
+            cases.append((shape, dtype, "channels_last_3d", 0, 0, per16))
+    cases += [
+        ((1, 64, 16, 16, 16), torch.bfloat16, "contiguous", 0, 0, 1),      # dy NCDHW
+        ((2, 64, 20, 20, 20), torch.float32, "contiguous", 0, 0, 1),
+        ((3, 40, 7, 9, 11), torch.bfloat16, "contiguous", 0, 0, 1),
+        ((1, 128, 32, 32, 32), torch.bfloat16, "channels_last_3d", 0, 2, 1),  # dy off 16 bytes
+        ((2, 64, 20, 20, 20), torch.float32, "channels_last_3d", 0, 8, 1),
+        ((1, 128, 32, 32, 32), torch.bfloat16, "channels_last_3d", 4, 0, 1),  # x off 16 bytes
+        ((2, 36, 5, 6, 7), torch.bfloat16, "channels_last_3d", 0, 0, 1),    # 8 does not divide C
+        ((2, 36, 5, 6, 7), torch.float32, "channels_last_3d", 0, 0, 4),
+        ((2, 3, 9, 10, 10), torch.float32, "channels_last_3d", 0, 0, 1),    # fewer channels than lanes
+        ((2, 64, 20, 20, 20), torch.bfloat16, "dy_batch_stride_off", 0, 0, 1),
+    ]
+    return cases
+
+
+def _bvc_strides_of(shape, layout):
+    b, c, *spatial = shape
+    v = int(np.prod(spatial))
+    if layout == "contiguous":
+        return (c * v, 1, v)
+    if layout == "dy_batch_stride_off":  # a batch's rows a few elements apart
+        return (v * c + 4, c, 1)
+    return (v * c, c, 1)
+
+
+@pytest.mark.parametrize("shape,dtype,dy_layout,x_align,dy_align,vec", _bwd_plan_cases(),
+                         ids=lambda a: "x".join(map(str, a)) if isinstance(a, tuple) else str(a))
+def test_gn_bwd_sums_plan_covers_every_element_once(shape, dtype, dy_layout, x_align, dy_align,
+                                                    vec):
+    """The backward's launch plan is a pure function of (B, V, C, dtype, both
+    operands' strides and pointer offsets from 16 bytes): every voxel and
+    channel of every batch is read exactly once, no chunk is empty, the grid
+    fits its limits, a block is 256 threads, a cluster holds 2 to 8 blocks,
+    and 16-byte loads are taken only where x and dy both allow them."""
+    b, c = shape[:2]
+    v = int(np.prod(shape[2:]))
+    xs, ds = _bvc_strides_of(shape, "channels_last_3d"), _bvc_strides_of(shape, dy_layout)
+    plan = tgn.gn_bwd_sums_plan(b, v, c, dtype, xs, ds, x_align, dy_align)
+    assert plan == tgn.gn_bwd_sums_plan(b, v, c, dtype, xs, ds, x_align, dy_align)
+    assert plan.vec == vec
+    assert plan.ct * plan.rows == 256 and plan.ct <= 32 and plan.ct & (plan.ct - 1) == 0
+    assert plan.ct * plan.vec <= 64
+    groups, nsplit, pb = plan.grid
+    assert pb == b and 1 <= nsplit <= 65535 and groups * plan.ct * plan.vec >= c
+    assert (nsplit - 1) * plan.chunk < v <= nsplit * plan.chunk  # no empty chunk
+    assert not plan.cluster or 1 < nsplit <= 8  # a portable cluster holds 8 blocks
+    assert (plan.dsv, plan.dsc) == (ds[1], ds[2]) and plan.dsb == (ds[0] if b > 1 else 0)
+    if plan.vec > 1:  # what the C entry point checks before 16-byte loads
+        assert plan.dsc == 1 and c % plan.vec == 0
+        assert all(s % plan.vec == 0 for s in (plan.sb, plan.sv, plan.dsb, plan.dsv))
+    chans, voxels = _axis_hits(plan)
+    assert np.all(chans == 1) and np.all(voxels == 1)
+    if b * v * c <= 2_000_000:
+        assert np.all(_plan_hits(plan) == 1)
+
+
+def test_gn_bwd_sums_plan_raises_on_x_channels_not_minor():
+    with pytest.raises(ValueError, match="unit channel stride"):
+        tgn.gn_bwd_sums_plan(2, 60, 8, torch.float32, (480, 1, 60), (480, 8, 1))
+
+
+@pytest.mark.parametrize("dy_layout", ["channels_last_3d", "contiguous"])
+def test_gn_bwd_sums_plan_of_tensors_is_the_pure_plan_and_cached(dy_layout):
+    """``gn_bwd_sums_plan_of`` (what the wrapper launches, and what the
+    card's host-cost breakdown times) returns the pure plan of the tensors'
+    shape, strides and pointer offsets, cached by them; with cached=False
+    it plans afresh and leaves the cache alone; it raises as the wrapper
+    does on stats of the wrong shape."""
+    shape = (2, 64, 5, 6, 7)
+    x = torch.randn(shape).contiguous(memory_format=torch.channels_last_3d)
+    dy = torch.randn(shape)
+    if dy_layout == "channels_last_3d":
+        dy = dy.contiguous(memory_format=torch.channels_last_3d)
+    mean, inv = torch.zeros(2, 64), torch.ones(2, 64)
+    want = tgn.gn_bwd_sums_plan(2, 210, 64, torch.float32, _bvc_strides_of(shape,
+                                                                         "channels_last_3d"),
+                                _bvc_strides_of(shape, dy_layout), x.data_ptr() % 16,
+                                dy.data_ptr() % 16)
+    tgn._BWD_PLANS.clear()
+    assert tgn.gn_bwd_sums_plan_of(dy, x, mean, inv, cached=False) == want
+    assert not tgn._BWD_PLANS
+    plan = tgn.gn_bwd_sums_plan_of(dy, x, mean, inv)
+    assert plan == want and tgn.gn_bwd_sums_plan_of(dy, x, mean, inv) is plan
+    assert len(tgn._BWD_PLANS) == 1
+    with pytest.raises(ValueError, match="mean_c must be fp32"):
+        tgn.gn_bwd_sums_plan_of(dy, x, mean[:1], inv, cached=False)

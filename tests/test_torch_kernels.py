@@ -1145,6 +1145,12 @@ GN_CARD_SHAPES = [(1, 64, 80, 80, 80), (1, 128, 40, 40, 40), (1, 256, 20, 20, 20
                   (1, 512, 10, 10, 10), (1, 1024, 5, 5, 5), (1, 1536, 10, 10, 10),
                   (2, 768, 20, 20, 20), (2, 1024, 5, 5, 5), (20, 64, 80, 80, 80),
                   (20, 256, 20, 20, 20), (3, 40, 7, 9, 11)]
+# the GroupNorm inputs of a stage-1 step (config_train_32g.json's VAE at the
+# 64^3 patch, batch 1, and the discriminator's instance norms at 16^3 x 64
+# and 8^3 x 128)
+GN_STAGE1_SHAPES = [(1, 64, 64, 64, 64), (1, 128, 64, 64, 64), (1, 64, 32, 32, 32),
+                    (1, 128, 32, 32, 32), (1, 256, 32, 32, 32), (1, 128, 16, 16, 16),
+                    (1, 256, 16, 16, 16), (1, 64, 16, 16, 16), (1, 128, 8, 8, 8)]
 
 
 @pytest.mark.cuda
@@ -1171,4 +1177,41 @@ def test_gn_sums_one_launch_deterministic_and_matches_plain_on_card(dtype, shape
         assert ((g.double() - w.double()).abs() <= _sum_tol(terms)).all()
     names = _kernel_names(lambda: tgn.gn_sums(x), "", 1)
     assert len(names) == 1 and "gn_sums_onepass" in next(iter(names)), names
+    assert next(iter(names.values())) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("layout", ["channels_last_3d", "contiguous"])
+@pytest.mark.parametrize("shape", GN_CARD_SHAPES + GN_STAGE1_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_gn_bwd_sums_one_launch_deterministic_and_matches_plain_on_card(dtype, layout, shape):
+    """B5 at the flagship's GroupNorm inputs and a stage-1 step's, dy in
+    ``layout`` (x channels_last_3d, as the activations are): within 1e-5 of
+    the absolute sums of its plain version, the same bits on two runs, and
+    one kernel launch a call (by the profiler's count), the wrapper counting
+    one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    dt = getattr(torch, dtype)
+    fmt = {"channels_last_3d": torch.channels_last_3d, "contiguous": torch.contiguous_format}[layout]
+    gen = torch.Generator(device="cuda").manual_seed(sum(shape))
+    x = (torch.randn(shape, generator=gen, device="cuda") * 0.5 + 0.3).to(dt).contiguous(
+        memory_format=torch.channels_last_3d)
+    dy = torch.randn(shape, generator=gen, device="cuda").to(dt).contiguous(memory_format=fmt)
+    mean = torch.randn(shape[:2], generator=gen, device="cuda") * 0.3
+    inv = torch.rand(shape[:2], generator=gen, device="cuda") + 0.5
+    before = tgn.gn_bwd_sums.launches
+    got = tgn.gn_bwd_sums(dy, x, mean, inv)
+    again = tgn.gn_bwd_sums(dy, x, mean, inv)
+    torch.cuda.synchronize()
+    assert tgn.gn_bwd_sums.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    xf, dyf = x.float(), dy.float()
+    xhat = (xf - mean[..., None, None, None]) * inv[..., None, None, None]
+    for g, w, terms in zip(got, tgn.gn_bwd_sums_reference(dy, x, mean, inv), (dyf, dyf * xhat)):
+        assert ((g.double() - w.double()).abs() <= _sum_tol(terms)).all()
+    del xf, dyf, xhat
+    names = _kernel_names(lambda: tgn.gn_bwd_sums(dy, x, mean, inv), "", 1)
+    assert len(names) == 1 and "gn_bwd_sums_onepass" in next(iter(names)), names
     assert next(iter(names.values())) == 1

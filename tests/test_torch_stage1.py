@@ -18,8 +18,10 @@ reproduce the JAX call's reconstruction), the slice indices by
 * the eval step's four metrics within 1e-5 relative.
 """
 
+import ast
 import json
 import math
+from pathlib import Path
 from types import SimpleNamespace
 
 import jax
@@ -45,6 +47,7 @@ from ldm3d_torch.configs import define_instance, load_json
 from ldm3d_torch.configs import preset_path as port_preset_path
 from ldm3d_torch.nn import LPIPS as PortLPIPS
 from ldm3d_torch.nn import PatchDiscriminator3D as PortDisc
+from ldm3d_torch.obs import MetricsWriter
 from ldm3d_torch.training import (
     Stage1Config,
     Stage1Draws,
@@ -355,6 +358,69 @@ def test_cli_stage1_then_stage2_then_inference(tmp_path):
     vol, _ = read_nifti(written[0])
     patch = tuple(load_json(cfg)["diffusion_train"]["patch_size"])
     assert vol.shape == patch and np.isfinite(vol).all()
+
+
+def _iter_steps(monkeypatch) -> list:
+    """The steps at which the CLIs write their ``*_iter`` scalars, from now on."""
+    steps = []
+    add_scalar = MetricsWriter.add_scalar
+
+    def spy(self, tag, value, step):
+        if tag.endswith("_iter"):
+            steps.append(step)
+        add_scalar(self, tag, value, step)
+
+    monkeypatch.setattr(MetricsWriter, "add_scalar", spy)
+    return steps
+
+
+def assert_reference_restarts_resume_state(cli: str) -> None:
+    """Reads the JAX trainer ``ldm3d_tpu/cli/<cli>.py``'s ``main`` as the
+    resume tests expect it (a run of it takes minutes on the CPU): best_val
+    and total_step start at inf and 0 in main's own body, on every run,
+    resumed or not; they change only by min() with a validation loss and by
+    += 1; and no stored "best_val" is read back (the string stands only as
+    a key of the metas it writes)."""
+    import ldm3d_tpu
+
+    tree = ast.parse((Path(ldm3d_tpu.__file__).parent / "cli" / f"{cli}.py").read_text())
+    main = next(n for n in tree.body if isinstance(n, ast.FunctionDef) and n.name == "main")
+    top = {ast.unparse(n) for n in main.body}
+    assert {"best_val = float('inf')", "total_step = 0"} <= top
+    changes = sorted(ast.unparse(n) for n in ast.walk(main)
+                     if isinstance(n, (ast.Assign, ast.AugAssign))
+                     and any(isinstance(t, ast.Name) and t.id in ("best_val", "total_step")
+                             for t in (n.targets if isinstance(n, ast.Assign) else [n.target])))
+    assert changes == ["best_val = float('inf')", "best_val = min(best_val, val_loss)",
+                       "total_step += 1", "total_step = 0"]
+    keys = {id(k) for n in ast.walk(main) if isinstance(n, ast.Dict) for k in n.keys}
+    assert not [n for n in ast.walk(main)
+                if isinstance(n, ast.Constant) and n.value == "best_val" and id(n) not in keys]
+
+
+def test_cli_resume_restarts_best_val_and_step_count_as_the_reference(tmp_path, monkeypatch):
+    """A resume restarts best_val at inf and total_step at 0, as the JAX
+    trainer does (ldm3d_tpu/cli/train_autoencoder.py:218-219): with a stored
+    best_val that no run can beat, the resumed epoch's validation still
+    rewrites 'best', the CLI returns that epoch's loss, and the first _iter
+    point after the resume sits at step 1."""
+    assert_reference_restarts_resume_state("train_autoencoder")
+    cfg = _micro_preset(tmp_path)
+    argv = ["-c", cfg, "--device", "cpu", "--no-images", "--max-epochs"]
+    port_train_ae(argv + ["1", "-e", _env(tmp_path, "c7")])
+    mgr = CheckpointManager(str(tmp_path / "c7" / "ckpt"), "autoencoder")
+    assert set(mgr.load_meta("last")) == {"epoch", "val_loss", "best_val"}
+    assert mgr.load_meta("best")["epoch"] == 0
+    last = mgr.load("last")
+    mgr.save("last", last, {**last.pop("meta"), "best_val": -1.0})
+
+    steps, timings = _iter_steps(monkeypatch), {}
+    best = port_train_ae(argv + ["2", "-e", _env(tmp_path, "c7", resume_ckpt=True)],
+                         timings=timings)
+    assert len(timings["train_step_ms"]) == 2  # only epoch 1 ran
+    assert mgr.load_meta("best")["epoch"] == 1
+    assert best == timings["val_loss"][-1] > 0
+    assert steps and set(steps) == {1}
 
 
 def test_cli_lpips_weights_load_a_port_state_dict_and_refuse_msgpack(tmp_path):

@@ -416,6 +416,36 @@ def test_cli_trains_resumes_and_inference_samples_the_trained_model(tmp_path):
     assert vol.shape == (32, 32, 32) and np.isfinite(vol).all()
 
 
+def test_cli_resume_restarts_best_val_and_step_count_as_the_reference(tmp_path, monkeypatch):
+    """A resume restarts best_val at inf and total_step at 0, as the JAX
+    trainer does (ldm3d_tpu/cli/train_diffusion.py:242-243): with a stored
+    best_val that no run can beat, the resumed epoch's validation still
+    rewrites 'best', and the _iter points after the resume count from 1."""
+    from test_torch_stage1 import _iter_steps, assert_reference_restarts_resume_state
+
+    assert_reference_restarts_resume_state("train_diffusion")
+    cfg_path = port_preset_path("config_micro_cpu.json")
+    ae = init_weights_(define_instance(SimpleNamespace(**load_json(cfg_path)), "autoencoder_def"),
+                       torch.Generator().manual_seed(0))
+    CheckpointManager(str(tmp_path / "ckpt"), "autoencoder").save(
+        "best", {"state_dict": ae.state_dict()})
+    argv = ["-c", cfg_path, "--device", "cpu", "--no-images", "--max-epochs"]
+    timings = {}
+    port_train(argv + ["1", "-e", _env(tmp_path)], timings=timings)
+    steps_per_epoch = len(timings["train_step_ms"])
+    mgr = CheckpointManager(str(tmp_path / "ckpt"), "diffusion")
+    assert set(mgr.load_meta("last")) == {"epoch", "val_loss", "scale_factor"}
+    assert mgr.load_meta("best")["epoch"] == 0
+    last = mgr.load("last")
+    mgr.save("last", last, {**last.pop("meta"), "best_val": -1.0})
+
+    steps = _iter_steps(monkeypatch)
+    port_train(argv + ["2", "-e", _env(tmp_path, resume_ckpt=True)])
+    assert mgr.load("last")["step"] == 2 * steps_per_epoch
+    assert mgr.load_meta("best")["epoch"] == 1
+    assert steps == list(range(1, steps_per_epoch + 1))
+
+
 @pytest.mark.parametrize("flag", [["--spatial", "2"], ["--tensor", "2"], ["--fsdp"], ["--zero"],
                                   ["--pipeline", "2"], ["--remat"], ["--grad-accum", "2"]])
 def test_cli_unported_flags_name_the_roadmap(flag, tmp_path):
