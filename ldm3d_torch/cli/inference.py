@@ -11,6 +11,14 @@ The port of ``ldm3d_tpu/cli/inference.py``:
 4. the decoder decodes it, whole or in chunks of ``--decode-chunk`` volumes,
    and each volume is written as NIfTI.
 
+``--fused-decode`` runs steps 2-4 as the JAX CLI's one program does, through
+:class:`~ldm3d_torch.diffusion.inferer.CapturedSampler`: on the card one
+step captured as a CUDA graph, replayed once a step, then the decode's graph,
+whole-batch (``--decode-chunk`` is ignored, with the JAX CLI's log line);
+the step noises are drawn before the loop, in the eager loop's order, so a
+seed writes the same volumes either way. On the CPU the same step body runs
+eagerly.
+
 An unconditional UNet (``in_channels == latent_channels``) skips step 1.
 Noise, the ancestral noise of ddpm included, is drawn on the CPU from
 ``torch.Generator().manual_seed(seed)`` and moved to the device, so a seed
@@ -19,7 +27,7 @@ gives the same noise on every device.
 Usage: python -m ldm3d_torch.cli.inference -c CONFIG -e ENV [-n NUM]
        [--sampler ddpm|ddim|dpm|dpm3] [--steps N] [--timestep-spacing S]
        [--batch B] [--guidance W] [--use-ema] [--decode-chunk N|auto] [--amp]
-       [--device cuda|cpu] [-g 0|1] [--compile]
+       [--fused-decode] [--device cuda|cpu] [-g 0|1] [--compile]
 It takes every flag of the JAX parser, as the JAX CLI does; the training
 options among them are read by the trainer only, and the flags whose paths
 are not ported raise ``NotImplementedError`` naming their ROADMAP item
@@ -70,8 +78,17 @@ def _sync(device: torch.device) -> float:
 
 def main(argv=None, timings: dict | None = None) -> list[str]:
     """Run the CLI; returns the written paths. When ``timings`` is a dict it
-    receives lists of per-call wall-clock milliseconds under ``encode_ms``,
-    ``denoise_ms`` and ``decode_ms`` (each measured to a device sync)."""
+    receives lists of per-call milliseconds under ``encode_ms``,
+    ``denoise_ms`` and ``decode_ms`` (each measured to a device sync; with
+    ``--fused-decode`` the last two are device times from CUDA events, which
+    leave out the step noises' draws and copy), and ``sample_ms``, the host
+    time of a sample either way: from before its loop (eager) or its step
+    noises' draws (fused) to the end of its decode, to a device sync. With
+    ``--fused-decode`` on the card, the graphs are captured before the first
+    sample: ``capture_ms`` holds the host time of the warm-up and the
+    captures, ``capture_graphs`` the number of graphs captured, and
+    ``warmup_launches`` the kernel launches of the warm-up, as
+    ``ldm3d_torch.ops.graphs.launch_delta`` dicts."""
     parser = build_parser("latent diffusion inference (PyTorch port)")
     parser.add_argument("-n", "--num", type=int, default=1,
                         help="number of generation calls (total volumes = num x batch)")
@@ -95,21 +112,18 @@ def main(argv=None, timings: dict | None = None) -> list[str]:
     parser.add_argument("--use-distilled", action="store_true",
                         help="not ported yet (ROADMAP.md queue A, 'Distillation')")
     parser.add_argument("--fused-decode", action="store_true",
-                        help="not ported: one XLA program for loop and decode has no eager "
-                             "counterpart (ROADMAP.md queue A, 'CUDA graph of the sampler')")
+                        help="run the reverse loop and the whole-batch decode as replays of "
+                             "CUDA graphs (one step graph replayed a step, one decode graph)")
     args = parser.parse_args(argv)
     reject_unported(args)
     if args.use_distilled:
         raise NotImplementedError("--use-distilled is not ported yet: ROADMAP.md queue A, "
                                   "'Distillation'")
-    if args.fused_decode:
-        raise NotImplementedError("--fused-decode is not ported: ROADMAP.md queue A, "
-                                  "'CUDA graph of the sampler'")
     args, device = setup(args)
     dt = model_dtype(args)
     if timings is None:
         timings = {}
-    for key in ("encode_ms", "denoise_ms", "decode_ms"):
+    for key in ("encode_ms", "denoise_ms", "decode_ms", "sample_ms"):
         timings.setdefault(key, [])
 
     scheduler = make_sampling_scheduler(args.sampler, args.steps,
@@ -117,7 +131,11 @@ def main(argv=None, timings: dict | None = None) -> list[str]:
                                         timestep_spacing=args.timestep_spacing)
     ae, unet, latent_shape, scale_factor = load_two_stage(args, device, dt,
                                                           use_ema=args.use_ema)
-    chunk = resolve_decode_chunk(args.decode_chunk, log, device) or args.batch
+    chunk = resolve_decode_chunk(args.decode_chunk, log, device)
+    if chunk and args.fused_decode:
+        log.info("--decode-chunk ignored: --fused-decode compiles the reverse "
+                 "loop + whole-batch decode as one program")
+    chunk = chunk or args.batch
     gen = torch.Generator().manual_seed(env_seed(args))
     patch_size = args.diffusion_train["patch_size"]
     latent_batch_shape = (args.batch, *latent_shape, ae.latent_channels)
@@ -133,24 +151,47 @@ def main(argv=None, timings: dict | None = None) -> list[str]:
         timings["encode_ms"].append((_sync(device) - t0) * 1e3)
         log.info("conditional sampling (concat) with condition shape %s", tuple(condition.shape))
 
+    fused = None
+    if args.fused_decode:
+        fused = inferer.CapturedSampler(
+            unet, ae.decode_stage_2_outputs, scheduler, latent_batch_shape, dt, device,
+            condition_shape=None if condition is None else tuple(condition.shape),
+            guidance_scale=args.guidance, scale_factor=scale_factor)
+        if device.type == "cuda":
+            fused.capture()
+            timings.setdefault("capture_ms", []).append(fused.capture_ms)
+            timings.setdefault("capture_graphs", []).append(fused.graph_count)
+            timings.setdefault("warmup_launches", []).append(fused.warmup_launches)
+
     os.makedirs(args.output_dir, exist_ok=True)
     written: list[str] = []
     for i in range(args.num):
         noise = torch.randn(latent_batch_shape, generator=gen).to(device, dt)
         t0 = _sync(device)
-        latents = inferer.sample_latents(unet, scheduler, noise, condition,
-                                         guidance_scale=args.guidance, generator=gen)
-        t1 = _sync(device)
-        latents = latents / torch.tensor(scale_factor, dtype=latents.dtype)
-        with torch.no_grad():
-            parts = [ae.decode_stage_2_outputs(latents[s:s + chunk])
-                     for s in range(0, args.batch, chunk)]
-        t2 = _sync(device)
-        timings["denoise_ms"].append((t1 - t0) * 1e3)
-        timings["decode_ms"].append((t2 - t1) * 1e3)
-        vols = np.concatenate([p.float().cpu().numpy() for p in parts])
-        log.info("sample %d: %s in %.2fs (%s, %d steps)", i, vols.shape, t2 - t0,
-                 args.sampler, len(scheduler.timesteps))
+        if fused is not None:
+            # the eager loop's draws, in its order: one a step where it draws
+            step_noises = ([torch.randn(latent_batch_shape, generator=gen)
+                            for _ in scheduler.timesteps] if fused.draws_noise else None)
+            out = fused.sample(noise, condition, step_noises)
+            t2 = _sync(device)
+            timings["denoise_ms"].append(fused.last_ms["denoise_ms"])
+            timings["decode_ms"].append(fused.last_ms["decode_ms"])
+            vols = out.float().cpu().numpy()
+        else:
+            latents = inferer.sample_latents(unet, scheduler, noise, condition,
+                                             guidance_scale=args.guidance, generator=gen)
+            t1 = _sync(device)
+            latents = latents / torch.tensor(scale_factor, dtype=latents.dtype)
+            with torch.no_grad():
+                parts = [ae.decode_stage_2_outputs(latents[s:s + chunk])
+                         for s in range(0, args.batch, chunk)]
+            t2 = _sync(device)
+            timings["denoise_ms"].append((t1 - t0) * 1e3)
+            timings["decode_ms"].append((t2 - t1) * 1e3)
+            vols = np.concatenate([p.float().cpu().numpy() for p in parts])
+        timings["sample_ms"].append((t2 - t0) * 1e3)
+        log.info("sample %d: %s in %.2fs (%s, %d steps%s)", i, vols.shape, t2 - t0,
+                 args.sampler, len(scheduler.timesteps), ", fused" if fused else "")
         for b in range(vols.shape[0]):
             stem = datetime.now().strftime(f"synimg_%Y%m%d_%H%M%S_{i}_{b}")
             # single-channel models write bare (D, H, W) volumes

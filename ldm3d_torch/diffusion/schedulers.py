@@ -9,6 +9,12 @@ grid) and ``DPMSolverPPScheduler`` (2M/3M multistep). Step math runs in fp32
 whatever the compute dtype. A step that adds noise (DDPM, DDIM with eta > 0)
 draws it from a caller's ``torch.Generator`` in ``step``, or takes it as an
 argument in ``step_with_noise``.
+
+Every step is :func:`table_step` over one row of scalars (t's alpha_bar
+terms and the kind's coefficients): the eager step builds its row as CPU
+0-dim tensors, and :meth:`step_table` stacks the rows of the whole grid into
+a :class:`StepTable`, which a step captured in a CUDA graph reads on the
+device at a device step index. One body for both gives the same bits.
 """
 
 from __future__ import annotations
@@ -19,7 +25,8 @@ import numpy as np
 import torch
 
 __all__ = ["DDIMScheduler", "DDPMScheduler", "DPMSolverPPScheduler", "GridDDIMScheduler",
-           "make_betas", "make_timestep_grid", "distillation_grid", "karras_timestep_grid"]
+           "StepTable", "table_step", "make_betas", "make_timestep_grid", "distillation_grid",
+           "karras_timestep_grid"]
 
 
 def make_betas(num_train_timesteps: int, schedule: str, beta_start: float,
@@ -112,19 +119,6 @@ def _noise_coeffs(alphas_cumprod: torch.Tensor, t: torch.Tensor, like: torch.Ten
     return torch.sqrt(a).to(like.dtype), torch.sqrt(1.0 - a).to(like.dtype)
 
 
-def _pred_x0_and_eps(pred, x_t, a_t, prediction_type: str):
-    """Convert a model output into (x0_hat, eps_hat) given alpha_bar_t."""
-    sqrt_a = torch.sqrt(a_t)
-    sqrt_1ma = torch.sqrt(1.0 - a_t)
-    if prediction_type == "epsilon":
-        return (x_t - sqrt_1ma * pred) / sqrt_a, pred
-    if prediction_type == "sample":
-        return pred, (x_t - sqrt_a * pred) / sqrt_1ma
-    if prediction_type == "v_prediction":
-        return sqrt_a * x_t - sqrt_1ma * pred, sqrt_a * pred + sqrt_1ma * x_t
-    raise ValueError(f"unknown prediction_type {prediction_type!r}")
-
-
 def _draw(x_t: torch.Tensor, generator: torch.Generator | None) -> torch.Tensor:
     """Standard-normal fp32 noise of ``x_t``'s shape, drawn on the generator's
     device and moved to ``x_t``'s."""
@@ -147,6 +141,7 @@ class DDIMScheduler:
     clip_range: float = 1.0
     eta: float = 0.0
     timestep_spacing: str = "leading"
+    kind = "ddim"
 
     @classmethod
     def create(
@@ -194,24 +189,30 @@ class DDIMScheduler:
                         z: torch.Tensor | None) -> torch.Tensor:
         """:meth:`step` with its standard-normal noise ``z`` given (unused at
         eta 0), in fp32, returned in x_t's dtype."""
+        row, noisy = self._row(t)
+        return table_step(self, row, model_output, x_t, _noise(z, noisy))
+
+    @property
+    def draws_noise(self) -> bool:
+        """Whether :meth:`step` draws a noise (at every step, added or not)."""
+        return self.eta > 0
+
+    def _row(self, t: int):
+        """The step's row (x0 columns, sqrt(abar_prev), the direction's
+        coefficient, sigma) and whether it adds noise."""
         stride = self.num_train_timesteps // self.num_inference_steps
-        x32 = x_t.float()
-        pred = model_output.float()
         a_t = self.alphas_cumprod[t]
         t_prev = t - stride
         a_prev = self.alphas_cumprod[t_prev] if t_prev >= 0 else torch.tensor(1.0)
-
-        x0, eps = _pred_x0_and_eps(pred, x32, a_t, self.prediction_type)
-        if self.clip_sample:
-            x0 = torch.clamp(x0, -self.clip_range, self.clip_range)
-            eps = (x32 - torch.sqrt(a_t) * x0) / torch.sqrt(1.0 - a_t)
         sigma = self.eta * torch.sqrt(torch.clamp((1 - a_prev) / (1 - a_t), min=1e-20)
                                       * (1 - a_t / a_prev))
-        dir_xt = torch.sqrt(torch.clamp(1.0 - a_prev - sigma**2, min=0.0)) * eps
-        sample = torch.sqrt(a_prev) * x0 + dir_xt
-        if self.eta > 0 and t_prev >= 0:
-            sample = sample + sigma * z.float()
-        return sample.to(x_t.dtype)
+        eps_coef = torch.sqrt(torch.clamp(1.0 - a_prev - sigma**2, min=0.0))
+        return (_row(self.kind, a_t, (torch.sqrt(a_prev), eps_coef, sigma)),
+                self.eta > 0 and t_prev >= 0)
+
+    def step_table(self) -> "StepTable":
+        """The rows of :meth:`step_with_noise` at each timestep."""
+        return _table(self, [self._row(t) for t in self.timesteps])
 
 
 @dataclasses.dataclass
@@ -231,6 +232,8 @@ class DDPMScheduler:
     clip_sample: bool = True
     clip_range: float = 1.0
     timestep_spacing: str = "leading"
+    kind = "ddpm"
+    draws_noise = True  # at every step; the last (t = 0) adds none
 
     @classmethod
     def create(
@@ -288,8 +291,13 @@ class DDPMScheduler:
                         z: torch.Tensor) -> torch.Tensor:
         """:meth:`step` with its standard-normal noise ``z`` given, in fp32,
         returned in x_t's dtype."""
-        x32 = x_t.float()
-        pred = model_output.float()
+        row, noisy = self._row(t)
+        return table_step(self, row, model_output, x_t, _noise(z, noisy))
+
+    def _row(self, t: int):
+        """The step's row (x0 columns, the posterior mean's coefficients of
+        x0 and x_t, the noise's standard deviation) and whether it adds
+        noise (t > 0)."""
         stride = self._stride
         a_t = self.alphas_cumprod[t]
         t_prev = t - stride
@@ -298,16 +306,14 @@ class DDPMScheduler:
         # beta over a strided jump otherwise
         beta_t = self.betas[t] if stride == 1 else 1.0 - a_t / a_prev
         alpha_t = 1.0 - beta_t
-
-        x0, _ = _pred_x0_and_eps(pred, x32, a_t, self.prediction_type)
-        if self.clip_sample:
-            x0 = torch.clamp(x0, -self.clip_range, self.clip_range)
         coef_x0 = torch.sqrt(a_prev) * beta_t / (1.0 - a_t)
         coef_xt = torch.sqrt(alpha_t) * (1.0 - a_prev) / (1.0 - a_t)
-        mean = coef_x0 * x0 + coef_xt * x32
         var = torch.clamp((1.0 - a_prev) / (1.0 - a_t) * beta_t, min=1e-20)
-        sample = mean + torch.sqrt(var) * z.float() if t > 0 else mean
-        return sample.to(x_t.dtype)
+        return _row(self.kind, a_t, (coef_x0, coef_xt, torch.sqrt(var))), t > 0
+
+    def step_table(self) -> "StepTable":
+        """The rows of :meth:`step_with_noise` at each timestep."""
+        return _table(self, [self._row(t) for t in self.timesteps])
 
 
 @dataclasses.dataclass
@@ -325,6 +331,8 @@ class GridDDIMScheduler:
     prediction_type: str = "epsilon"
     clip_sample: bool = True
     clip_range: float = 1.0
+    kind = "ddim"
+    draws_noise = False
 
     @classmethod
     def create(
@@ -372,16 +380,19 @@ class GridDDIMScheduler:
 
     def step_with_noise(self, model_output: torch.Tensor, t: int, x_t: torch.Tensor,
                         z: torch.Tensor | None) -> torch.Tensor:
-        x32 = x_t.float()
-        pred = model_output.float()
-        a_t = self.alphas_cumprod[t]
+        return table_step(self, self._row(t)[0], model_output, x_t)
+
+    def _row(self, t: int):
+        """:meth:`DDIMScheduler._row` of a step to the grid successor (sigma
+        0, no noise)."""
         a_prev = self.next_abar[t]
-        x0, eps = _pred_x0_and_eps(pred, x32, a_t, self.prediction_type)
-        if self.clip_sample:
-            x0 = torch.clamp(x0, -self.clip_range, self.clip_range)
-            eps = (x32 - torch.sqrt(a_t) * x0) / torch.sqrt(1.0 - a_t)
-        sample = torch.sqrt(a_prev) * x0 + torch.sqrt(torch.clamp(1.0 - a_prev, min=0.0)) * eps
-        return sample.to(x_t.dtype)
+        return (_row(self.kind, self.alphas_cumprod[t],
+                     (torch.sqrt(a_prev), torch.sqrt(torch.clamp(1.0 - a_prev, min=0.0)),
+                      torch.zeros(()))), False)
+
+    def step_table(self) -> "StepTable":
+        """The rows of :meth:`step_with_noise` at each grid timestep."""
+        return _table(self, [self._row(t) for t in self.timesteps])
 
 
 @dataclasses.dataclass
@@ -412,6 +423,8 @@ class DPMSolverPPScheduler:
     multistep: bool = True
     solver_order: int = 2
     timestep_spacing: str = "leading"
+    kind = "multistep"
+    draws_noise = False
 
     @classmethod
     def create(
@@ -487,14 +500,131 @@ class DPMSolverPPScheduler:
                        ) -> tuple[torch.Tensor, torch.Tensor]:
         """One 2M/3M update at step index ``i`` (timestep ``t``); returns
         ``(x_next, x0_current)``, both in x_t's dtype."""
-        x32 = x_t.float()
-        pred = model_output.float()
-        x0, _ = _pred_x0_and_eps(pred, x32, self.alphas_cumprod[t], self.prediction_type)
-        if self.clip_sample:
-            x0 = torch.clamp(x0, -self.clip_range, self.clip_range)
-        x_next = self.c_x[i] * x32 + self.c_d[i] * x0 + self.c2[i] * (x0 - x0_prev.float())
-        if self.solver_order >= 3:
-            if x0_prev2 is None:
-                raise ValueError("solver_order=3 requires the x0_prev2 carry")
-            x_next = x_next + self.c3[i] * (x0_prev.float() - x0_prev2.float())
-        return x_next.to(x_t.dtype), x0.to(x_t.dtype)
+        if self.solver_order >= 3 and x0_prev2 is None:
+            raise ValueError("solver_order=3 requires the x0_prev2 carry")
+        return table_step(self, self._row(i, t), model_output, x_t, None, x0_prev, x0_prev2)
+
+    def _row(self, i: int, t: int) -> dict:
+        """The row of step index ``i`` (timestep ``t``): the x0 columns and
+        c_x, c_d, c2, c3."""
+        return _row(self.kind, self.alphas_cumprod[t],
+                    (self.c_x[i], self.c_d[i], self.c2[i], self.c3[i]))
+
+    def step_table(self) -> "StepTable":
+        """The rows of :meth:`step_multistep` at each step index."""
+        return _table(self, [(self._row(i, t), False) for i, t in enumerate(self.grid)])
+
+
+# The columns of a StepTable: the four x0 columns of every kind (the
+# reciprocals are those PyTorch's CUDA division by a CPU scalar multiplies
+# by), then the kind's own coefficients.
+_X0_COLUMNS = ("sqrt_a", "sqrt_1ma", "inv_sqrt_a", "inv_sqrt_1ma")
+TABLE_COLUMNS = {"ddim": _X0_COLUMNS + ("x0_coef", "eps_coef", "sigma"),
+                 "ddpm": _X0_COLUMNS + ("coef_x0", "coef_xt", "sqrt_var"),
+                 "multistep": _X0_COLUMNS + ("c_x", "c_d", "c2", "c3")}
+
+
+@dataclasses.dataclass
+class StepTable:
+    """The rows of a scheduler's steps over its grid: ``timesteps`` (N,)
+    int32; ``values`` (N, len(columns)) fp32, one row a step, in the columns
+    of ``TABLE_COLUMNS[kind]``; ``noisy[i]`` whether step i adds its noise;
+    ``draws_noise`` whether the eager loop draws a noise at every step
+    (added or not). ``prediction_type``, ``clip_sample``, ``clip_range`` and
+    ``solver_order`` are the scheduler's."""
+
+    kind: str
+    timesteps: torch.Tensor
+    values: torch.Tensor
+    noisy: tuple
+    draws_noise: bool
+    prediction_type: str
+    clip_sample: bool
+    clip_range: float
+    solver_order: int = 2
+
+    @property
+    def columns(self) -> tuple:
+        return TABLE_COLUMNS[self.kind]
+
+
+def _row(kind: str, a_t: torch.Tensor, coefs) -> dict:
+    """A step's row of ``kind`` at abar_t, by column, as fp32 0-dim CPU
+    tensors: sqrt(abar_t), sqrt(1 - abar_t), their reciprocals in fp32 as a
+    C++ float division gives them, then the kind's ``coefs``."""
+    sqrt_a, sqrt_1ma = torch.sqrt(a_t), torch.sqrt(1.0 - a_t)
+    one = np.float32(1.0)
+    values = [sqrt_a, sqrt_1ma, torch.tensor(one / np.float32(sqrt_a.item())),
+              torch.tensor(one / np.float32(sqrt_1ma.item())), *coefs]
+    return {c: torch.as_tensor(v, dtype=torch.float32)
+            for c, v in zip(TABLE_COLUMNS[kind], values, strict=True)}
+
+
+def _noise(z: torch.Tensor | None, noisy: bool) -> torch.Tensor | None:
+    """The noise a step adds: ``z`` where it adds one, else None."""
+    if noisy and z is None:
+        raise ValueError("this step adds noise: its standard normal z is required")
+    return z if noisy else None
+
+
+def _table(sched, rows: list) -> StepTable:
+    """``sched``'s StepTable from its (row, adds noise) at each step."""
+    values = torch.stack([torch.stack([row[c] for c in TABLE_COLUMNS[sched.kind]])
+                          for row, _ in rows])
+    return StepTable(sched.kind, torch.tensor(list(sched.timesteps), dtype=torch.int32), values,
+                     tuple(noisy for _, noisy in rows), sched.draws_noise,
+                     sched.prediction_type, sched.clip_sample, sched.clip_range,
+                     getattr(sched, "solver_order", 2))
+
+
+def _div(num: torch.Tensor, s: torch.Tensor, inv: torch.Tensor) -> torch.Tensor:
+    """``num / s``, ``s`` a 0-dim tensor and ``inv`` its fp32 reciprocal. On
+    the card a product with ``inv``: PyTorch's CUDA division by a CPU scalar
+    is that product, so a row on the device gives the bits of a row on the
+    CPU. On the CPU a division."""
+    return num * inv if num.is_cuda else num / s
+
+
+def table_step(table, row: dict, model_output: torch.Tensor, x_t: torch.Tensor,
+               z: torch.Tensor | None = None, x0_prev: torch.Tensor | None = None,
+               x0_prev2: torch.Tensor | None = None):
+    """One step from ``row``, a dict from the columns of
+    ``TABLE_COLUMNS[table.kind]`` to 0-dim fp32 tensors (on the CPU, or on
+    x_t's device), in fp32 and returned in x_t's dtype. ``table`` is a
+    :class:`StepTable` or the scheduler itself: its ``kind``,
+    ``prediction_type``, ``clip_sample``, ``clip_range`` and, for the
+    multistep kind, ``solver_order`` are read. ``z`` (the step's standard
+    normal) is added only when given; the multistep kind takes the x0
+    carries and returns ``(x_next, x0)``."""
+    x32 = x_t.float()
+    pred = model_output.float()
+    sqrt_a, sqrt_1ma = row["sqrt_a"], row["sqrt_1ma"]
+    need_eps = table.kind == "ddim"
+    if table.prediction_type == "epsilon":
+        x0, eps = _div(x32 - sqrt_1ma * pred, sqrt_a, row["inv_sqrt_a"]), pred
+    elif table.prediction_type == "sample":
+        x0 = pred
+        eps = _div(x32 - sqrt_a * pred, sqrt_1ma, row["inv_sqrt_1ma"]) if need_eps else None
+    elif table.prediction_type == "v_prediction":
+        x0 = sqrt_a * x32 - sqrt_1ma * pred
+        eps = sqrt_a * pred + sqrt_1ma * x32 if need_eps else None
+    else:
+        raise ValueError(f"unknown prediction_type {table.prediction_type!r}")
+    if table.clip_sample:
+        x0 = torch.clamp(x0, -table.clip_range, table.clip_range)
+        if need_eps:
+            eps = _div(x32 - sqrt_a * x0, sqrt_1ma, row["inv_sqrt_1ma"])
+    if table.kind == "ddim":
+        dir_xt = row["eps_coef"] * eps
+        sample = row["x0_coef"] * x0 + dir_xt
+        if z is not None:
+            sample = sample + row["sigma"] * z.float()
+        return sample.to(x_t.dtype)
+    if table.kind == "ddpm":
+        mean = row["coef_x0"] * x0 + row["coef_xt"] * x32
+        sample = mean + row["sqrt_var"] * z.float() if z is not None else mean
+        return sample.to(x_t.dtype)
+    x_next = row["c_x"] * x32 + row["c_d"] * x0 + row["c2"] * (x0 - x0_prev.float())
+    if table.solver_order >= 3:
+        x_next = x_next + row["c3"] * (x0_prev.float() - x0_prev2.float())
+    return x_next.to(x_t.dtype), x0.to(x_t.dtype)

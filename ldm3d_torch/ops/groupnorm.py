@@ -36,7 +36,7 @@ from typing import NamedTuple
 import torch
 
 __all__ = ["GnPlan", "gn_sums", "gn_sums_plan", "gn_bwd_sums", "gn_bwd_sums_plan",
-           "gn_sums_reference", "gn_bwd_sums_reference"]
+           "gn_sums_reference", "gn_bwd_sums_reference", "workspace_buffers"]
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 _DTYPE_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
@@ -249,7 +249,13 @@ class _Workspace:
     last-block combine's partials and arrival counters (zeros between
     calls), each grown as needed, and the ``ldm3d_gn_sums`` and
     ``ldm3d_gn_bwd_sums`` functions. Calls on one stream run in order, so
-    they share them."""
+    they share them.
+
+    A CUDA graph bakes in the buffers' pointers: a capture keeps the
+    buffers it used alive (``ops.graphs.CountedGraph`` holds
+    :func:`workspace_buffers`), so a later growth replaces them here
+    without freeing them. Growing during a capture raises: the zeroed
+    counters would be zero only once the graph ran."""
 
     def __init__(self):
         self.partials: dict[int, torch.Tensor] = {}
@@ -260,14 +266,25 @@ class _Workspace:
     def get(self, device: torch.device, plan: GnPlan) -> tuple[torch.Tensor, torch.Tensor]:
         groups, nsplit, b = plan.grid
         partials = self.partials.get(device.index)
-        if partials is None or partials.numel() < 2 * b * nsplit * plan.c:
+        counters = self.counters.get(device.index)
+        grow_partials = partials is None or partials.numel() < 2 * b * nsplit * plan.c
+        grow_counters = counters is None or counters.numel() < b * groups
+        if (grow_partials or grow_counters) and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"the GroupNorm sums workspace would grow during a CUDA graph capture (x "
+                f"{(plan.b, plan.v, plan.c)}): run the captured calls once eagerly first")
+        if grow_partials:
             partials = self.partials[device.index] = torch.empty(
                 (max(2 * b * nsplit * plan.c, 1 << 16),), device=device)
-        counters = self.counters.get(device.index)
-        if counters is None or counters.numel() < b * groups:
+        if grow_counters:
             counters = self.counters[device.index] = torch.zeros(
                 (max(b * groups, 1 << 12),), dtype=torch.int32, device=device)
         return partials, counters
+
+
+def workspace_buffers() -> list:
+    """The workspace buffers the kernels now write (on every device)."""
+    return [*_WS.partials.values(), *_WS.counters.values()]
 
 
 _WS = _Workspace()

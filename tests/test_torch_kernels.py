@@ -247,44 +247,95 @@ def test_bf16_kernel_raises_on_misaligned_views_and_fp32_takes_them():
                 assert tattn.flash_attention_fwd.launches == before + 1
 
 
-def _kernel_names(fn, part: str, launches: int, calls: int = 5, tries: int = 3) -> dict:
+# two kernel nodes of a cudaGraphDebugDotPrint dump taken on the H100 (torch
+# 2.11, CUDA 12.8), a kernel with an unmangled name and a memset node
+_DOT = r"""digraph dot {
+subgraph cluster_1 {
+label="graph_1" graph[style="dashed"];
+"graph_1_node_0"[style="bold" shape="record" label="{KERNEL
+| {ID | 0 (topoId: 3) | _ZN50_GLOBAL__N__ce131c08_17_groupnorm_sums_cu_d127756815gn_sums_onepassIfLi4ELb1EEEvPKT_llPfS4_Pjiiii\<\<\<\{2,4\},256,0\>\>\>}
+| {{node handle | func handle} | {0x000000000B73EA00 | 0x000000000A6283F0}}
+| {cooperative | 0}
+}"];
+
+"graph_1_node_1"[style="bold" shape="record" label="{KERNEL
+| {ID | 1 (topoId: 2) | _ZN45_GLOBAL__N__2ad35770_12_flash_fwd_cu_89a37f9025flash_fwd_bf16_mma_kernelILi64EEEvPK13__nv_bfloat16S3_S3_PS1_Pfiiiilllllllllf\<\<\<2,256,55296\>\>\>}
+| {{node handle | func handle} | {0x000000000B73F168 | 0x000000000A808A50}}
+}"];
+
+"graph_1_node_2"[style="bold" shape="record" label="{MEMSET
+| {ID | 2 (topoId: 1)}
+}"];
+
+"graph_1_node_3"[style="bold" shape="record" label="{KERNEL
+| {ID | 3 (topoId: 0) | plain_c_kernel\<\<\<1,32,0\>\>\>}
+}"];
+
+"graph_1_node_0" -> "graph_1_node_1" [headlabel=0];
+}
+}
+"""
+
+
+def test_graph_kernel_names_reads_a_dot_dump():
+    """The kernel nodes of a dump, in order, by their demangled names; the
+    memset node is no kernel."""
+    from ldm3d_torch.ops.graphs import graph_kernel_names
+
+    assert graph_kernel_names(_DOT) == ["gn_sums_onepass<float, 4, 1>",
+                                        "flash_fwd_bf16_mma_kernel<64>", "plain_c_kernel"]
+    assert graph_kernel_names("digraph dot {\n}\n") == []
+
+
+def _same_bits(got, want) -> bool:
+    """Whether two call results (a tensor, or a tuple or list of them, or
+    None) hold the same bits."""
+    if isinstance(want, torch.Tensor):
+        return torch.equal(got, want)
+    if isinstance(want, (tuple, list)):
+        return len(got) == len(want) and all(_same_bits(g, w) for g, w in zip(got, want))
+    return got is None and want is None
+
+
+def _kernel_names(fn, part: str, launches: int, calls: int = 5) -> dict:
     """The device kernels whose names hold ``part`` that one call of ``fn``
-    launches (after a warm-up call), with their launch counts a call, from
-    the profiler's trace. ``launches``: how many such kernels one call makes.
+    launches, with their launch counts a call: the kernel nodes of a CUDA
+    graph of ``calls`` calls (captured after an eager warm-up call), by the
+    names ``cudaGraphDebugDotPrint`` gives them (``ops.graphs.CountedGraph``).
+    ``launches``: how many such kernels one call makes. The graph is then
+    replayed once, and each captured call's result must hold the warm-up
+    call's bits. Fails unless the graph holds ``launches * calls`` such
+    kernels: a graph without kernel nodes never passes.
 
-    The profiler traces CPU and CUDA activity together over a window of
-    ``calls`` calls, and the names are taken from that window: a trace of
-    the card alone came back now and then with no device events at all
-    (torch 2.11). A window that holds other than ``launches * calls`` such
-    kernels is taken again, up to ``tries`` times in all, and the test then
-    fails with what the traces held: an empty trace never passes."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    These names came from ``torch.profiler`` windows before, which lost
+    device kernels now and then (``PERF.md`` section 6, C8); a graph's nodes
+    are what the card will run, whatever CUPTI records."""
+    from ldm3d_torch.ops.graphs import CountedGraph, graph_kernel_names
 
-    fn()
+    want = fn()
     torch.cuda.synchronize()
-    seen = []
-    for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        averages = prof.key_averages()
-        host = {ev.key for ev in averages if ev.device_type == DeviceType.CPU}
-        device = {ev.key: ev.count for ev in averages if ev.device_type == DeviceType.CUDA
-                  and ev.key not in host and not ev.key.startswith(("Memcpy", "Memset"))}
-        names = {k: n for k, n in device.items() if part in k}
-        if sum(names.values()) == launches * calls:
-            return {k: n // calls if n % calls == 0 else n / calls for k, n in names.items()}
-        seen.append({"device_kernels": device, "host_events": len(host)})
-    pytest.fail(f"the profiler's window of {calls} calls did not hold {launches} kernel(s) "
-                f"named *{part}* a call in {tries} tries; the traces held: {seen}")
+    graph = CountedGraph(debug=True)
+    outs = graph.capture(lambda: [fn() for _ in range(calls)])
+    dot = graph.dot()
+    names = graph_kernel_names(dot)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert names, f"the graph of {calls} calls holds no kernel node; its dump:\n{dot[:4000]}"
+    assert all(_same_bits(out, want) for out in outs), "a replayed call's result differs"
+    matched = {}
+    for name in names:
+        if part in name:
+            matched[name] = matched.get(name, 0) + 1
+    if sum(matched.values()) != launches * calls:
+        pytest.fail(f"the graph of {calls} calls holds {matched} kernels named *{part}*, not "
+                    f"{launches} a call; all its kernel nodes: {names}")
+    return {k: n // calls if n % calls == 0 else n / calls for k, n in matched.items()}
 
 
 @pytest.mark.cuda
 def test_kernel_routes_by_dtype_on_card():
     """bf16 runs the bf16 tensor-core kernel and fp32 the 3xTF32 tensor-core
-    kernel, by the kernels' names in the profiler's trace."""
+    kernel, by the kernels' names in a CUDA graph of the calls."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -432,7 +483,7 @@ def test_wgmma_route_matches_plain_on_card(shape):
     """The bf16 forward at 128 < d <= 256 on strided views of fused
     projections: O within 2^-7 of the largest |O| and the LSE within 1e-4 of
     the plain version, one launch of flash_fwd_bf16_wgmma_kernel (by name in
-    the profiler's trace, and in the wrapper's count of the route), the same
+    a CUDA graph of the calls, and in the wrapper's count of the route), the same
     bits on a second run."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
@@ -715,7 +766,7 @@ SMOKE_FWD_SHAPES = [
 def test_fp32_forward_runs_tf32x3_and_matches_plain_on_card(shape):
     """The fp32 forward at every shape of chip_smoke.py's kernel phase: O and
     LSE within 1e-4 of the plain version, through flash_fwd_tf32x3_mma_kernel
-    (one launch of it, by name in the profiler's trace)."""
+    (one launch of it, by name in a CUDA graph of the calls)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1027,7 +1078,7 @@ def test_flash_bwd_routes_by_dtype_and_counts_exact_launches_on_card():
     """One backward through autograd launches exactly one dQ and one dK/dV
     kernel: at d = 64 the bf16 wgmma kernels in bf16 (not the mma.sync
     pair) and the 3xTF32 tensor-core kernels in fp32 (no scalar kernel), by
-    the kernels' names in the profiler's trace and by the wrappers' route
+    the kernels' names in a CUDA graph of the calls and by the wrappers' route
     counts. A head_dim that is not a multiple of 8 runs zero-padded, one
     launch of each."""
     if not torch.cuda.is_available():
@@ -1159,7 +1210,7 @@ GN_STAGE1_SHAPES = [(1, 64, 64, 64, 64), (1, 128, 64, 64, 64), (1, 64, 32, 32, 3
 def test_gn_sums_one_launch_deterministic_and_matches_plain_on_card(dtype, shape):
     """B4 at the flagship's GroupNorm inputs: within 1e-5 of the absolute
     sums of its plain version, the same bits on two runs, and one kernel
-    launch a call (by the profiler's count), the wrapper counting one."""
+    launch a call (by a CUDA graph's kernel nodes), the wrapper counting one."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     dt = getattr(torch, dtype)
@@ -1189,7 +1240,7 @@ def test_gn_bwd_sums_one_launch_deterministic_and_matches_plain_on_card(dtype, l
     """B5 at the flagship's GroupNorm inputs and a stage-1 step's, dy in
     ``layout`` (x channels_last_3d, as the activations are): within 1e-5 of
     the absolute sums of its plain version, the same bits on two runs, and
-    one kernel launch a call (by the profiler's count), the wrapper counting
+    one kernel launch a call (by a CUDA graph's kernel nodes), the wrapper counting
     one."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")

@@ -139,15 +139,15 @@ def test_cli_needs_cuda_unless_cpu_is_asked_for(tiny, tmp_path):
 
 @pytest.mark.parametrize("sampler", ["ddpm", "dpm", "dpm3"])
 def test_cli_unported_samplers_name_the_roadmap(sampler, tiny, tmp_path):
-    """Every sampler runs now; the options still unported (the distilled
-    student, the one-program fused decode) raise naming their ROADMAP item."""
+    """Every sampler runs now; the option still unported (the distilled
+    student) raises naming its ROADMAP item. (``--fused-decode`` runs:
+    tests/test_torch_fused_sample.py.)"""
     _, _, _, _, _, tae, tunet = tiny
     save_two_stage(str(tmp_path / "ckpt"), tae, tunet, 1.0)
     env = _env(tmp_path, tmp_path / "ckpt")
-    for flag in ("--use-distilled", "--fused-decode"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            port_inference(["-c", port_preset_path("config_tiny_cpu.json"), "-e", env,
-                            "--sampler", sampler, flag, "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="ROADMAP.*Distillation"):
+        port_inference(["-c", port_preset_path("config_tiny_cpu.json"), "-e", env,
+                        "--sampler", sampler, "--use-distilled", "--device", "cpu"])
 
 
 def _cli_volume(env, *extra):
