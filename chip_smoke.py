@@ -5,8 +5,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 CUDA device, ``nvcc`` and the port's sources; it exits non-zero, without a
 result line, when any of them is missing or any phase fails. ``--phases
 kernel,kernel_conv`` (any of kernel, kernel_bwd, kernel_c2, kernel_conv,
-train_ae, train_ae_fp32, stage1_card_vs_cpu, sample_fused) runs only those
-phases after device and build, and prints no result line.
+train_ae, train_ae_fp32, stage1_card_vs_cpu, sample_fused, distill,
+distill_card_vs_cpu, evaluate) runs only those phases after device and
+build, and prints no result line.
 Phases, each printing JSON lines:
 
 1. device: the card's name and power limit (``nvidia-smi``);
@@ -131,7 +132,30 @@ Phases, each printing JSON lines:
    ``config_tiny_cpu.json`` train step, and one adversarial stage-1 step (G
    and D, the CLI's discriminator, LPIPS), same weights and draws on the
    card (kernels) and on the CPU (plain), fp32 with TF32 off; the train
-   steps hold their losses, their gradients and the updated params.
+   steps hold their losses, their gradients and the updated params;
+11. main path, distillation: ``ldm3d_torch.cli.distill.main`` on the seeded
+   full-width checkpoints, batch 20 at 80^3: (a) ``--amp``, 8 -> 2 steps in
+   2 rounds of 4 steps, a v_prediction student; (b) fp32, 4 -> 2 steps in one
+   round of 2 steps with guidance 2.0 distilled (the teacher's guided
+   forwards at batch 40). Finite losses, the exact launches a step by kernel
+   and route (a stage-2 step's backward and two more UNet forwards), no
+   teacher gradient, the distilled meta; then (a)'s student through
+   ``cli.inference --use-distilled``, eager and ``--fused-decode`` (equal
+   bit for bit), and ``ModelServer(sampler="distilled")``, which answers one
+   request and refuses one with guidance; the GroupNorm inputs of both runs
+   go to the kernel_gn phase (as the ``distilling_*`` paths), and the kernel
+   phase checks the forward at the guided teacher's batch-40 shapes;
+12. main path, evaluation: ``ldm3d_torch.cli.evaluate.main`` (fp32, two
+   pairs, batch 1) on the distilled student and on DDIM-10, each writing
+   its report (seconds a pair, the metrics' share); then SSIM, MS-SSIM and
+   the flagship VAE's latent features on seeded 80^3 volumes with both
+   ``allow_tf32`` flags True before each call: the same bits as with both
+   False, and card against CPU within 1e-5 (the features within 1e-4 of
+   their largest |value|);
+13. distill_card_vs_cpu: one ``config_tiny_cpu.json`` distillation step on
+   the card and on the CPU (same weights and draws, fp32, TF32 off): loss,
+   ``grad_norm`` and the student's gradients within 1e-3 relative, the
+   updated student within 2 lr + 1e-6.
 
 The GroupNorm kernel phase (7) runs after the serving path, and replays the
 inputs of all six main-path runs (the discriminator's instance norms, g =
@@ -151,7 +175,8 @@ the peak for the inputs' type (989 TFLOP/s bf16 tensor cores; fp32 at
 495 / 3 = 165 TFLOP/s, the rate of fp32-accurate products on the TF32
 tensor cores, three TF32 products each). The last three lines are the
 kernels' summary JSON (seven rows: the forward, its wgmma route alone, dQ,
-dK/dV, the two GroupNorm sums, the conv), the ``nvidia-smi`` line, and
+dK/dV, the two GroupNorm sums, the conv; each also with the distillation
+runs' launches, in all and a step), the ``nvidia-smi`` line, and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -266,6 +291,9 @@ TRAIN_SHAPES = [(20, 1000, 8, 64), (20, 125, 16, 64), (20, 8000, 1, 256)]
 # 5 level-1 and 6 level-2 attentions (forward and backward); the forward
 # also runs 2 VAE encodes x 2 encoder attentions
 TRAIN_FWD_PER_STEP = {TRAIN_SHAPES[0]: 5, TRAIN_SHAPES[1]: 6, TRAIN_SHAPES[2]: 4}
+# the UNet's attention in a guided distillation step's teacher forwards:
+# conditional and unconditional halves as one batch of 40
+DISTILL_CFG_SHAPES = [(40, 1000, 8, 64), (40, 125, 16, 64)]
 TRAIN_BWD_PER_STEP = {TRAIN_SHAPES[0]: 5, TRAIN_SHAPES[1]: 6}
 # Stage-1 main path: config_train_32g.json's autoencoder_train (batch 1, a
 # 64^3 random crop) on synthetic 80^3 pairs, through a copy of the preset
@@ -642,8 +670,8 @@ def phase_kernel(torch, F) -> dict:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = {}
-    cases = ([("bfloat16", s) for s in SHAPES + TRAIN_SHAPES + EDGE_SHAPES + C2_SHAPES]
-             + [("float32", s) for s in SHAPES + TRAIN_SHAPES + EDGE_SHAPES + C2_SHAPES])
+    shapes = SHAPES + TRAIN_SHAPES + DISTILL_CFG_SHAPES + EDGE_SHAPES + C2_SHAPES
+    cases = [("bfloat16", s) for s in shapes] + [("float32", s) for s in shapes]
     for dtype, shape in cases:
         dt = getattr(torch, dtype)
         b, n, h, d = shape[:4]
@@ -2377,9 +2405,376 @@ def phase_stage1_card_vs_cpu(torch) -> None:
           "card_launches": launched})
 
 
+# distillation runs of the distill phase: (argv of cli.distill, steps a run)
+DISTILL_RUNS = {
+    "a_bf16_v": (["--amp", "--teacher-steps", "8", "--rounds", "2", "--steps-per-round", "4",
+                  "--student-prediction", "v_prediction"], 8),
+    "b_fp32_guided": (["--teacher-steps", "4", "--rounds", "1", "--steps-per-round", "2",
+                       "--guidance-distill", "2.0"], 2),
+}
+EVAL_PAIRS = 2
+# card against CPU: SSIM and MS-SSIM (in [0, 1]) within EVAL_TOL; the
+# full-width encoder's fp32 latent features within FEATURES_REL of their
+# largest |value| (its convolutions, K up to 27 * 256 terms, summed in other
+# orders on the card and the CPU)
+EVAL_TOL = 1e-5
+FEATURES_REL = 1e-4
+
+
+def _distill_per_step(counts, amp: bool) -> dict:
+    """One distillation step's launches: two encodes, two teacher UNet
+    forwards (batched CFG is one call) and the student's forward and
+    backward."""
+    enc, unet = counts["encoder"], counts["unet"]
+    return {"flash_fwd": 2 * enc["attn"] + 3 * unet["attn"],
+            "flash_fwd_wgmma": 2 * enc["attn"] if amp else 0,
+            "flash_bwd_dq": unet["attn"], "flash_bwd_dkv": unet["attn"],
+            "flash_bwd_dq_wgmma": unet["attn"] if amp else 0,
+            "flash_bwd_dkv_wgmma": unet["attn"] if amp else 0,
+            "gn_sums": 2 * enc["gn"] + 3 * unet["gn"], "gn_bwd_sums": unet["gn"],
+            "conv3d_igemm": 0}
+
+
+def phase_distill(torch, ns, counts, workdir: Path, card: str, smi_line: str,
+                  stage2_per_step: dict | None = None) -> dict:
+    """Full-width progressive distillation through ``cli.distill`` (batch 20,
+    80^3, the seeded flagship checkpoints) in each of DISTILL_RUNS: finite
+    losses, the exact launches a step by kernel and route (held to a
+    stage-2 step's when given: the same backward, two more UNet forwards), no
+    teacher gradient, the distilled checkpoint and its meta. After run a, its
+    2-step student samples through ``cli.inference --use-distilled`` eagerly
+    and with ``--fused-decode`` (equal bit for bit) and through an in-process
+    ``ModelServer(sampler="distilled")``, which answers one request and
+    refuses one with guidance. Returns the record, with the model directory
+    (its distilled role from run b) for the evaluate phase."""
+    from ldm3d_torch.ckpt import CheckpointManager
+    from ldm3d_torch.cli.distill import main as distill_main
+    from ldm3d_torch.configs import preset_path
+
+    t0 = time.perf_counter()
+    model_dir, _ = _flagship_checkpoints(torch, ns, workdir)
+    env = _write_env(model_dir, synthetic_num=TRAIN_PAIRS, resume_ckpt=False)
+    cfg_path = preset_path("config_train_32g.json")
+    setup_s = time.perf_counter() - t0
+    record: dict = {"model_dir": model_dir, "runs": {}}
+    for name, (extra, steps) in DISTILL_RUNS.items():
+        amp = "--amp" in extra
+        gc.collect()
+        torch.cuda.empty_cache()
+        timings: dict = {}
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        unpin_precision(torch)
+        t_run = time.perf_counter()
+        final = distill_main(["-c", cfg_path, "-e", str(env), *extra], timings=timings)
+        run_s = time.perf_counter() - t_run
+        launches, gn_cases = _read_counts(), _read_gn_cases()
+        flags = pinned_precision(torch, "cli.distill.main")
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        losses = [x for r in timings["distill_loss"] for x in r]
+        check(len(losses) == steps, f"{name}: {len(losses)} distillation steps, expected {steps}")
+        check(all(math.isfinite(x) for x in losses) and math.isfinite(final),
+              f"{name}: non-finite distillation losses {losses}")
+        check(timings["teacher_params_with_grad"] == [0] * len(timings["step_ms"]),
+              f"{name}: teacher parameters hold gradients: {timings['teacher_params_with_grad']}")
+        per_step = _distill_per_step(counts, amp)
+        for key, n in per_step.items():
+            check(launches[key] == steps * n, f"{name}: {key} launched {launches[key]} times, "
+                                              f"expected {steps} steps of {n}")
+        if stage2_per_step is not None and amp:
+            # a stage-2 step's backward, and two more UNet forwards
+            unet = counts["unet"]
+            for key in ("flash_bwd_dq", "flash_bwd_dkv", "gn_bwd_sums", "flash_fwd_wgmma"):
+                check(per_step[key] == stage2_per_step[key], f"{key}: a distillation step's "
+                      f"{per_step[key]} against a stage-2 step's {stage2_per_step[key]}")
+            check(per_step["flash_fwd"] == stage2_per_step["flash_fwd"] + 2 * unet["attn"]
+                  and per_step["gn_sums"] == stage2_per_step["gn_sums"] + 2 * unet["gn"],
+                  f"a distillation step's forwards {per_step} against a stage-2 step's "
+                  f"{stage2_per_step}")
+        meta = CheckpointManager(str(model_dir), "diffusion").load_meta("distilled")
+        rounds = int(extra[extra.index("--rounds") + 1])
+        final_steps = int(extra[extra.index("--teacher-steps") + 1]) >> rounds
+        check(meta["num_steps"] == final_steps and len(meta["timesteps"]) == final_steps
+              and meta["final_loss"] == final, f"{name}: distilled meta {meta}")
+        step_ms = [ms for r in timings["step_ms"] for ms in r[1:]]  # each round's first warms
+        median_ms = statistics.median(step_ms)
+        run = {"steps": steps, "launches": launches, "launches_per_step": per_step,
+               "step_ms": timings["step_ms"], "median_step_ms_after_warmup": median_ms,
+               "volumes_per_s_distilled": TRAIN_BATCH * 1e3 / median_ms,
+               "distill_loss": timings["distill_loss"], "grad_norm": timings["grad_norm"],
+               "final_loss": final, "peak_device_memory_gib": peak_gib, "meta": meta}
+        emit({"phase": "distill", "run": name, "config": "config_train_32g.json",
+              "patch": [80, 80, 80], "batch": TRAIN_BATCH,
+              "dtype": "bfloat16" if amp else "float32", "argv": extra,
+              "setup_s": round(setup_s, 3), "run_s": round(run_s, 3), **run,
+              "step_ms_note": "device ms a step from CUDA events around each step, read after "
+                              "the round; the median leaves each round's first step out",
+              "allow_tf32": flags, "card": card, "nvidia_smi": smi_line})
+        record["runs"][name] = {**run, "gn_cases": gn_cases}
+        if name == "a_bf16_v":
+            _distilled_sample_and_serve(torch, counts, model_dir, env, cfg_path, final_steps,
+                                        card, smi_line)
+    return record
+
+
+def _distilled_sample_and_serve(torch, counts, model_dir, env, cfg_path, n_steps, card,
+                                smi_line) -> None:
+    """The distilled student through ``cli.inference --use-distilled``, eager
+    and fused (bit-equal; the launches its n_steps UNet calls and the VAE
+    imply), and through ``ModelServer(sampler="distilled")``."""
+    import base64
+
+    from ldm3d_torch.cli.inference import main as inference_main
+    from ldm3d_torch.ops import graphs
+    from ldm3d_torch.serving.model_server import ModelServer
+
+    argv = ["-c", cfg_path, "-e", str(env), "-n", "1", "--use-distilled", "--amp"]
+    runs = {}
+    for way, extra in (("eager", []), ("fused", ["--fused-decode"])):
+        gc.collect()
+        torch.cuda.empty_cache()
+        timings: dict = {}
+        before = graphs.launch_counts()
+        unpin_precision(torch)
+        written = inference_main(argv + extra, timings=timings)
+        pinned_precision(torch, f"cli.inference.main --use-distilled {' '.join(extra)}")
+        delta = graphs.launch_delta(graphs.launch_counts(), before)
+        if way == "fused":
+            delta = graphs.launch_delta(delta, timings["warmup_launches"][0])
+        runs[way] = {"vols": _cli_volumes(written), "timings": timings,
+                     "launches": _counts_by_key(delta)}
+        shutil.rmtree(model_dir / "out")
+    eager, fused = runs["eager"], runs["fused"]
+    check(eager["vols"].shape == (1, 80, 80, 80) and bool(np.isfinite(eager["vols"]).all()),
+          f"distilled sample: volumes {eager['vols'].shape}, finite "
+          f"{bool(np.isfinite(eager['vols']).all())}")
+    same = bool(np.array_equal(eager["vols"], fused["vols"]))
+    check(same, "the fused distilled sample differs from the eager one by up to "
+                f"{float(np.abs(eager['vols'] - fused['vols']).max())}")
+    vae_attn = counts["encoder"]["attn"] + counts["decoder"]["attn"]
+    want = {"flash_fwd": n_steps * counts["unet"]["attn"] + vae_attn,
+            "gn_sums": counts["encoder"]["gn"] + n_steps * counts["unet"]["gn"]
+            + counts["decoder"]["gn"]}
+    for way, run in runs.items():
+        for key, n in want.items():
+            check(run["launches"][key] == n, f"distilled sample ({way}): {key} launched "
+                                             f"{run['launches'][key]} times, expected {n}")
+    server = ModelServer(cfg_path, str(env), sampler="distilled", device="cuda")
+    unpin_precision(torch)
+    server.load_model()
+    pinned_precision(torch, "ModelServer.load_model (distilled)")
+    check(not server.is_dummy and server.steps == n_steps,
+          f"distilled server: dummy {server.is_dummy}, steps {server.steps}")
+    t0 = time.perf_counter()
+    reply = server.generate(num_samples=1, seed=0)
+    serve_s = time.perf_counter() - t0
+    vol = np.frombuffer(base64.b64decode(reply["samples"][0]["data"]), np.float32)
+    check(reply["sampler"] == "distilled" and reply["inference_steps"] == n_steps
+          and reply["timestep_spacing"] is None and vol.size == 80 ** 3
+          and bool(np.isfinite(vol).all()), f"distilled server reply {reply['sampler']}, "
+                                            f"{reply['inference_steps']} steps, {vol.size} voxels")
+    try:
+        server.generate(num_samples=1, seed=0, guidance_scale=2.0)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    check(refused is not None and "guidance is unavailable" in refused,
+          f"the distilled server took a guided request: {refused}")
+    del server
+    emit({"phase": "distill_sample", "config": "config_train_32g.json", "steps": n_steps,
+          "dtype": "bfloat16", "bit_equal_fused_to_eager": same,
+          "sample_ms": eager["timings"]["sample_ms"][0],
+          "fused_sample_ms": fused["timings"]["sample_ms"][0],
+          "fused_denoise_ms_per_step": fused["timings"]["denoise_ms"][0] / n_steps,
+          "fused_decode_ms": fused["timings"]["decode_ms"][0],
+          "launches_a_sample": eager["launches"], "serve_fp32_request_s": serve_s,
+          "serve_refused_guidance": refused, "card": card, "nvidia_smi": smi_line})
+
+
+@full_fp32
+def phase_distill_card_vs_cpu(torch) -> None:
+    """One ``config_tiny_cpu.json`` distillation step on the card (kernels)
+    and on the CPU (plain): same weights, batch and draws, fp32 with TF32
+    off; the loss, ``grad_norm`` and the student's gradients within
+    TRAIN_GRAD_REL (the gradients of each leaf's largest |g|), the updated
+    params within 2 lr + 1e-6; epsilon -> epsilon, and epsilon ->
+    v_prediction with guidance 2.0."""
+    import copy
+
+    from ldm3d_torch.configs import define_instance, load_json, preset_path
+    from ldm3d_torch.diffusion import DDPMScheduler
+    from ldm3d_torch.nn import init_weights_
+    from ldm3d_torch.training import (DistillConfig, DistillDraws, TrainState,
+                                      make_diffusion_optimizer, make_distillation_step)
+
+    cfg = load_json(preset_path("config_tiny_cpu.json"))
+    ns = SimpleNamespace(**cfg)
+    gen = torch.Generator().manual_seed(8)
+    ae = init_weights_(define_instance(ns, "autoencoder_def"), gen).eval().requires_grad_(False)
+    teacher = init_weights_(define_instance(ns, "diffusion_def"), gen).eval()
+    with torch.no_grad():
+        teacher.conv_out.weight.normal_(0.0, 0.05, generator=gen)
+    teacher.requires_grad_(False)
+    b, patch = 2, cfg["diffusion_train"]["patch_size"]
+    latent = (b, *[p // ae.downsample_factor for p in patch], cfg["latent_channels"])
+    batch = {k: torch.rand((b, *patch, 1), generator=gen) for k in ("image", "label")}
+    draws = DistillDraws(torch.randn(latent, generator=gen), torch.randn(latent, generator=gen),
+                         torch.randn(latent, generator=gen), torch.tensor([0, 1]))
+    sched = DDPMScheduler.create(num_train_timesteps=16)
+    for kw in (dict(), dict(student_prediction_type="v_prediction", guidance_scale=2.0)):
+        dcfg = DistillConfig(teacher_steps=4, **kw)
+        out = {}
+        for device in ("cuda", "cpu"):
+            _reset_counts()
+            t = copy.deepcopy(teacher).to(device)
+            a = copy.deepcopy(ae).to(device)
+            s = copy.deepcopy(teacher).to(device).requires_grad_(True).train()
+            state = TrainState(s, make_diffusion_optimizer(s.parameters(), lambda count: TINY_LR))
+            m = make_distillation_step(t, a, sched, dcfg)(
+                state, t, {k: v.to(device) for k, v in batch.items()}, 0.9, draws=draws.to(device))
+            out[device] = {"loss": float(m["distill_loss"]), "grad_norm": float(m["grad_norm"]),
+                           "grads": {n: p.grad.cpu() for n, p in s.named_parameters()},
+                           "params": {n: p.detach().cpu() for n, p in s.named_parameters()},
+                           "teacher_grads": sum(p.grad is not None for p in t.parameters()),
+                           "launches": _read_counts()}
+        card, cpu = out["cuda"], out["cpu"]
+        loss_rel = abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
+        norm_rel = abs(card["grad_norm"] - cpu["grad_norm"]) / cpu["grad_norm"]
+        grad_worst = max((card["grads"][n] - g).abs().max().item()
+                         / max(g.abs().max().item(), 1e-30) for n, g in cpu["grads"].items())
+        param_worst = max((card["params"][n] - p).abs().max().item()
+                          for n, p in cpu["params"].items())
+        check(loss_rel <= TRAIN_GRAD_REL, f"card and CPU distillation losses differ by "
+                                          f"{loss_rel} rel")
+        check(norm_rel <= TRAIN_GRAD_REL, f"card and CPU gradient norms differ by {norm_rel} rel")
+        check(grad_worst <= TRAIN_GRAD_REL, f"card and CPU student gradients differ by "
+                                            f"{grad_worst} of a leaf's largest |g|")
+        check(param_worst <= 2 * TINY_LR + 1e-6, f"card and CPU updated students differ by "
+                                                  f"{param_worst}")
+        check(card["teacher_grads"] == cpu["teacher_grads"] == 0, "a teacher got gradients")
+        launched = card["launches"]
+        check(all(launched[k] > 0 for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                                             "gn_sums", "gn_bwd_sums")),
+              f"a kernel did not run in the card's distillation step: {launched}")
+        check(all(cpu["launches"][k] == 0 for k in ("flash_fwd", "gn_sums")),
+              "the CPU step launched a kernel")
+        emit({"phase": "distill_card_vs_cpu", "config": "config_tiny_cpu.json", "batch": b,
+              "distill_config": {"teacher_steps": 4, **kw},
+              "loss_card": card["loss"], "loss_cpu": cpu["loss"], "loss_rel_diff": loss_rel,
+              "grad_norm_card": card["grad_norm"], "grad_norm_cpu": cpu["grad_norm"],
+              "grad_norm_rel_diff": norm_rel, "grad_worst_rel_to_leaf_max": grad_worst,
+              "param_max_abs_diff": param_worst,
+              "tol": {"loss_rel": TRAIN_GRAD_REL, "grad_rel": TRAIN_GRAD_REL,
+                      "param_abs": 2 * TINY_LR + 1e-6}, "card_launches": launched})
+
+
+def phase_evaluate(torch, ns, workdir: Path, card: str, smi_line: str,
+                   model_dir: Path | None = None) -> None:
+    """``cli.evaluate`` at full width (fp32, ``-n 2 --batch 1``), on the
+    distilled student (``--use-distilled``) and on DDIM-10, each writing its
+    report; seconds a pair and the metrics' share beside the sampling's.
+    Then ``ssim3d``, ``ms_ssim3d`` and ``latent_features`` (the flagship
+    VAE) on seeded 80^3 volumes: on the card with both ``allow_tf32`` flags
+    set True before the call, the same bits as with both False, and within
+    EVAL_TOL of the CPU (the features within FEATURES_REL of their largest
+    |value|). ``model_dir`` holds the
+    flagship checkpoints and a distilled role (the distill phase's); run
+    alone, the phase saves the flagship checkpoints with the best UNet's
+    weights as a 2-step distilled role."""
+    import copy
+
+    from ldm3d_torch.ckpt import CheckpointManager
+    from ldm3d_torch.cli.common import tf32_flags
+    from ldm3d_torch.cli.evaluate import main as evaluate_main
+    from ldm3d_torch.configs import preset_path
+    from ldm3d_torch.evaluation import latent_features, ms_ssim3d, ssim3d
+    from ldm3d_torch.training import student_timesteps
+
+    cfg_path = preset_path("config_train_32g.json")
+    if model_dir is None:
+        model_dir, _ = _flagship_checkpoints(torch, ns, workdir)
+        u_ckpt = CheckpointManager(str(model_dir), "diffusion")
+        n_train = getattr(ns, "NoiseScheduler", {}).get("num_train_timesteps", 1000)
+        u_ckpt.save("distilled", {"state_dict": u_ckpt.load("best")["state_dict"]},
+                    {"timesteps": [int(t) for t in student_timesteps(n_train, 4)],
+                     "num_steps": 2, "scale_factor": 0.8, "prediction_type": "epsilon",
+                     "guidance_scale": 1.0})
+    env = _write_env(model_dir, synthetic_num=TRAIN_PAIRS, resume_ckpt=False)
+    for name, extra in (("distilled", ["--use-distilled"]),
+                        ("ddim10", ["--sampler", "ddim", "--steps", "10"])):
+        gc.collect()
+        torch.cuda.empty_cache()
+        report_path = model_dir / f"report_{name}.json"
+        timings: dict = {}
+        unpin_precision(torch)
+        t0 = time.perf_counter()
+        report = evaluate_main(["-c", cfg_path, "-e", str(env), "-n", str(EVAL_PAIRS),
+                                "--batch", "1", "--report", str(report_path), *extra],
+                               timings=timings)
+        wall_s = time.perf_counter() - t0
+        flags = pinned_precision(torch, f"cli.evaluate.main {' '.join(extra)}")
+        saved = json.loads(report_path.read_text())
+        check(report.num_samples == saved["num_samples"] == EVAL_PAIRS,
+              f"evaluate {name}: {report.num_samples} pairs")
+        check(all(math.isfinite(getattr(report, k)) for k in ("mae", "mse", "psnr", "ssim",
+                                                               "ms_ssim", "score"))
+              and report.frechet is not None and math.isfinite(report.frechet),
+              f"evaluate {name}: non-finite report {saved}")
+        sampling_ms = sum(timings["sample_ms"]) + sum(timings["encode_ms"])
+        emit({"phase": "evaluate", "run": name, "config": "config_train_32g.json",
+              "patch": [80, 80, 80], "pairs": EVAL_PAIRS, "dtype": "float32",
+              "report": {k: saved[k] for k in ("mae", "mse", "psnr", "ssim", "ms_ssim",
+                                               "frechet", "score")},
+              "cli_wall_s": wall_s, "s_per_pair": wall_s / EVAL_PAIRS,
+              "sample_ms": timings["sample_ms"], "encode_ms": timings["encode_ms"],
+              "metrics_ms": timings["metrics_ms"],
+              "metrics_share": timings["metrics_ms"] / (timings["metrics_ms"] + sampling_ms),
+              "share_note": "metrics_ms (evaluate_pairs: the paired metrics and the VAE "
+                            "features of both sets, to its result) over it plus the encodes' "
+                            "and the samples' host ms; cli_wall_s also holds the checkpoint "
+                            "loads and the data",
+              "allow_tf32": flags, "card": card, "nvidia_smi": smi_line})
+
+    gen = torch.Generator().manual_seed(12)
+    x = torch.rand((2, 80, 80, 80, 1), generator=gen)
+    y = torch.clamp(x + 0.1 * torch.randn(x.shape, generator=gen), 0, 1)
+    ae = _flagship_models(torch, ns, torch.Generator(device="cuda").manual_seed(1))[0].eval()
+    ae_cpu = copy.deepcopy(ae).cpu()
+    rows = {}
+    for name, fn in (("ssim3d", lambda d: ssim3d(x.to(d), y.to(d))),
+                     ("ms_ssim3d", lambda d: ms_ssim3d(x.to(d), y.to(d))),
+                     ("latent_features", lambda d: torch.from_numpy(
+                         latent_features(ae if d == "cuda" else ae_cpu, x[:1])))):
+        outs = {}
+        for tag, device, flag in (("card_tf32_on", "cuda", True), ("card_tf32_off", "cuda", False),
+                                  ("cpu", "cpu", False)):
+            with tf32_flags(flag):
+                outs[tag] = fn(device).cpu()
+                check(torch.backends.cudnn.allow_tf32 == flag,
+                      f"{name} left the caller's TF32 flags")
+        largest = outs["cpu"].abs().max().item()
+        rows[name] = {"max_abs_diff": (outs["card_tf32_on"] - outs["cpu"]).abs().max().item(),
+                      "tf32_on_equals_off": torch.equal(outs["card_tf32_on"],
+                                                        outs["card_tf32_off"]),
+                      "max_abs_value": largest,
+                      "tol": FEATURES_REL * largest if name == "latent_features" else EVAL_TOL}
+    del ae, ae_cpu
+    emit({"phase": "evaluate_card_vs_cpu", "shape": [2, 80, 80, 80, 1],
+          "features_shape": [1, 80, 80, 80, 1], "metrics": rows,
+          "tol_note": "the metrics (in [0, 1]) within EVAL_TOL; the features within "
+                      "FEATURES_REL of their largest |value|: fp32 outputs of the full-width "
+                      "encoder, whose convolutions the card and the CPU sum in other orders",
+          "card": card, "nvidia_smi": smi_line})
+    for name, r in rows.items():
+        check(r["tf32_on_equals_off"], f"{name} on the card differs with the TF32 flags on")
+        check(math.isfinite(r["max_abs_diff"]) and r["max_abs_diff"] <= r["tol"],
+              f"{name}: card and CPU differ by {r['max_abs_diff']} (limit {r['tol']})")
+    shutil.rmtree(model_dir)
+
+
 def _kernel_summary(fwd: dict, bwd: dict, gn: dict, sample_launches: dict,
                     train: dict, train_fp32: dict, serve: dict, conv: dict,
-                    train_ae: dict, train_ae_fp32: dict) -> list:
+                    train_ae: dict, train_ae_fp32: dict, distill: dict) -> list:
     """The kernels line: each kernel's ms, plain_ms, bound_ms and library_ms
     are summed over the ``launches`` it counts (one flagship sample for
     flash_fwd, the bf16 training main path's run for the other four; the
@@ -2614,12 +3009,18 @@ def _kernel_summary(fwd: dict, bwd: dict, gn: dict, sample_launches: dict,
     ]
     rows.insert(1, wgmma_row)
     rows[0]["serve_launches"] = serve["launches"]["flash_fwd"]
+    for row in rows:
+        key = {"flash_fwd_bf16_wgmma": "flash_fwd_wgmma"}.get(row["name"], row["name"])
+        for run, r in distill["runs"].items():
+            row[f"distill_{run}_launches"] = r["launches"][key]
+            row[f"distill_{run}_launches_per_step"] = r["launches_per_step"][key]
     return rows
 
 
 # phases that ``--phases`` runs alone, after device and build
 ALONE_PHASES = ("kernel", "kernel_bwd", "kernel_c2", "kernel_conv", "train_ae", "train_ae_fp32",
-                "stage1_card_vs_cpu", "sample_fused")
+                "stage1_card_vs_cpu", "sample_fused", "distill", "distill_card_vs_cpu",
+                "evaluate")
 
 
 def main(argv=None) -> int:
@@ -2662,7 +3063,12 @@ def main(argv=None) -> int:
                                                            card, smi_line, amp=False),
                    "stage1_card_vs_cpu": lambda: phase_stage1_card_vs_cpu(torch),
                    "sample_fused": lambda: phase_sample_fused(torch, ns, counts, Path(workdir),
-                                                              card, smi_line)}
+                                                              card, smi_line),
+                   "distill": lambda: shutil.rmtree(phase_distill(
+                       torch, ns, counts, Path(workdir), card, smi_line)["model_dir"]),
+                   "distill_card_vs_cpu": lambda: phase_distill_card_vs_cpu(torch),
+                   "evaluate": lambda: phase_evaluate(torch, ns, Path(workdir), card,
+                                                      smi_line)}
             for name in phases:
                 run[name]()
         emit({"phase": "done", "phases": phases})
@@ -2688,7 +3094,12 @@ def main(argv=None) -> int:
         train_ae_fp32 = phase_train_ae(torch, ns, counts, Path(workdir), card, smi_line,
                                        amp=False)
         serve = phase_serve(torch, ns, counts, Path(workdir), card, smi_line)
+        distill = phase_distill(torch, ns, counts, Path(workdir), card, smi_line,
+                                stage2_per_step=train["launches_per_step"])
+        phase_evaluate(torch, ns, Path(workdir), card, smi_line, model_dir=distill["model_dir"])
     gn = phase_kernel_gn(torch, {"sampling": sample_gn, "training": train.pop("gn_cases"),
+                                 **{f"distilling_{run}": r.pop("gn_cases")
+                                    for run, r in distill["runs"].items()},
                                  "training_fp32": train_fp32.pop("gn_cases"),
                                  "training_ae": train_ae.pop("gn_cases"),
                                  "training_ae_fp32": train_ae_fp32.pop("gn_cases"),
@@ -2698,10 +3109,11 @@ def main(argv=None) -> int:
     phase_card_vs_cpu(torch)
     phase_train_card_vs_cpu(torch)
     phase_stage1_card_vs_cpu(torch)
+    phase_distill_card_vs_cpu(torch)
 
     emit({"phase": "done"})
     emit({"kernels": _kernel_summary(fwd, bwd, gn, sample_launches, train, train_fp32, serve,
-                                     conv, train_ae, train_ae_fp32)})
+                                     conv, train_ae, train_ae_fp32, distill)})
     print(smi_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": card,
                                  "count": torch.cuda.device_count()}})

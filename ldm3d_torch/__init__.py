@@ -14,7 +14,11 @@ Package layout mirrors the JAX package:
   diffusion/  DDIM scheduler and the latent inferer (sampling loop)
   ckpt/       weight bridge from a JAX param tree to the port's state_dicts
   data/       synthetic pairs, NPZ val volumes, transforms
-  cli/        the inference entry point
+  training/   the stage-1, stage-2 and progressive-distillation steps
+  evaluation/ 3-D image-quality metrics and the registration gate's report
+  serving/    the model server and its stdlib HTTP front end
+  cli/        the entry points: train_autoencoder, train_diffusion, distill,
+              inference, evaluate
   utils/      config merging, NIfTI writer
 
 Entry points run on ``cuda`` unless the caller asks for the CPU.

@@ -20,7 +20,9 @@ sets both ``allow_tf32`` flags to False.
 Checkpoints: the ``best`` roles of :class:`ldm3d_torch.ckpt.CheckpointManager`,
 ``model_dir/autoencoder_best.pt`` and ``model_dir/diffusion_best.pt``, each
 ``{"state_dict": ..., "meta": {...}}``; the latent ``scale_factor`` is in the
-diffusion checkpoint's meta. The training CLI writes them; reading the JAX
+diffusion checkpoint's meta. The progressively-distilled student
+(``cli.distill``) is the diffusion model's ``distilled`` role, its sampling
+grid in the meta; :func:`load_distilled` is the one reader of that meta. The training CLI writes them; reading the JAX
 package's orbax checkpoints is not ported yet (ROADMAP.md queue A,
 'Checkpoints').
 """
@@ -42,6 +44,7 @@ from ldm3d_torch.utils import merge_configs_onto_args
 __all__ = ["SAMPLERS", "TIMESTEP_SPACINGS", "UNPORTED", "build_parser", "reject_unported",
            "setup", "resolve_device", "pin_fp32_precision", "tf32_flags",
            "model_dtype", "env_seed", "save_two_stage", "load_two_stage",
+           "load_distilled_meta", "load_distilled",
            "make_sampling_scheduler", "default_sampler_steps", "probe_readback_gbps",
            "resolve_decode_chunk"]
 
@@ -212,6 +215,39 @@ def load_two_stage(args, device: torch.device, dtype: torch.dtype, use_ema: bool
     log.info("restored two-stage checkpoints from %s (unet role=%s, scale_factor=%.6f)",
              args.model_dir, "ema" if use_ema else "best", scale_factor)
     return ae, unet, latent_shape, scale_factor
+
+
+def _distilled_checkpoint(model_dir) -> CheckpointManager:
+    u_ckpt = CheckpointManager(model_dir, "diffusion")
+    if not u_ckpt.exists("distilled"):
+        raise FileNotFoundError("no 'distilled' checkpoint found; run ldm3d-distill first")
+    return u_ckpt
+
+
+def load_distilled_meta(model_dir) -> dict:
+    """The ``distilled`` checkpoint's meta alone, to validate arguments
+    before the weights are loaded; raises ``FileNotFoundError`` without one."""
+    return _distilled_checkpoint(model_dir).load_meta("distilled")
+
+
+def load_distilled(model_dir, unet: torch.nn.Module, sched_cfg: dict, device=None):
+    """Load the progressively-distilled student (``cli.distill``) into
+    ``unet`` and build its few-step schedule from the ``distilled`` role's
+    meta (``timesteps``, ``prediction_type``). Returns ``(unet, scheduler,
+    meta)``: the same module carrying the student's weights, a
+    :class:`~ldm3d_torch.diffusion.GridDDIMScheduler`, and the meta, whose
+    ``scale_factor`` is the latent scale the student was distilled at."""
+    from ldm3d_torch.diffusion import GridDDIMScheduler
+
+    u_ckpt = _distilled_checkpoint(model_dir)
+    unet.load_state_dict(u_ckpt.load("distilled", map_location=device)["state_dict"])
+    meta = u_ckpt.load_meta("distilled")
+    scheduler = GridDDIMScheduler.create(
+        meta["timesteps"], num_train_timesteps=sched_cfg["num_train_timesteps"],
+        schedule=sched_cfg.get("schedule", "scaled_linear_beta"),
+        beta_start=sched_cfg["beta_start"], beta_end=sched_cfg["beta_end"],
+        prediction_type=meta.get("prediction_type", sched_cfg["prediction_type"]))
+    return unet, scheduler, meta
 
 
 def make_sampling_scheduler(name: str, steps: int | None, sched_cfg: dict,

@@ -19,6 +19,12 @@ the step noises are drawn before the loop, in the eager loop's order, so a
 seed writes the same volumes either way. On the CPU the same step body runs
 eagerly.
 
+``--use-distilled`` samples the progressively-distilled student
+(``cli.distill``): its weights and its few-step GridDDIM grid from the
+diffusion model's ``distilled`` checkpoint, in place of ``--sampler`` and
+``--steps``; it refuses ``--use-ema``, and ``--guidance`` (the student bakes
+its guidance in) before any weights load.
+
 An unconditional UNet (``in_channels == latent_channels``) skips step 1.
 Noise, the ancestral noise of ddpm included, is drawn on the CPU from
 ``torch.Generator().manual_seed(seed)`` and moved to the device, so a seed
@@ -27,7 +33,7 @@ gives the same noise on every device.
 Usage: python -m ldm3d_torch.cli.inference -c CONFIG -e ENV [-n NUM]
        [--sampler ddpm|ddim|dpm|dpm3] [--steps N] [--timestep-spacing S]
        [--batch B] [--guidance W] [--use-ema] [--decode-chunk N|auto] [--amp]
-       [--fused-decode] [--device cuda|cpu] [-g 0|1] [--compile]
+       [--use-distilled] [--fused-decode] [--device cuda|cpu] [-g 0|1] [--compile]
 It takes every flag of the JAX parser, as the JAX CLI does; the training
 options among them are read by the trainer only, and the flags whose paths
 are not ported raise ``NotImplementedError`` naming their ROADMAP item
@@ -49,6 +55,8 @@ from ldm3d_torch.cli.common import (
     TIMESTEP_SPACINGS,
     build_parser,
     env_seed,
+    load_distilled,
+    load_distilled_meta,
     load_two_stage,
     make_sampling_scheduler,
     model_dtype,
@@ -74,6 +82,66 @@ def _sync(device: torch.device) -> float:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     return time.perf_counter()
+
+
+def build_sampler(args, ae, unet, scheduler, scale_factor: float, latent_batch_shape,
+                  dtype: torch.dtype, device: torch.device, condition_shape=None,
+                  timings: dict | None = None):
+    """The sampler of ``args``: the counterpart of the JAX CLI's
+    ``build_sampler_fn``, shared by this CLI and ``cli.evaluate``.
+
+    Returns ``run(noise, condition, generator) -> (volumes, ms)``: the reverse
+    loop from ``noise``, ``/ scale_factor`` and the decode, the volumes as one
+    device tensor, and ``ms`` the call's ``denoise_ms``, ``decode_ms`` and
+    ``sample_ms`` (see :func:`main`). ``generator`` gives a noisy sampler's
+    step noises. With ``args.fused_decode`` it runs through
+    :class:`~ldm3d_torch.diffusion.inferer.CapturedSampler`, captured here on
+    the card (``timings`` receives ``capture_ms``, ``capture_graphs`` and
+    ``warmup_launches``); else eagerly, decoding in chunks of
+    ``args.decode_chunk`` volumes. ``args`` without those attributes (the
+    evaluate CLI's) samples eagerly and decodes whole batches."""
+    batch = latent_batch_shape[0]
+    chunk = resolve_decode_chunk(getattr(args, "decode_chunk", 0) or 0, log, device)
+    fused = None
+    if getattr(args, "fused_decode", False):
+        if chunk:
+            log.info("--decode-chunk ignored: --fused-decode compiles the reverse "
+                     "loop + whole-batch decode as one program")
+        fused = inferer.CapturedSampler(
+            unet, ae.decode_stage_2_outputs, scheduler, latent_batch_shape, dtype, device,
+            condition_shape=condition_shape, guidance_scale=args.guidance,
+            scale_factor=scale_factor)
+        if device.type == "cuda":
+            fused.capture()
+            if timings is not None:
+                timings.setdefault("capture_ms", []).append(fused.capture_ms)
+                timings.setdefault("capture_graphs", []).append(fused.graph_count)
+                timings.setdefault("warmup_launches", []).append(fused.warmup_launches)
+    chunk = chunk or batch
+
+    def run(noise: torch.Tensor, condition, generator: torch.Generator):
+        t0 = _sync(device)
+        if fused is not None:
+            # the eager loop's draws, in its order: one a step where it draws
+            step_noises = ([torch.randn(latent_batch_shape, generator=generator)
+                            for _ in scheduler.timesteps] if fused.draws_noise else None)
+            vols = fused.sample(noise, condition, step_noises)
+            t2 = _sync(device)
+            ms = dict(fused.last_ms)
+        else:
+            latents = inferer.sample_latents(unet, scheduler, noise, condition,
+                                             guidance_scale=args.guidance, generator=generator)
+            t1 = _sync(device)
+            latents = latents / torch.tensor(scale_factor, dtype=latents.dtype)
+            with torch.no_grad():
+                vols = torch.cat([ae.decode_stage_2_outputs(latents[s:s + chunk])
+                                  for s in range(0, batch, chunk)])
+            t2 = _sync(device)
+            ms = {"denoise_ms": (t1 - t0) * 1e3, "decode_ms": (t2 - t1) * 1e3}
+        ms["sample_ms"] = (t2 - t0) * 1e3
+        return vols, ms
+
+    return run
 
 
 def main(argv=None, timings: dict | None = None) -> list[str]:
@@ -110,15 +178,14 @@ def main(argv=None, timings: dict | None = None) -> list[str]:
                         help="decode each sampled batch in chunks of this many volumes (0 = "
                              "whole batch; 'auto' probes the device-to-host rate)")
     parser.add_argument("--use-distilled", action="store_true",
-                        help="not ported yet (ROADMAP.md queue A, 'Distillation')")
+                        help="sample the progressively-distilled student (cli.distill) on its "
+                             "few-step grid; overrides --sampler/--steps with the GridDDIM "
+                             "schedule in the 'distilled' checkpoint's meta")
     parser.add_argument("--fused-decode", action="store_true",
                         help="run the reverse loop and the whole-batch decode as replays of "
                              "CUDA graphs (one step graph replayed a step, one decode graph)")
     args = parser.parse_args(argv)
     reject_unported(args)
-    if args.use_distilled:
-        raise NotImplementedError("--use-distilled is not ported yet: ROADMAP.md queue A, "
-                                  "'Distillation'")
     args, device = setup(args)
     dt = model_dtype(args)
     if timings is None:
@@ -126,16 +193,19 @@ def main(argv=None, timings: dict | None = None) -> list[str]:
     for key in ("encode_ms", "denoise_ms", "decode_ms", "sample_ms"):
         timings.setdefault(key, [])
 
-    scheduler = make_sampling_scheduler(args.sampler, args.steps,
-                                        TrainContext(args).scheduler_config(),
-                                        timestep_spacing=args.timestep_spacing)
+    sched_cfg = TrainContext(args).scheduler_config()
+    if args.use_distilled:
+        check_distilled_args(args)
+    else:
+        scheduler = make_sampling_scheduler(args.sampler, args.steps, sched_cfg,
+                                            timestep_spacing=args.timestep_spacing)
     ae, unet, latent_shape, scale_factor = load_two_stage(args, device, dt,
                                                           use_ema=args.use_ema)
-    chunk = resolve_decode_chunk(args.decode_chunk, log, device)
-    if chunk and args.fused_decode:
-        log.info("--decode-chunk ignored: --fused-decode compiles the reverse "
-                 "loop + whole-batch decode as one program")
-    chunk = chunk or args.batch
+    sampler_name = args.sampler
+    if args.use_distilled:
+        unet, scheduler, scale_factor = load_distilled_sampler(args, unet, sched_cfg, device,
+                                                               scale_factor, "ddpm")
+        sampler_name = "distilled"
     gen = torch.Generator().manual_seed(env_seed(args))
     patch_size = args.diffusion_train["patch_size"]
     latent_batch_shape = (args.batch, *latent_shape, ae.latent_channels)
@@ -151,47 +221,19 @@ def main(argv=None, timings: dict | None = None) -> list[str]:
         timings["encode_ms"].append((_sync(device) - t0) * 1e3)
         log.info("conditional sampling (concat) with condition shape %s", tuple(condition.shape))
 
-    fused = None
-    if args.fused_decode:
-        fused = inferer.CapturedSampler(
-            unet, ae.decode_stage_2_outputs, scheduler, latent_batch_shape, dt, device,
-            condition_shape=None if condition is None else tuple(condition.shape),
-            guidance_scale=args.guidance, scale_factor=scale_factor)
-        if device.type == "cuda":
-            fused.capture()
-            timings.setdefault("capture_ms", []).append(fused.capture_ms)
-            timings.setdefault("capture_graphs", []).append(fused.graph_count)
-            timings.setdefault("warmup_launches", []).append(fused.warmup_launches)
-
+    run = build_sampler(args, ae, unet, scheduler, scale_factor, latent_batch_shape, dt, device,
+                        condition_shape=None if condition is None else tuple(condition.shape),
+                        timings=timings)
     os.makedirs(args.output_dir, exist_ok=True)
     written: list[str] = []
     for i in range(args.num):
         noise = torch.randn(latent_batch_shape, generator=gen).to(device, dt)
-        t0 = _sync(device)
-        if fused is not None:
-            # the eager loop's draws, in its order: one a step where it draws
-            step_noises = ([torch.randn(latent_batch_shape, generator=gen)
-                            for _ in scheduler.timesteps] if fused.draws_noise else None)
-            out = fused.sample(noise, condition, step_noises)
-            t2 = _sync(device)
-            timings["denoise_ms"].append(fused.last_ms["denoise_ms"])
-            timings["decode_ms"].append(fused.last_ms["decode_ms"])
-            vols = out.float().cpu().numpy()
-        else:
-            latents = inferer.sample_latents(unet, scheduler, noise, condition,
-                                             guidance_scale=args.guidance, generator=gen)
-            t1 = _sync(device)
-            latents = latents / torch.tensor(scale_factor, dtype=latents.dtype)
-            with torch.no_grad():
-                parts = [ae.decode_stage_2_outputs(latents[s:s + chunk])
-                         for s in range(0, args.batch, chunk)]
-            t2 = _sync(device)
-            timings["denoise_ms"].append((t1 - t0) * 1e3)
-            timings["decode_ms"].append((t2 - t1) * 1e3)
-            vols = np.concatenate([p.float().cpu().numpy() for p in parts])
-        timings["sample_ms"].append((t2 - t0) * 1e3)
-        log.info("sample %d: %s in %.2fs (%s, %d steps%s)", i, vols.shape, t2 - t0,
-                 args.sampler, len(scheduler.timesteps), ", fused" if fused else "")
+        out, ms = run(noise, condition, gen)
+        for key, value in ms.items():
+            timings[key].append(value)
+        vols = out.float().cpu().numpy()
+        log.info("sample %d: %s in %.2fs (%s, %d steps%s)", i, vols.shape, ms["sample_ms"] / 1e3,
+                 sampler_name, len(scheduler.timesteps), ", fused" if args.fused_decode else "")
         for b in range(vols.shape[0]):
             stem = datetime.now().strftime(f"synimg_%Y%m%d_%H%M%S_{i}_{b}")
             # single-channel models write bare (D, H, W) volumes
@@ -199,6 +241,33 @@ def main(argv=None, timings: dict | None = None) -> list[str]:
             written.append(save_volume(vol, args.output_dir, stem))
             log.info("wrote %s", written[-1])
     return written
+
+
+def check_distilled_args(args) -> None:
+    """``--use-distilled``'s argument rules, from the checkpoint's meta alone
+    (before any weights load): not with ``--use-ema``; no ``--guidance``,
+    which the student bakes in at distillation."""
+    if args.use_ema:
+        raise ValueError("--use-distilled and --use-ema are mutually exclusive roles")
+    if args.guidance != 1.0:
+        baked = float(load_distilled_meta(args.model_dir).get("guidance_scale", 1.0))
+        raise ValueError(
+            f"--guidance is unavailable with --use-distilled: the student "
+            f"bakes guidance w={baked} in "
+            f"(re-run ldm3d-distill --guidance-distill to change it)")
+
+
+def load_distilled_sampler(args, unet, sched_cfg: dict, device, scale_factor: float,
+                           default_sampler: str):
+    """The student's weights in ``unet``, its GridDDIM scheduler and its
+    scale factor (the meta's, else ``scale_factor``), logging that the flag
+    overrides ``--sampler``/``--steps`` when either was set."""
+    unet, scheduler, meta = load_distilled(args.model_dir, unet, sched_cfg, device)
+    if (args.steps is not None or args.sampler != default_sampler
+            or getattr(args, "timestep_spacing", None)):
+        log.info("--use-distilled overrides --sampler/--steps/--timestep-spacing")
+    log.info("distilled sampler: %d steps on grid %s", len(meta["timesteps"]), meta["timesteps"])
+    return unet, scheduler, float(meta.get("scale_factor", scale_factor))
 
 
 if __name__ == "__main__":

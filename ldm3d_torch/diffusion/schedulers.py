@@ -25,8 +25,8 @@ import numpy as np
 import torch
 
 __all__ = ["DDIMScheduler", "DDPMScheduler", "DPMSolverPPScheduler", "GridDDIMScheduler",
-           "StepTable", "table_step", "make_betas", "make_timestep_grid", "distillation_grid",
-           "karras_timestep_grid"]
+           "StepTable", "table_step", "pred_x0_and_eps", "make_betas", "make_timestep_grid",
+           "distillation_grid", "karras_timestep_grid"]
 
 
 def make_betas(num_train_timesteps: int, schedule: str, beta_start: float,
@@ -117,6 +117,23 @@ def _noise_coeffs(alphas_cumprod: torch.Tensor, t: torch.Tensor, like: torch.Ten
     a = alphas_cumprod.float().to(t.device)[t.long()]
     a = a.reshape(a.shape + (1,) * (like.dim() - a.dim()))
     return torch.sqrt(a).to(like.dtype), torch.sqrt(1.0 - a).to(like.dtype)
+
+
+def pred_x0_and_eps(pred: torch.Tensor, x_t: torch.Tensor, a_t: torch.Tensor,
+                    prediction_type: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(x0_hat, eps_hat)`` of a model output at alpha_bar ``a_t`` (a tensor
+    that broadcasts against ``x_t``, one value a sample or one for all), by
+    division as ``ldm3d_tpu/diffusion/schedulers.py:146-161`` computes them.
+    The steps of the samplers go through :func:`table_step` instead."""
+    sqrt_a = torch.sqrt(a_t)
+    sqrt_1ma = torch.sqrt(1.0 - a_t)
+    if prediction_type == "epsilon":
+        return (x_t - sqrt_1ma * pred) / sqrt_a, pred
+    if prediction_type == "sample":
+        return pred, (x_t - sqrt_a * pred) / sqrt_1ma
+    if prediction_type == "v_prediction":
+        return sqrt_a * x_t - sqrt_1ma * pred, sqrt_a * pred + sqrt_1ma * x_t
+    raise ValueError(f"unknown prediction_type {prediction_type!r}")
 
 
 def _draw(x_t: torch.Tensor, generator: torch.Generator | None) -> torch.Tensor:
@@ -260,6 +277,12 @@ class DDPMScheduler:
                    num_inference_steps=num_inference_steps, prediction_type=prediction_type,
                    clip_sample=clip_sample, clip_range=clip_range,
                    timestep_spacing=timestep_spacing)
+
+    def replace(self, **changes) -> "DDPMScheduler":
+        """A copy with ``changes`` applied (``prediction_type`` for a
+        distillation round after the first), as the JAX scheduler's
+        ``.replace``; the tables are shared."""
+        return dataclasses.replace(self, **changes)
 
     @property
     def _stride(self) -> int:

@@ -4,7 +4,7 @@ The port of ``ldm3d_tpu/serving/api_server.py``:
 
   POST /generate      {"num_samples": N, "seed": S, "inference_steps": K,
                        "guidance_scale": W, "output_format": "base64"|"nii",
-                       "sampler": "ddpm"|"ddim"|"dpm"|"dpm3" (optional),
+                       "sampler": "ddpm"|"ddim"|"dpm"|"dpm3"|"distilled" (optional),
                        "timestep_spacing": "leading"|"trailing"|"karras" (optional),
                        "condition": {"data": <base64 float32>, "shape": [D, H, W]} (optional)}
                       -> base64 volumes (raw float32 or NIfTI-1 bytes)
@@ -369,7 +369,9 @@ def main(argv=None):
     p.add_argument("-e", "--environment-file", default=None)
     from ldm3d_torch.cli.common import SAMPLERS, TIMESTEP_SPACINGS
 
-    p.add_argument("--sampler", choices=SAMPLERS, default="ddim")
+    p.add_argument("--sampler", choices=SAMPLERS + ("distilled",), default="ddim",
+                   help="'distilled' serves the progressively-distilled student "
+                        "(cli.distill) on its fixed few-step grid")
     p.add_argument("--steps", type=int, default=None,
                    help="inference steps (default: 50 for ddim/dpm/dpm3, the full schedule "
                         "for ddpm; a value strides ddpm)")

@@ -23,8 +23,15 @@ What differs from the JAX server:
   (not the JAX server's volumes: the two frameworks draw differently).
 * Device work (encode, sampler, decode) runs under one lock; the copy of the
   result to the host happens after the lock is released.
-* ``spatial > 1`` (depth-sharded serving) and ``sampler="distilled"`` are not
-  ported and raise ``ValueError`` naming their ROADMAP.md items.
+* ``spatial > 1`` (depth-sharded serving) is not ported and raises
+  ``ValueError`` naming its ROADMAP.md item.
+
+``sampler="distilled"`` serves the progressively-distilled student
+(``cli.distill``) as the JAX server does: its weights and few-step GridDDIM
+grid from the ``distilled`` checkpoint (``cli.common.load_distilled``), a
+server without that checkpoint raising ``ValueError`` (no dummy), and every
+request held to the student's grid: no other sampler, step count, guidance
+or ``timestep_spacing``.
 """
 
 from __future__ import annotations
@@ -45,6 +52,7 @@ from ldm3d_torch.cli.common import (
     SAMPLERS,
     TIMESTEP_SPACINGS,
     default_sampler_steps,
+    load_distilled,
     load_two_stage,
     make_sampling_scheduler,
     pin_fp32_precision,
@@ -195,9 +203,6 @@ class ModelServer:
         from ldm3d_torch.diffusion import inferer
         from ldm3d_torch.utils import TrainContext, merge_configs_onto_args
 
-        if self.sampler == "distilled":
-            raise ValueError("sampler='distilled' (the progressively-distilled student) is not "
-                             "ported yet: ROADMAP.md queue A, item 8 ('Distillation')")
         if not (self.config_file and self.environment_file):
             raise FileNotFoundError("no config/environment file configured")
         args = argparse.Namespace()
@@ -208,6 +213,25 @@ class ModelServer:
             self.decode_chunk = resolve_decode_chunk("auto", log, self.device)
         # fp32, as the JAX server serves the models' fp32
         ae, unet, latent, scale_factor = load_two_stage(args, self.device, torch.float32)
+        distilled_sched = None
+        if self.sampler == "distilled":
+            try:
+                unet, distilled_sched, dmeta = load_distilled(args.model_dir, unet, sched_cfg,
+                                                              self.device)
+            except FileNotFoundError as e:
+                # a misconfiguration the user can act on, not a missing
+                # artifact: no dummy model
+                raise ValueError(
+                    f"sampler='distilled' but no distilled checkpoint in "
+                    f"{args.model_dir!r}: run ldm3d-distill first ({e})") from e
+            scale_factor = float(dmeta.get("scale_factor", scale_factor))
+            if self.steps is not None and int(self.steps) != int(dmeta["num_steps"]):
+                raise ValueError(
+                    f"the distilled student has a fixed {int(dmeta['num_steps'])}"
+                    f"-step grid; --steps {self.steps} cannot apply to it")
+            self.steps = int(dmeta["num_steps"])
+            log.info("serving distilled student: %d-step grid %s", self.steps,
+                     dmeta["timesteps"])
         if self.steps is None:
             self.steps = default_sampler_steps(self.sampler, sched_cfg)
         conditional = unet.in_channels > ae.latent_channels
@@ -225,8 +249,9 @@ class ModelServer:
                       spacing: "str | None" = None):
             # None = server default (its timestep_spacing, else the config's)
             spacing = spacing if spacing is not None else self.timestep_spacing
-            scheduler = make_sampling_scheduler(sampler_name, steps, sched_cfg,
-                                                timestep_spacing=spacing)
+            scheduler = (distilled_sched if sampler_name == "distilled"
+                         else make_sampling_scheduler(sampler_name, steps, sched_cfg,
+                                                      timestep_spacing=spacing))
             chunk = self.decode_chunk
 
             def run(noise, generator, condition, step_noises=None):
@@ -363,10 +388,24 @@ class ModelServer:
         if timestep_spacing not in (None, *TIMESTEP_SPACINGS):
             raise ValueError(f"timestep_spacing must be leading|trailing|karras, "
                              f"got {timestep_spacing!r}")
-        if sampler == "distilled":
-            raise ValueError("serving the distilled student is not ported yet: ROADMAP.md "
-                             "queue A, item 8 ('Distillation')")
-        if sampler is not None and sampler not in SAMPLERS:
+        if self.sampler == "distilled" and not self.is_dummy:
+            # the student's weights and few-step grid are a unit
+            if sampler not in (None, "distilled"):
+                raise ValueError("server is running the distilled student; "
+                                 "per-request sampler overrides are unavailable")
+            if inference_steps is not None and int(inference_steps) != self.steps:
+                raise ValueError(f"the distilled student has a fixed {self.steps}-step grid")
+            if guidance_scale is not None and float(guidance_scale) != 1.0:
+                raise ValueError("guidance is unavailable on the distilled student: its "
+                                 "guidance level was fixed at distillation time "
+                                 "(ldm3d-distill --guidance-distill bakes a weight in)")
+            if timestep_spacing is not None:
+                raise ValueError("timestep_spacing is unavailable on the distilled student: "
+                                 "its weights and few-step grid are a unit")
+        elif sampler == "distilled":
+            raise ValueError("start the server with sampler='distilled' to serve "
+                             "the distilled student")
+        elif sampler is not None and sampler not in SAMPLERS:
             raise ValueError(f"sampler must be one of {'|'.join(SAMPLERS)}, got {sampler!r}")
         sampler_name = sampler if sampler is not None else self.sampler
         if inference_steps is not None:
@@ -380,9 +419,10 @@ class ModelServer:
             # guidance is a no-op without conditioning: echo the applied 1.0
             log.info("guidance_scale %.2f ignored: unconditional model", guidance)
             guidance = 1.0
-        # the grid spacing this request runs: request > server > config
+        # the grid spacing this request runs: request > server > config;
+        # None for the dummy model and the distilled student's fixed grid
         applied_spacing = None
-        if not self.is_dummy:
+        if not self.is_dummy and sampler_name != "distilled":
             server_spacing = self.timestep_spacing or self._sched_cfg.get("timestep_spacing",
                                                                           "leading")
             applied_spacing = timestep_spacing or server_spacing

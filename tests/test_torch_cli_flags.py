@@ -1,5 +1,5 @@
 """Every flag of the JAX package's CLI parser (``ldm3d_tpu/cli/common.py``
-``build_parser``) parses in the port's three CLIs.
+``build_parser``) parses in the port's five CLIs.
 
 One case per flag per CLI: the CLI runs with ``--device cpu`` on the tiny
 preset and an empty model directory. A flag whose path the port runs goes on
@@ -8,13 +8,17 @@ past the parser, the flag checks, the config merge and, in training, the
 data loaders); the stage-1 trainer loads no checkpoint, and goes on to its
 LPIPS weights, which the environment sets to a missing file. A flag whose
 path is not ported raises ``NotImplementedError`` naming its ROADMAP item,
-and ``--pipeline`` in the stage-1 trainer the JAX CLI's ``ValueError``.
+``--pipeline`` in the stage-1 trainer the JAX CLI's ``ValueError``, and
+``--pipeline``, ``--spatial`` and ``--tensor`` in the distillation CLI the
+JAX CLI's ``ValueError`` (distillation runs data-parallel).
 """
 
 import json
 
 import pytest
 
+from ldm3d_torch.cli.distill import main as port_distill
+from ldm3d_torch.cli.evaluate import main as port_evaluate
 from ldm3d_torch.cli.inference import main as port_inference
 from ldm3d_torch.cli.train_autoencoder import main as port_train_ae
 from ldm3d_torch.cli.train_diffusion import main as port_train
@@ -50,7 +54,7 @@ FLAGS = {
 }
 CASES = [(flag, argv, item) for flag, cases in FLAGS.items() for argv, item in cases]
 CLIS = {"inference": port_inference, "train_diffusion": port_train,
-        "train_autoencoder": port_train_ae}
+        "train_autoencoder": port_train_ae, "distill": port_distill, "evaluate": port_evaluate}
 
 
 def test_cases_cover_every_flag_of_the_jax_parser():
@@ -79,6 +83,9 @@ def test_jax_flag_parses_then_runs_or_names_its_item(cli, flag, argv, item, env_
     args = ["-c", preset_path("config_tiny_cpu.json"), "-e", env_file, "--device", "cpu", *argv]
     if cli == "train_autoencoder" and flag == "--pipeline":
         with pytest.raises(ValueError, match="^--pipeline applies to stage 2"):
+            CLIS[cli](args)
+    elif cli == "distill" and flag in ("--pipeline", "--spatial", "--tensor"):
+        with pytest.raises(ValueError, match="^distillation runs data-parallel"):
             CLIS[cli](args)
     elif item is None:
         with pytest.raises(FileNotFoundError, match="checkpoint|No such file|lpips_weights"):

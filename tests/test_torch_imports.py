@@ -56,6 +56,8 @@ def test_port_imports_without_nvcc_gpu_or_triton(tmp_path):
         "import ldm3d_torch.nn.discriminator, ldm3d_torch.nn.lpips, ldm3d_torch.losses\n"
         "import ldm3d_torch.serving.api_server, ldm3d_torch.serving.score\n"
         "import ldm3d_torch.serving.health_check\n"
+        "import ldm3d_torch.cli.distill, ldm3d_torch.cli.evaluate, ldm3d_torch.evaluation\n"
+        "import ldm3d_torch.training.distill\n"
         "import ldm3d_torch.ops._kernels as k\n"
         "bad = [m for m in ('jax', 'flax', 'triton', 'ldm3d_tpu', 'psutil', 'fastapi')\n"
         "       if m in sys.modules]\n"

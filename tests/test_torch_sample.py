@@ -139,15 +139,43 @@ def test_cli_needs_cuda_unless_cpu_is_asked_for(tiny, tmp_path):
 
 @pytest.mark.parametrize("sampler", ["ddpm", "dpm", "dpm3"])
 def test_cli_unported_samplers_name_the_roadmap(sampler, tiny, tmp_path):
-    """Every sampler runs now; the option still unported (the distilled
-    student) raises naming its ROADMAP item. (``--fused-decode`` runs:
-    tests/test_torch_fused_sample.py.)"""
+    """Every sampler runs, and ``--use-distilled`` (which overrides
+    ``--sampler``) too: one case each of what the flag refuses, as the JAX
+    CLI does. ddpm: no distilled checkpoint, ``FileNotFoundError``; dpm: with
+    ``--use-ema``, ``ValueError``; dpm3: ``--guidance 2.0``, ``ValueError``
+    from the meta alone, before the weights load. (``--fused-decode`` runs:
+    tests/test_torch_fused_sample.py; the distilled sample itself:
+    tests/test_torch_distill.py.)"""
     _, _, _, _, _, tae, tunet = tiny
     save_two_stage(str(tmp_path / "ckpt"), tae, tunet, 1.0)
     env = _env(tmp_path, tmp_path / "ckpt")
-    with pytest.raises(NotImplementedError, match="ROADMAP.*Distillation"):
-        port_inference(["-c", port_preset_path("config_tiny_cpu.json"), "-e", env,
-                        "--sampler", sampler, "--use-distilled", "--device", "cpu"])
+    argv = ["-c", port_preset_path("config_tiny_cpu.json"), "-e", env, "--sampler", sampler,
+            "--use-distilled", "--device", "cpu"]
+    if sampler == "ddpm":
+        with pytest.raises(FileNotFoundError, match="no 'distilled' checkpoint found"):
+            port_inference(argv)
+    elif sampler == "dpm":
+        with pytest.raises(ValueError, match="mutually exclusive"):
+            port_inference(argv + ["--use-ema"])
+    else:
+        from ldm3d_torch.ckpt import CheckpointManager
+
+        ckpt = CheckpointManager(str(tmp_path / "ckpt"), "diffusion")
+        ckpt.save("distilled", {"state_dict": {}}, {"timesteps": [8], "guidance_scale": 1.5})
+        loads = []
+        original = CheckpointManager.load
+
+        def counted(self, *args, **kwargs):
+            loads.append(args)
+            return original(self, *args, **kwargs)
+
+        CheckpointManager.load = counted
+        try:
+            with pytest.raises(ValueError, match="bakes guidance w=1.5 in"):
+                port_inference(argv + ["--guidance", "2.0"])
+        finally:
+            CheckpointManager.load = original
+        assert loads == []
 
 
 def _cli_volume(env, *extra):

@@ -546,7 +546,9 @@ def test_no_cuda_raises_not_dummy(tmp_path):
 def test_config_errors_fail_loudly_not_dummy(tmp_path):
     """Statically invalid combinations fail at construction, config-dependent
     ones at load_model; missing artifacts still fall back; unported
-    multi-card and distilled serving name their ROADMAP items."""
+    multi-card serving names its ROADMAP item. A distilled server, as the
+    JAX server: the dummy without a config; with one but no distilled
+    checkpoint, ``ValueError``."""
     with pytest.raises(ValueError, match="ddpm"):
         ModelServer(None, None, sampler="ddpm", timestep_spacing="karras", device="cpu")
     with pytest.raises(ValueError, match="timestep_spacing"):
@@ -554,10 +556,13 @@ def test_config_errors_fail_loudly_not_dummy(tmp_path):
     with pytest.raises(ValueError, match="ROADMAP.*11"):
         ModelServer(None, None, spatial=2, device="cpu")
     distilled = ModelServer(None, None, sampler="distilled", device="cpu")
-    with pytest.raises(ValueError, match="ROADMAP.*8"):
+    distilled.load_model()
+    assert distilled.model_loaded and distilled.is_dummy
+    cfg, env = port_two_stage(tmp_path)
+    distilled = ModelServer(cfg, env, sampler="distilled", device="cpu")
+    with pytest.raises(ValueError, match="no distilled checkpoint in .*run ldm3d-distill first"):
         distilled.load_model()
     assert not distilled.model_loaded
-    cfg, env = port_two_stage(tmp_path)
     # the tiny config trains 16 timesteps: a 10-step karras grid has duplicates
     srv = ModelServer(cfg, env, sampler="dpm", steps=10, timestep_spacing="karras", device="cpu")
     with pytest.raises(ValueError, match="karras"):
