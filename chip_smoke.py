@@ -6,8 +6,8 @@ CUDA device, ``nvcc`` and the port's sources; it exits non-zero, without a
 result line, when any of them is missing or any phase fails. ``--phases
 kernel,kernel_conv`` (any of kernel, kernel_bwd, kernel_c2, kernel_conv,
 train_ae, train_ae_fp32, stage1_card_vs_cpu, sample_fused, distill,
-distill_card_vs_cpu, evaluate) runs only those phases after device and
-build, and prints no result line.
+distill_card_vs_cpu, evaluate, presets) runs only those phases after device
+and build, and prints no result line.
 Phases, each printing JSON lines:
 
 1. device: the card's name and power limit (``nvidia-smi``);
@@ -62,12 +62,14 @@ Phases, each printing JSON lines:
    attention kernel's launch count over that run must be exactly 554 (4 of
    them, the VAE's d = 256 attention, on the wgmma route) and
    the GroupNorm-sums kernel's exactly that of the models' GroupNorms (a
-   warm-up run comes first); then one more run under ``torch.profiler``
-   gives the device time by category and the device's idle share;
+   warm-up run comes first); then one more run, DDIM-10, under
+   ``torch.profiler`` gives the device time by category and the device's
+   idle share;
 5b. sample_fused: ``cli.inference --fused-decode`` (the reverse loop and the
    decode replayed as CUDA graphs) on the same full-width checkpoints: DDIM-50
    bf16 batch 1; ddpm strided to 50 steps, fp32, batch 2, guidance 2.0;
-   dpm3-20 bf16; ddpm over the full 1,000-step schedule, bf16; each held bit
+   dpm3-20 bf16; ddpm over the full 1,000-step schedule (stride 1: the
+   ``betas[t]`` rows, which no strided run reaches), bf16; each held bit
    for bit to its eager twin (the same argv and seed), its launches a sample
    equal to the twin's (warm-up taken off) and to those the sampler implies,
    the graphs captured once a run (however many steps), the replay loop
@@ -157,9 +159,33 @@ Phases, each printing JSON lines:
    ``grad_norm`` and the student's gradients within 1e-3 relative, the
    updated student within 2 lr + 1e-6.
 
-The GroupNorm kernel phase (7) runs after the serving path, and replays the
-inputs of all six main-path runs (the discriminator's instance norms, g =
-C, among them).
+14. presets: every other bundled model preset (``config_train_16g``,
+   ``_multigpu``, ``_stable``, ``_pp``) at its full width and patch, seeded
+   random weights: written by ``CheckpointManager``, exported by
+   ``cli.export_checkpoint`` (split q/k/v for 16g and stable, fused for
+   multigpu and pp), imported into a fresh model_dir by
+   ``cli.import_checkpoint`` and held bit-equal (pp's ``mid_depth`` UNet has
+   no reference counterpart: its import must be refused at ``mid_stack.0``,
+   and its ``best`` comes from the manager); a bf16 DDIM-10 sample through
+   ``cli.inference`` from that model_dir (two volumes, the second timed;
+   16g unconditional); 3 bf16 stage-2 steps through ``cli.train_diffusion``
+   and, but for pp (the flagship's VAE), 3 adversarial bf16 stage-1 steps
+   through ``cli.train_autoencoder`` (a copy with warmup_epochs -1), at the
+   preset's batch and patch; 16g's two-channel VAE meets one-channel data in
+   both CLIs, which refuse it as the JAX CLIs do, so its steps are the
+   library's step functions on two-channel volumes (stage 1 without LPIPS,
+   which takes 1 or 3 channels). Each run's attention launches by route and
+   GroupNorm launches exactly as its models imply; ms a step (the median
+   after the first), denoise ms a step, decode ms, peak memory. The kernel
+   and kernel_bwd phases hold the presets' attention shapes too
+   (PRESET_SHAPES, PRESET_BWD_SHAPES; BIG_SHAPE checked at batch 1 against
+   the plain version, each of its 20 elements against the batch-1 call's
+   bits, timed at batch 20), and kernel_gn their GroupNorm inputs (batch 12, 2.84 M voxels,
+   16 groups).
+
+The GroupNorm kernel phase (7) runs after the serving and presets paths,
+and replays the inputs of every main-path run (the discriminator's instance
+norms, g = C, among them).
 
 Precision: the kernel phases (3, 4, 9, 10) run with both ``allow_tf32``
 flags False, so that the plain versions, SDPA and cuDNN compute in full
@@ -280,6 +306,9 @@ def bwd_route(dtype: str, d: int) -> str:
 
     return bwd_route_id(getattr(torch, dtype), -(-d // 8) * 8)
 DDIM_STEPS = 50
+# the profiled sample of the main path: DDIM-10 (a profiled DDIM-50 sample
+# took about 65 s of the script's time limit)
+PROFILE_DDIM_STEPS = 10
 
 # Training main path: the config's batch 20 at its 80^3 patch; 90 synthetic
 # pairs give 81 training pairs (4 steps of 20, the first a warm-up) and 9
@@ -316,6 +345,25 @@ BWD_SHAPES = TRAIN_SHAPES[:2] + [(2, 100, 3, 40), (1, 8000, 1, 256), AE_TRAIN_SH
 BWD_EDGE_SHAPES = [(2, 63, 3, 8), (1, 1, 2, 64, 37), (3, 129, 2, 72), (2, 65, 2, 136),
                    (1, 63, 1, 256, 65), (1, 1, 1, 256, 8000), (2, 100, 4, 64, 37),
                    (2, 1000, 8, 64), (2, 125, 16, 64)]
+# (B, n, h, d): the attention shapes of the presets phase's models (PRESETS)
+# that no other path runs: 16g's UNet over its odd latent 36 x 44 x 28 (5,544
+# and 693 tokens; training batch 2, sampling batch 1); multigpu's VAE at
+# levels 1 (d = 128, 32^3 tokens) and 2 (its stage-2 encodes at batch 20)
+# and its UNet at 64^3 crops; stable's VAE (d = 128) and UNet (d = 32 over 27
+# tokens, 16 heads); pp's extra mid blocks run (20, 125, 16, 64)
+PRESET_SHAPES = [(2, 5544, 4, 64), (2, 693, 8, 64), (1, 5544, 4, 64), (1, 693, 8, 64),
+                 (1, 32768, 1, 128), (20, 4096, 1, 256), (20, 512, 8, 64), (20, 64, 16, 64),
+                 (1, 512, 8, 64), (1, 64, 16, 64), (1, 1728, 1, 128), (10, 1728, 1, 128),
+                 (10, 27, 16, 32), (1, 27, 16, 32)]
+# multigpu's stage-2 encodes at batch 20 at level 1: the plain version's fp32
+# scores (20 x 32768^2) do not fit on the card, so the kernel is held to it at
+# batch 1 (PRESET_SHAPES) and timed at batch 20, where each batch element
+# must give the bits of the batch-1 call on that element
+BIG_SHAPE = (20, 32768, 1, 128)
+# the backward at the presets' training shapes (stage 1: multigpu's and
+# stable's VAE at d = 128; stage 2: 16g, multigpu and stable's UNets)
+PRESET_BWD_SHAPES = [(1, 32768, 1, 128), (1, 1728, 1, 128), (2, 5544, 4, 64), (2, 693, 8, 64),
+                     (20, 512, 8, 64), (20, 64, 16, 64), (10, 27, 16, 32)]
 # B6's route for each dtype (csrc/conv3d_igemm.cu)
 CONV_ROUTES = {"bfloat16": "wgmma bf16 tensor cores, implicit GEMM over a staged input slab",
                "float32": "mma.sync tf32 tensor cores, 3xTF32 split, per-tap partials"}
@@ -670,7 +718,8 @@ def phase_kernel(torch, F) -> dict:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = {}
-    shapes = SHAPES + TRAIN_SHAPES + DISTILL_CFG_SHAPES + EDGE_SHAPES + C2_SHAPES
+    shapes = (SHAPES + TRAIN_SHAPES + DISTILL_CFG_SHAPES + PRESET_SHAPES + EDGE_SHAPES
+              + C2_SHAPES)
     cases = [("bfloat16", s) for s in shapes] + [("float32", s) for s in shapes]
     for dtype, shape in cases:
         dt = getattr(torch, dtype)
@@ -712,7 +761,53 @@ def phase_kernel(torch, F) -> dict:
               "out_tol": tol, "lse_tol": TOL_FP32})
         del qkv, q, k, v, out, lse
     torch.cuda.empty_cache()
+    for dtype in ("bfloat16", "float32"):
+        results[(BIG_SHAPE, dtype)] = _kernel_big(torch, F, dtype, gen, results)
     return results
+
+
+def _kernel_big(torch, F, dtype: str, gen, results: dict) -> dict:
+    """BIG_SHAPE: the kernel and SDPA timed at batch 20; held to the plain
+    version through the batch-1 row (same n, h, d), and every batch element
+    to the bits of the batch-1 call on that element alone."""
+    from ldm3d_torch.ops.attention import flash_attention_fwd
+
+    dt = getattr(torch, dtype)
+    b, n, h, d = BIG_SHAPE
+    qkv, (q, k, v) = _fused_qkv(torch, BIG_SHAPE, dt, gen)
+    _check_fwd_plan(torch, dtype, BIG_SHAPE, q, k, v)
+    route = fwd_route(dtype, d)
+    before = flash_attention_fwd.route_launches[route]
+    out, lse = flash_attention_fwd(q, k, v)
+    torch.cuda.synchronize()
+    check(flash_attention_fwd.route_launches[route] == before + 1,
+          f"the {route} route did not run at {BIG_SHAPE} {dtype}")
+    check(bool(torch.isfinite(out).all()), f"non-finite output at {BIG_SHAPE} {dtype}")
+    for i in range(b):
+        one, one_lse = flash_attention_fwd(q[i:i + 1], k[i:i + 1], v[i:i + 1])
+        check(torch.equal(out[i:i + 1], one) and torch.equal(lse[i:i + 1], one_lse),
+              f"batch element {i} at {BIG_SHAPE} {dtype} differs from the batch-1 call")
+    check(flash_attention_fwd.route_launches[route] == before + 1 + b,
+          f"the {route} route did not run the batch-1 calls at {BIG_SHAPE} {dtype}")
+    b1 = results[((1, n, h, d), dtype)]
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    loop = loop_size(4.0 * b * h * n * n * d)
+    row = {"kernel_ms": cuda_ms(torch, lambda: flash_attention_fwd(q, k, v), **loop),
+           "kernel_host_ms": host_ms(torch, lambda: flash_attention_fwd(q, k, v), calls=3,
+                                     reps=3),
+           "plain_ms": None, "plain_ms_at_batch_1": b1["plain_ms"],
+           "library_ms": cuda_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt),
+                                 **loop),
+           "max_abs_err": b1["max_abs_err"], "lse_max_abs_err": b1["lse_max_abs_err"],
+           "checked_at": "batch 1 against the plain version; each of batch 20's elements "
+                         "bit-equal to the batch-1 call on it"}
+    row["bound_ms"], row["bound_by"] = bound(BIG_SHAPE, dtype, qkv.element_size())
+    emit({"phase": "kernel", "kernel": "flash_fwd", "shape_bnhd": list(BIG_SHAPE),
+          "kv_len": n, "dtype": dtype, "route": FWD_ROUTES[route], **row,
+          "tflops": 4.0 * b * h * n * n * d / row["kernel_ms"] / 1e9})
+    del qkv, q, k, v, out, lse, one, one_lse, qt, kt, vt
+    torch.cuda.empty_cache()
+    return row
 
 
 @full_fp32
@@ -723,8 +818,8 @@ def phase_kernel_bwd(torch, F) -> dict:
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     results = {}
-    cases = ([("bfloat16", s) for s in BWD_SHAPES + BWD_EDGE_SHAPES]
-             + [("float32", s) for s in BWD_SHAPES + BWD_EDGE_SHAPES])
+    shapes = BWD_SHAPES + PRESET_BWD_SHAPES + BWD_EDGE_SHAPES
+    cases = [("bfloat16", s) for s in shapes] + [("float32", s) for s in shapes]
     for dtype, shape in cases:
         dt = getattr(torch, dtype)
         b, n, h, d = shape[:4]
@@ -1338,9 +1433,12 @@ def phase_main_path(torch, ns, counts, workdir: Path, card: str, smi_line: str) 
           "nvidia_smi": smi_line})
     shutil.rmtree(model_dir / "out")
     timings = {}
-    prof, _ = _profiled(torch, lambda: inference_main(argv, timings=timings))
+    steps_at = argv.index("--steps") + 1
+    prof_argv = [*argv[:steps_at], str(PROFILE_DDIM_STEPS), *argv[steps_at + 1:]]
+    prof, _ = _profiled(torch, lambda: inference_main(prof_argv, timings=timings))
     window_ms = sum(timings[k][0] for k in ("encode_ms", "denoise_ms", "decode_ms"))
-    emit({"phase": "profile", "path": "sampling", **_profile_summary(torch, prof, window_ms)})
+    emit({"phase": "profile", "path": f"sampling (DDIM-{PROFILE_DDIM_STEPS})",
+          **_profile_summary(torch, prof, window_ms)})
     shutil.rmtree(model_dir)
     return launches, gn_cases
 
@@ -2772,9 +2870,449 @@ def phase_evaluate(torch, ns, workdir: Path, card: str, smi_line: str,
     shutil.rmtree(model_dir)
 
 
+# The presets phase: every bundled preset other than the flagship at its full
+# width and patch. name -> (q/k/v layout of its export, the stage-2 and
+# stage-1 runs go through the CLIs). 16g's VAE takes two image channels
+# while the data pipeline gives one-channel crops: the JAX CLIs refuse both
+# of its trainers (a 2-channel conv_in meets the first 1-channel crop), as
+# the port's do, so its steps are the library's step functions on
+# two-channel volumes at the preset's batch and patch, and its stage-1 step
+# has no perceptual term (LPIPS takes one or three channels). pp's VAE is
+# the flagship's, so it runs no stage-1 steps. stable's import derives the
+# latent scale factor on the card (--derive-scale-factor) instead of taking it.
+PRESETS = {"config_train_16g.json": {"qkv": "split", "cli": False, "stage1": True,
+                                     "samples": 1},
+           "config_train_multigpu.json": {"qkv": "fused", "cli": True, "stage1": True},
+           "config_train_stable.json": {"qkv": "split", "cli": True, "stage1": True,
+                                        "derive": True},
+           "config_train_pp.json": {"qkv": "fused", "cli": True, "stage1": False}}
+PRESET_SAMPLE_STEPS = 10
+# the first a warm-up: the figures are the second's; 16g samples once (its
+# first sample is timed): each of its 2.84 M-voxel two-channel volumes takes
+# about 25 s to gzip into its NIfTI file
+PRESET_SAMPLES = 2
+PRESET_TRAIN_STEPS = 3  # the first a warm-up: the figures are the median of the rest
+PRESET_SCALE = 0.8
+
+
+def _pairs_for_steps(batch: int, steps: int = PRESET_TRAIN_STEPS) -> int:
+    """The fewest synthetic pairs whose training split (``val_fraction``
+    0.1, ``data.pipeline._split``) fills exactly ``steps`` batches."""
+    n = steps * batch
+    while (n - int(0.1 * n)) // batch != steps:
+        n += 1
+    return n
+
+
+def _attn_routes(torch, ns) -> dict:
+    """Attention blocks per model part by head width, from models built on
+    the meta device: {part: {d: count}}."""
+    from ldm3d_torch.configs import define_instance
+    from ldm3d_torch.nn.blocks import AttentionBlock3D
+
+    with torch.device("meta"):
+        ae = define_instance(ns, "autoencoder_def")
+        unet = define_instance(ns, "diffusion_def")
+    out = {}
+    for part, mod in (("encoder", ae.encoder), ("decoder", ae.decoder), ("unet", unet)):
+        widths: dict[int, int] = {}
+        for m in mod.modules():
+            if isinstance(m, AttentionBlock3D):
+                d = m.proj.weight.shape[0] // m.heads
+                widths[d] = widths.get(d, 0) + 1
+        out[part] = widths
+    return out
+
+
+def _expected_routes(torch, widths: dict, weights: dict, bwd_weights: dict | None = None) -> dict:
+    """Expected bf16 launches by kernel and route: ``weights`` (and
+    ``bwd_weights`` for the backward) map a model part to its calls."""
+    from ldm3d_torch.ops.attention import bwd_route_id, fwd_route_id
+
+    exp: dict = {}
+    for part, calls in weights.items():
+        for d, n in widths[part].items():
+            key = f"fwd:{fwd_route_id(torch.bfloat16, -(-d // 8) * 8)}"
+            exp[key] = exp.get(key, 0) + calls * n
+    for part, calls in (bwd_weights or {}).items():
+        for d, n in widths[part].items():
+            for kind in ("dq", "dkv"):
+                key = f"{kind}:{bwd_route_id(torch.bfloat16, -(-d // 8) * 8)}"
+                exp[key] = exp.get(key, 0) + calls * n
+    return {k: v for k, v in exp.items() if v}
+
+
+def _route_counts() -> dict:
+    """The wrappers' launches by kernel and route since the last reset, in
+    ``_expected_routes``'s keys (zero routes left out)."""
+    from ldm3d_torch.ops.graphs import launch_counts
+
+    c = launch_counts()
+    out = {f"fwd:{r}": n for r, n in c["flash_attention_fwd"]["route_launches"].items() if n}
+    for kind in ("dq", "dkv"):
+        out.update({f"{kind}:{r}": n for r, n in
+                    c[f"flash_attention_bwd_{kind}"]["route_launches"].items() if n})
+    return out
+
+
+def _check_launches(torch, name: str, what: str, expected_routes: dict,
+                    expected_gn: dict) -> dict:
+    routes, launches = _route_counts(), _read_counts()
+    check(routes == expected_routes,
+          f"{name} {what}: attention launches by route {routes}, expected {expected_routes}")
+    for kernel, n in expected_gn.items():
+        check(launches[kernel] == n, f"{name} {what}: {kernel} launched {launches[kernel]} "
+                                     f"times, expected {n}")
+    check(launches["conv3d_igemm"] == 0, f"{name} {what}: a conv kernel ran")
+    return {"routes": routes, "launches": launches}
+
+
+def _state_equal(torch, got: dict, want: dict) -> bool:
+    return list(got) == list(want) and all(
+        torch.equal(got[k].cpu(), v.detach().cpu()) for k, v in want.items())
+
+
+def _preset_round_trip(torch, name: str, ns, root: Path, qkv: str, derive: bool) -> dict:
+    """Seeded full-width models written by ``CheckpointManager``, exported by
+    ``cli.export_checkpoint``, imported into a fresh model_dir by
+    ``cli.import_checkpoint``: every imported tensor bit-equal. A
+    ``mid_depth`` UNet's import is refused (no reference counterpart of its
+    stack): that model_dir gets its ``best`` from the manager."""
+    from ldm3d_torch.ckpt import CheckpointManager
+    from ldm3d_torch.ckpt.import_torch import ImportMismatchError
+    from ldm3d_torch.cli.common import save_two_stage
+    from ldm3d_torch.cli.export_checkpoint import main as export_main
+    from ldm3d_torch.cli.import_checkpoint import main as import_main
+    from ldm3d_torch.configs import preset_path
+
+    cfg_path = preset_path(name)
+    ae, unet = _flagship_models(torch, ns, torch.Generator(device="cuda").manual_seed(11))
+    src, dst = root / "src", root / "dst"
+    t0 = time.perf_counter()
+    save_two_stage(str(src), ae, unet, PRESET_SCALE)
+    save_s = time.perf_counter() - t0
+    env_src = _write_env(src)
+    pts = {"autoencoder": root / "autoencoder.pt", "diffusion": root / "diffusion_unet.pt"}
+    t0 = time.perf_counter()
+    export_main(["-c", cfg_path, "-e", str(env_src), "--autoencoder", str(pts["autoencoder"]),
+                 "--diffusion", str(pts["diffusion"]),
+                 *(["--fused-qkv"] if qkv == "fused" else [])])
+    export_s = time.perf_counter() - t0
+    exported = {k: len(torch.load(p, map_location="cpu", weights_only=True, mmap=True))
+                for k, p in pts.items()}
+    batch = ns.diffusion_train["batch_size"]
+    dst.mkdir()
+    env_dst = _write_env(dst, synthetic_num=_pairs_for_steps(batch),
+                         synthetic_shape=list(ns.diffusion_train["patch_size"]),
+                         resume_ckpt=False)
+    base = ["-c", cfg_path, "-e", str(env_dst)]
+    t0 = time.perf_counter()
+    mid = sum(k.startswith("mid_stack.") for k in unet.state_dict())
+    if mid:
+        try:
+            import_main(base + ["--diffusion", str(pts["diffusion"]), "--scale-factor",
+                                str(PRESET_SCALE)])
+        except ImportMismatchError as e:
+            refusal = str(e).splitlines()[0]
+        else:
+            raise RuntimeError(f"chip_smoke: {name}: the mid_depth UNet's import was not refused")
+        check("mid_stack" in refusal, f"{name}: refused for another reason: {refusal}")
+        import_main(base + ["--autoencoder", str(pts["autoencoder"])])
+        CheckpointManager(str(dst), "diffusion").save(
+            "best", {"state_dict": unet.state_dict()}, {"scale_factor": PRESET_SCALE})
+    else:
+        refusal = None
+        scale = ["--derive-scale-factor"] if derive else ["--scale-factor", str(PRESET_SCALE)]
+        import_main(base + ["--autoencoder", str(pts["autoencoder"]), "--diffusion",
+                            str(pts["diffusion"]), *scale])
+    import_s = time.perf_counter() - t0
+    imported = {role: CheckpointManager(str(dst), role).load("best", map_location="cpu")
+                for role in ("autoencoder", "diffusion")}
+    check(_state_equal(torch, imported["autoencoder"]["state_dict"], ae.state_dict()),
+          f"{name}: the imported autoencoder is not bit-equal to the exported model")
+    check(_state_equal(torch, imported["diffusion"]["state_dict"], unet.state_dict()),
+          f"{name}: the imported UNet is not bit-equal to the exported model")
+    scale_factor = imported["diffusion"]["meta"]["scale_factor"]
+    check(scale_factor != 1.0 and math.isfinite(scale_factor) and scale_factor > 0 if derive
+          else scale_factor == PRESET_SCALE,
+          f"{name}: imported meta {imported['diffusion']['meta']}")
+    n_params = {"autoencoder": sum(p.numel() for p in ae.parameters()),
+                "unet": sum(p.numel() for p in unet.parameters())}
+    del ae, unet, imported
+    shutil.rmtree(src)
+    for p in pts.values():
+        p.unlink()
+    torch.cuda.empty_cache()
+    return {"model_dir": dst, "env": env_dst, "params": n_params, "qkv": qkv,
+            "exported_tensors": exported, "mid_stack_tensors_not_exported": mid,
+            "unet_import_refusal": refusal, "scale_factor": scale_factor,
+            "scale_factor_derived": derive, "save_s": save_s, "export_s": export_s,
+            "import_s": import_s}
+
+
+def _preset_sample(torch, name: str, ns, counts, widths, rt: dict, n: int) -> dict:
+    """bf16 DDIM-10 through ``cli.inference`` from the imported model_dir:
+    ``n`` samples, the last timed; exact launches by route."""
+    from ldm3d_torch.cli.inference import main as inference_main
+    from ldm3d_torch.configs import ConfigResolver, preset_path
+    from ldm3d_torch.utils.nifti import read_nifti
+
+    in_channels = ConfigResolver(vars(ns)).resolve("diffusion_def::in_channels")
+    conditional = in_channels > ns.latent_channels
+    argv = ["-c", preset_path(name), "-e", str(rt["env"]), "-n", str(n),
+            "--sampler", "ddim", "--steps", str(PRESET_SAMPLE_STEPS), "--amp"]
+    timings: dict = {}
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    unpin_precision(torch)
+    written = inference_main(argv, timings=timings)
+    gn_cases = _read_gn_cases()
+    flags = pinned_precision(torch, "cli.inference.main")
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    steps = PRESET_SAMPLE_STEPS
+    weights = {"unet": n * steps, "decoder": n, "encoder": int(conditional)}
+    expected_gn = {"gn_sums": sum(counts[p]["gn"] * w for p, w in weights.items()),
+                   "gn_bwd_sums": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    rec = _check_launches(torch, name, "sampling", _expected_routes(torch, widths, weights),
+                          expected_gn)
+    patch = tuple(ns.diffusion_train["patch_size"])
+    vol, _ = read_nifti(written[-1])
+    want = patch if ns.image_channels == 1 else (*patch, ns.image_channels)
+    check(len(written) == n and vol.shape == want and bool(np.isfinite(vol).all()),
+          f"{name}: sampled {len(written)} volumes of shape {vol.shape}, expected {n} of {want}")
+    return {"conditional": conditional, "sampler": f"ddim-{steps}", "dtype": "bfloat16",
+            "samples": n, "timed": "the first (cold)" if n == 1 else "the last",
+            "denoise_ms_per_step": timings["denoise_ms"][-1] / steps,
+            "decode_ms": timings["decode_ms"][-1], "encode_ms": timings.get("encode_ms", []),
+            "sample_ms": timings["sample_ms"][-1], "peak_device_memory_gib": peak_gib,
+            "volume": list(vol.shape), "allow_tf32": flags, **rec, "gn_cases": gn_cases}
+
+
+def _preset_train_cli(torch, name: str, ns, counts, widths, rt: dict) -> dict:
+    """``PRESET_TRAIN_STEPS`` bf16 stage-2 steps through ``cli.train_diffusion``
+    at the preset's batch and patch, over the imported VAE."""
+    from ldm3d_torch.cli.train_diffusion import main as train_main
+    from ldm3d_torch.configs import preset_path
+
+    timings: dict = {}
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    unpin_precision(torch)
+    best_val = train_main(["-c", preset_path(name), "-e", str(rt["env"]), "--amp",
+                           "--no-images", "--max-epochs", "1"], timings=timings)
+    gn_cases = _read_gn_cases()
+    flags = pinned_precision(torch, "cli.train_diffusion.main")
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    steps, val = len(timings["train_step_ms"]), sum(timings["val_batches"])
+    check(steps == PRESET_TRAIN_STEPS, f"{name}: {steps} stage-2 steps, expected "
+                                       f"{PRESET_TRAIN_STEPS}")
+    losses = timings["diffusion_loss"]
+    check(all(math.isfinite(x) for x in losses) and math.isfinite(best_val),
+          f"{name}: non-finite stage-2 losses {losses}, val {best_val}")
+    encodes = 1 + 2 * steps + 2 * val
+    weights = {"encoder": encodes, "unet": steps + val}
+    expected_gn = {"gn_sums": sum(counts[p]["gn"] * w for p, w in weights.items()),
+                   "gn_bwd_sums": steps * counts["unet"]["gn"]}
+    rec = _check_launches(torch, name, "stage-2 training",
+                          _expected_routes(torch, widths, weights, {"unet": steps}), expected_gn)
+    return {"path": "cli.train_diffusion", "batch": ns.diffusion_train["batch_size"],
+            "patch": ns.diffusion_train["patch_size"], "steps": steps, "val_batches": val,
+            "train_step_ms": timings["train_step_ms"],
+            "median_step_ms_after_first": statistics.median(timings["train_step_ms"][1:]),
+            "diffusion_loss": losses, "scale_factor": timings["scale_factor"],
+            "peak_device_memory_gib": peak_gib, "allow_tf32": flags, **rec,
+            "gn_cases": gn_cases}
+
+
+def _timed_steps(torch, step) -> list:
+    out = []
+    for _ in range(PRESET_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = step()
+        torch.cuda.synchronize()
+        out.append(((time.perf_counter() - t0) * 1e3, metrics))
+    return out
+
+
+def _preset_train_steps(torch, name: str, ns, counts, widths, rt: dict) -> dict:
+    """16g's stage-2 steps through ``make_stage2_train_step`` (unconditional,
+    as its UNet is) on two-channel volumes at the preset's batch and patch,
+    over the imported VAE."""
+    from ldm3d_torch.cli.train_diffusion import load_frozen_autoencoder
+    from ldm3d_torch.configs import define_instance
+    from ldm3d_torch.diffusion import DDPMScheduler
+    from ldm3d_torch.nn import init_weights_
+    from ldm3d_torch.training import (Stage2Config, TrainState, make_diffusion_optimizer,
+                                      make_stage2_train_step)
+    from ldm3d_torch.utils import TrainContext
+
+    dt = torch.bfloat16
+    args = SimpleNamespace(**vars(ns), model_dir=str(rt["model_dir"]))
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    torch.cuda.reset_peak_memory_stats()
+    ae = load_frozen_autoencoder(args, torch.device("cuda"), dt)
+    with torch.device("cuda"):
+        unet = init_weights_(define_instance(ns, "diffusion_def"), gen)
+    unet.compute_dtype = dt
+    state = TrainState(unet, make_diffusion_optimizer(unet.parameters(),
+                                                      lambda count: ns.diffusion_train["lr"]))
+    sched = TrainContext(ns).scheduler_config()
+    step = make_stage2_train_step(unet, ae, DDPMScheduler.create(**sched),
+                                  Stage2Config(conditional=False))
+    b, patch = ns.diffusion_train["batch_size"], ns.diffusion_train["patch_size"]
+    batch = {k: torch.rand((b, *patch, ns.image_channels), generator=gen, device="cuda")
+             for k in ("image", "label")}
+    _reset_counts()
+    runs = _timed_steps(torch, lambda: step(state, batch, PRESET_SCALE, gen))
+    gn_cases = _read_gn_cases()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    steps = len(runs)
+    losses = [float(m["diffusion_loss"]) for _, m in runs]
+    check(all(math.isfinite(x) for x in losses), f"{name}: non-finite stage-2 losses {losses}")
+    weights = {"encoder": steps, "unet": steps}
+    expected_gn = {"gn_sums": sum(counts[p]["gn"] * w for p, w in weights.items()),
+                   "gn_bwd_sums": steps * counts["unet"]["gn"]}
+    rec = _check_launches(torch, name, "stage-2 steps",
+                          _expected_routes(torch, widths, weights, {"unet": steps}), expected_gn)
+    ms = [t for t, _ in runs]
+    del state, unet, ae, batch
+    torch.cuda.empty_cache()
+    return {"path": "training.make_stage2_train_step (unconditional; the CLI refuses the "
+                    "preset's 2-channel VAE on 1-channel data, as the JAX CLI does)",
+            "batch": b, "patch": patch, "image_channels": ns.image_channels, "steps": steps,
+            "train_step_ms": ms, "median_step_ms_after_first": statistics.median(ms[1:]),
+            "diffusion_loss": losses, "peak_device_memory_gib": peak_gib, **rec,
+            "gn_cases": gn_cases}
+
+
+def _preset_stage1(torch, name: str, ns, counts, widths, root: Path, via_cli: bool) -> dict:
+    """``PRESET_TRAIN_STEPS`` adversarial bf16 stage-1 steps at the preset's
+    batch and patch: through ``cli.train_autoencoder`` (a preset copy with
+    warmup_epochs -1, so that its one epoch is adversarial, and one
+    validation batch), or for 16g through ``make_stage1_train_step`` on
+    two-channel volumes, without the perceptual term."""
+    from ldm3d_torch.cli.train_autoencoder import build_discriminator
+    from ldm3d_torch.cli.train_autoencoder import main as train_ae_main
+    from ldm3d_torch.configs import define_instance, load_json, preset_path
+    from ldm3d_torch.nn import init_weights_
+    from ldm3d_torch.training import (Stage1Config, TrainState, make_optimizer,
+                                      make_stage1_train_step)
+
+    tc = ns.autoencoder_train
+    attn = {"encoder": 1, "decoder": 1}
+    vae_gn = counts["encoder"]["gn"] + counts["decoder"]["gn"]
+    d_gn = counts["discriminator"]["gn"]
+    torch.cuda.reset_peak_memory_stats()
+    if via_cli:
+        model_dir = root / "stage1"
+        model_dir.mkdir()
+        cfg = load_json(preset_path(name))
+        cfg["autoencoder_train"].update(warmup_epochs=-1, val_interval=1, max_epochs=1)
+        cfg_path = model_dir / "config.json"
+        cfg_path.write_text(json.dumps(cfg))
+        env = _write_env(model_dir, synthetic_num=_pairs_for_steps(tc["batch_size"]),
+                         synthetic_shape=list(tc["patch_size"]), resume_ckpt=False)
+        timings: dict = {}
+        _reset_counts()
+        unpin_precision(torch)
+        best_val = train_ae_main(["-c", str(cfg_path), "-e", str(env), "--amp", "--no-images"],
+                                 timings=timings)
+        gn_cases = _read_gn_cases()
+        flags = pinned_precision(torch, "cli.train_autoencoder.main")
+        steps, val = len(timings["train_step_ms"]), sum(timings["val_batches"])
+        check(all(timings["adv_active"]) and steps == PRESET_TRAIN_STEPS and val == 1,
+              f"{name}: stage-1 ran {timings['adv_active']} steps, {val} validation batches")
+        losses = {k: timings[k] for k in ("g_loss", "d_loss")}
+        check(all(math.isfinite(x) for v in losses.values() for x in v)
+              and math.isfinite(best_val) and min(losses["d_loss"]) > 0,
+              f"{name}: stage-1 losses {losses}, val {best_val}")
+        ms = timings["train_step_ms"]
+        shutil.rmtree(model_dir)
+        path = "cli.train_autoencoder (warmup_epochs -1)"
+    else:
+        gen = torch.Generator(device="cuda").manual_seed(13)
+        with torch.device("cuda"):
+            ae = init_weights_(define_instance(ns, "autoencoder_def"), gen)
+            disc = init_weights_(build_discriminator(ns), gen)
+        ae.compute_dtype = disc.compute_dtype = torch.bfloat16
+        g_state = TrainState(ae, make_optimizer(ae.parameters(), lambda count: tc["lr"]))
+        d_state = TrainState(disc, make_optimizer(disc.parameters(), lambda count: tc["lr"]))
+        step = make_stage1_train_step(ae, disc, None, Stage1Config(kl_weight=tc["kl_weight"],
+                                                                   perceptual_weight=0.0))
+        images = torch.rand((tc["batch_size"], *tc["patch_size"], ns.image_channels),
+                            generator=gen, device="cuda")
+        _reset_counts()
+        runs = _timed_steps(torch, lambda: step(g_state, d_state, images, True, gen))
+        gn_cases = _read_gn_cases()
+        flags = None
+        steps, val = len(runs), 0
+        losses = {k: [float(m[k]) for _, m in runs] for k in ("g_loss", "d_loss")}
+        check(all(math.isfinite(x) for v in losses.values() for x in v),
+              f"{name}: stage-1 losses {losses}")
+        ms = [t for t, _ in runs]
+        del g_state, d_state, ae, disc, images
+        path = ("training.make_stage1_train_step on 2-channel volumes, no perceptual term "
+                "(LPIPS takes 1 or 3 channels)")
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    expected_gn = {"gn_sums": vae_gn * (steps + val) + 3 * d_gn * steps,
+                   "gn_bwd_sums": vae_gn * steps + 3 * d_gn * steps}
+    rec = _check_launches(torch, name, "stage-1 training",
+                          _expected_routes(torch, widths, {p: steps + val for p in attn},
+                                           {p: steps for p in attn}), expected_gn)
+    torch.cuda.empty_cache()
+    return {"path": path, "batch": tc["batch_size"], "patch": tc["patch_size"], "steps": steps,
+            "val_batches": val, "train_step_ms": ms,
+            "median_step_ms_after_first": statistics.median(ms[1:]), "losses": losses,
+            "peak_device_memory_gib": peak_gib, "allow_tf32": flags, **rec,
+            "gn_cases": gn_cases}
+
+
+def phase_presets(torch, workdir: Path, card: str, smi_line: str) -> dict:
+    """Every preset of ``PRESETS`` at its full width and patch: the
+    checkpoint round trip, a bf16 DDIM-10 sample, bf16 stage-2 steps and
+    (but pp) bf16 adversarial stage-1 steps. Returns each preset's GroupNorm
+    inputs by path (for the kernel_gn phase) and each run's launches."""
+    from ldm3d_torch.configs import load_json, preset_path
+
+    gn_paths, launches = {}, {}
+    for name, opts in PRESETS.items():
+        t0 = time.perf_counter()
+        ns = SimpleNamespace(**load_json(preset_path(name)))
+        counts = _module_counts(torch, ns)
+        widths = _attn_routes(torch, ns)
+        root = workdir / f"preset_{name.removesuffix('.json')}"
+        rt = _preset_round_trip(torch, name, ns, root, opts["qkv"], opts.get("derive", False))
+        emit({"phase": "presets", "config": name, "step": "checkpoint_round_trip",
+              **{k: (str(v) if isinstance(v, Path) else v) for k, v in rt.items()
+                 if k not in ("model_dir", "env")}, "bit_equal": True,
+              "card": card, "nvidia_smi": smi_line})
+        short = name.removeprefix("config_train_").removesuffix(".json")
+        n = opts.get("samples", PRESET_SAMPLES)
+        for what, run in (("sample", lambda: _preset_sample(torch, name, ns, counts, widths, rt,
+                                                            n)),
+                          ("stage2", lambda: (_preset_train_cli if opts["cli"] else
+                                              _preset_train_steps)(torch, name, ns, counts,
+                                                                   widths, rt)),
+                          *((("stage1", lambda: _preset_stage1(torch, name, ns, counts, widths,
+                                                               root, opts["cli"])),)
+                            if opts["stage1"] else ())):
+            rec = run()
+            gn_paths[f"presets_{short}_{what}"] = rec.pop("gn_cases")
+            launches[f"{short}_{what}"] = rec["launches"]
+            emit({"phase": "presets", "config": name, "step": what, **rec, "card": card,
+                  "nvidia_smi": smi_line})
+        shutil.rmtree(root)
+        torch.cuda.empty_cache()
+        emit({"phase": "presets", "config": name, "step": "done",
+              "seconds": time.perf_counter() - t0})
+    return {"gn_paths": gn_paths, "launches": launches}
+
+
 def _kernel_summary(fwd: dict, bwd: dict, gn: dict, sample_launches: dict,
                     train: dict, train_fp32: dict, serve: dict, conv: dict,
-                    train_ae: dict, train_ae_fp32: dict, distill: dict) -> list:
+                    train_ae: dict, train_ae_fp32: dict, distill: dict,
+                    presets: dict) -> list:
     """The kernels line: each kernel's ms, plain_ms, bound_ms and library_ms
     are summed over the ``launches`` it counts (one flagship sample for
     flash_fwd, the bf16 training main path's run for the other four; the
@@ -2787,7 +3325,8 @@ def _kernel_summary(fwd: dict, bwd: dict, gn: dict, sample_launches: dict,
     AE_TRAIN_SHAPE, the GroupNorm kernels' ``train_ae_*`` the sums over the
     bf16 stage-1 run's launches (``train_ae_fp32_*`` the fp32 run's).
     conv3d_igemm's launches are the A/B tool's run; its times are per call
-    at the tool's headline shape."""
+    at the tool's headline shape. ``presets_launches`` are each presets-phase
+    run's launches (the forward's wgmma row: its route's)."""
     def per(results, weights, key, by=None, dtype="bfloat16"):
         return sum(n * results[(shape, dtype)][key] for shape, n in weights.items()
                    if by is None or results[(shape, dtype)].get("bound_by", by) == by)
@@ -3014,13 +3553,14 @@ def _kernel_summary(fwd: dict, bwd: dict, gn: dict, sample_launches: dict,
         for run, r in distill["runs"].items():
             row[f"distill_{run}_launches"] = r["launches"][key]
             row[f"distill_{run}_launches_per_step"] = r["launches_per_step"][key]
+        row["presets_launches"] = {run: r[key] for run, r in presets.items()}
     return rows
 
 
 # phases that ``--phases`` runs alone, after device and build
 ALONE_PHASES = ("kernel", "kernel_bwd", "kernel_c2", "kernel_conv", "train_ae", "train_ae_fp32",
                 "stage1_card_vs_cpu", "sample_fused", "distill", "distill_card_vs_cpu",
-                "evaluate")
+                "evaluate", "presets")
 
 
 def main(argv=None) -> int:
@@ -3068,7 +3608,9 @@ def main(argv=None) -> int:
                        torch, ns, counts, Path(workdir), card, smi_line)["model_dir"]),
                    "distill_card_vs_cpu": lambda: phase_distill_card_vs_cpu(torch),
                    "evaluate": lambda: phase_evaluate(torch, ns, Path(workdir), card,
-                                                      smi_line)}
+                                                      smi_line),
+                   "presets": lambda: phase_kernel_gn(torch, phase_presets(
+                       torch, Path(workdir), card, smi_line)["gn_paths"])}
             for name in phases:
                 run[name]()
         emit({"phase": "done", "phases": phases})
@@ -3097,13 +3639,14 @@ def main(argv=None) -> int:
         distill = phase_distill(torch, ns, counts, Path(workdir), card, smi_line,
                                 stage2_per_step=train["launches_per_step"])
         phase_evaluate(torch, ns, Path(workdir), card, smi_line, model_dir=distill["model_dir"])
+        presets = phase_presets(torch, Path(workdir), card, smi_line)
     gn = phase_kernel_gn(torch, {"sampling": sample_gn, "training": train.pop("gn_cases"),
                                  **{f"distilling_{run}": r.pop("gn_cases")
                                     for run, r in distill["runs"].items()},
                                  "training_fp32": train_fp32.pop("gn_cases"),
                                  "training_ae": train_ae.pop("gn_cases"),
                                  "training_ae_fp32": train_ae_fp32.pop("gn_cases"),
-                                 "serving": serve.pop("gn_cases")})
+                                 "serving": serve.pop("gn_cases"), **presets["gn_paths"]})
     phase_gn_host(torch)
     conv = phase_kernel_conv(torch)
     phase_card_vs_cpu(torch)
@@ -3113,7 +3656,8 @@ def main(argv=None) -> int:
 
     emit({"phase": "done"})
     emit({"kernels": _kernel_summary(fwd, bwd, gn, sample_launches, train, train_fp32, serve,
-                                     conv, train_ae, train_ae_fp32, distill)})
+                                     conv, train_ae, train_ae_fp32, distill,
+                                     presets["launches"])})
     print(smi_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": card,
                                  "count": torch.cuda.device_count()}})

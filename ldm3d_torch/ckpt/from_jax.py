@@ -9,7 +9,11 @@ The leaf rules:
 * Dense ``kernel`` ``(in, out)`` -> ``weight`` ``(out, in)``;
 * GroupNorm ``scale`` -> ``weight``; every ``bias`` -> ``bias``
   (``Upsample3D``'s parameters sit at ``conv/{kernel,bias}`` in both trees);
-* LPIPS's per-stage channel weights ``lin_{i}`` keep their name.
+* LPIPS's per-stage channel weights ``lin_{i}`` keep their name;
+* the UNet's ``mid_stack`` (an ``nn.scan`` over ``MidBlock3D`` with
+  ``variable_axes={"params": 0}``) stores every leaf with a leading
+  ``mid_depth`` axis: layer i of ``mid_stack/res/conv1/kernel`` becomes
+  ``mid_stack.{i}.res.conv1.weight``.
 
 The tree's leaves are numpy arrays (``jax.device_get`` of the params). The
 bridge raises if a leaf has no parameter to go to, if a parameter is left
@@ -29,13 +33,20 @@ __all__ = ["state_dict_from_jax", "unet_state_dict_from_jax", "autoencoder_state
            "discriminator_state_dict_from_jax", "lpips_state_dict_from_jax"]
 
 _LIN = re.compile(r"lin_\d+")
+# subtrees whose leaves are stacked along a leading layer axis (nn.scan)
+_STACKED = ("mid_stack",)
 
 
 def _flatten(tree: Mapping[str, Any], prefix: tuple = ()) -> dict[tuple, np.ndarray]:
     out: dict[tuple, np.ndarray] = {}
     for k, v in tree.items():
         if isinstance(v, Mapping):
-            out.update(_flatten(v, prefix + (k,)))
+            if k in _STACKED:
+                for path, arr in _flatten(v).items():
+                    for i, layer in enumerate(arr):
+                        out[prefix + (k, str(i)) + path] = layer
+            else:
+                out.update(_flatten(v, prefix + (k,)))
         else:
             out[prefix + (k,)] = np.asarray(v)
     return out

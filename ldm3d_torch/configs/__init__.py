@@ -2,7 +2,13 @@
 
 import os
 
-from ldm3d_torch.configs.resolver import ConfigResolver, define_instance, load_json
+from ldm3d_torch.configs.registry import register
+from ldm3d_torch.configs.resolver import (
+    ConfigResolver,
+    define_instance,
+    load_json,
+    resolve_config,
+)
 
 PRESET_DIR = os.path.join(os.path.dirname(__file__), "presets")
 
@@ -16,6 +22,8 @@ __all__ = [
     "ConfigResolver",
     "define_instance",
     "load_json",
+    "resolve_config",
+    "register",
     "preset_path",
     "PRESET_DIR",
 ]

@@ -13,7 +13,14 @@ from __future__ import annotations
 
 from typing import Callable, Mapping
 
-__all__ = ["default_registry"]
+__all__ = ["default_registry", "register"]
+
+_EXTRA: dict[str, Callable] = {}
+
+
+def register(name: str, ctor: Callable) -> None:
+    """Register an additional ``_target_`` name (used by tests/extensions)."""
+    _EXTRA[name] = ctor
 
 
 def default_registry() -> Mapping[str, Callable]:
@@ -31,4 +38,5 @@ def default_registry() -> Mapping[str, Callable]:
         reg[f"{prefix}.AutoencoderKL"] = AutoencoderKL.from_config
         reg[f"{prefix}.DiffusionModelUNet"] = DiffusionUNet3D.from_config
     reg["monai.networks.nets.PatchDiscriminator"] = PatchDiscriminator3D.from_config
+    reg.update(_EXTRA)
     return reg

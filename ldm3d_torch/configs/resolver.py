@@ -23,7 +23,7 @@ import json
 import re
 from typing import Any, Callable, Mapping
 
-__all__ = ["ConfigResolver", "define_instance", "load_json"]
+__all__ = ["ConfigResolver", "resolve_config", "define_instance", "load_json"]
 
 _REF_RE = re.compile(r"@([A-Za-z_][A-Za-z0-9_]*(?:::[A-Za-z0-9_]+)*)")
 
@@ -141,6 +141,12 @@ class ConfigResolver:
         if disabled:
             return None
         return self._registry[target](**kwargs)
+
+
+def resolve_config(config: Mapping[str, Any]) -> dict[str, Any]:
+    """Fully resolve every top-level key of ``config``."""
+    r = ConfigResolver(config)
+    return {k: r.resolve(k) for k in config}
 
 
 def define_instance(args: Any, instance_def_key: str) -> Any:

@@ -9,6 +9,13 @@ caller's: it passes ``in_channels = latent + condition`` inputs.
 ``forward`` takes and returns NDHWC; see :mod:`ldm3d_torch.nn.blocks` for the
 layout inside. Submodules carry the Flax names (``down_{l}_res_{b}``,
 ``up_{l}_attn_{b}``, ``mid_attn``, ...).
+
+``mid_depth`` adds the JAX package's uniform stack of (ResBlock, Attention)
+pairs, :class:`MidBlock3D`, at the bottleneck between ``mid_attn`` and
+``mid_res_2``: ``mid_stack.{i}`` for i < ``mid_depth``, run in order.
+``mid_depth=0`` (the default) is the reference architecture. The
+bottleneck is split into ``mid_entry`` / ``mid_stack_apply`` / ``mid_exit``
+as in JAX, where pipeline parallelism cuts the model.
 """
 
 from __future__ import annotations
@@ -30,11 +37,25 @@ from ldm3d_torch.nn.blocks import (
     to_channels_last,
 )
 
-__all__ = ["DiffusionUNet3D"]
+__all__ = ["DiffusionUNet3D", "MidBlock3D"]
 
 
 def _per_level(value, levels: int) -> tuple:
     return (value,) * levels if isinstance(value, int) else tuple(value)
+
+
+class MidBlock3D(nn.Module):
+    """One uniform bottleneck layer: a time-conditioned ResBlock ``res``, then
+    an attention block ``attn``, both at ``channels`` in and out."""
+
+    def __init__(self, channels: int, time_dim: int, num_head_channels: int = 0,
+                 num_groups: int = 32, norm_eps: float = 1e-6):
+        super().__init__()
+        self.res = TimeResBlock3D(channels, channels, time_dim, num_groups, norm_eps)
+        self.attn = AttentionBlock3D(channels, num_head_channels, num_groups, norm_eps)
+
+    def forward(self, h: torch.Tensor, temb: torch.Tensor) -> torch.Tensor:
+        return self.attn(self.res(h, temb))
 
 
 class DiffusionUNet3D(nn.Module):
@@ -49,9 +70,11 @@ class DiffusionUNet3D(nn.Module):
         norm_num_groups: int = 32,
         norm_eps: float = 1e-6,
         compute_dtype: torch.dtype = torch.float32,
+        mid_depth: int = 0,
     ):
         super().__init__()
         self.in_channels, self.out_channels = in_channels, out_channels
+        self.mid_depth = mid_depth
         self.channels = tuple(channels)
         self.compute_dtype = compute_dtype
         levels = len(self.channels)
@@ -84,6 +107,9 @@ class DiffusionUNet3D(nn.Module):
 
         self.mid_res_1 = TimeResBlock3D(ch, self.channels[-1], time_dim, g, eps)
         self.mid_attn = AttentionBlock3D(self.channels[-1], num_head_channels[-1], g, eps)
+        self.mid_stack = nn.ModuleList(
+            MidBlock3D(self.channels[-1], time_dim, num_head_channels[-1], g, eps)
+            for _ in range(mid_depth))
         self.mid_res_2 = TimeResBlock3D(self.channels[-1], self.channels[-1], time_dim, g, eps)
 
         for idx, level in enumerate(reversed(range(levels))):
@@ -111,10 +137,6 @@ class DiffusionUNet3D(nn.Module):
         (``config_train_32g.json:40-49``); unknown keys are ignored."""
         if kw.pop("spatial_dims", 3) != 3:
             raise ValueError("ldm3d_torch targets spatial_dims=3")
-        if kw.pop("mid_depth", 0) > 0:
-            raise NotImplementedError(
-                "mid_depth > 0 (the uniform bottleneck stack) is not ported yet: "
-                "ROADMAP.md queue A, 'UNet mid_depth stack'")
         channels = tuple(kw.pop("channels", (256, 512, 1024)))
         levels = len(channels)
         dtype = kw.pop("dtype", torch.float32)
@@ -128,7 +150,20 @@ class DiffusionUNet3D(nn.Module):
             norm_num_groups=kw.pop("norm_num_groups", 32),
             norm_eps=kw.pop("norm_eps", 1e-6),
             compute_dtype=getattr(torch, dtype) if isinstance(dtype, str) else dtype,
+            mid_depth=kw.pop("mid_depth", 0),
         )
+
+    def mid_entry(self, h: torch.Tensor, temb: torch.Tensor) -> torch.Tensor:
+        return self.mid_attn(self.mid_res_1(h, temb))
+
+    def mid_stack_apply(self, h: torch.Tensor, temb: torch.Tensor) -> torch.Tensor:
+        """The uniform bottleneck stack, in order (``h`` unchanged at depth 0)."""
+        for block in self.mid_stack:
+            h = block(h, temb)
+        return h
+
+    def mid_exit(self, h: torch.Tensor, temb: torch.Tensor) -> torch.Tensor:
+        return self.mid_res_2(h, temb)
 
     def forward(self, x: torch.Tensor, timesteps: torch.Tensor) -> torch.Tensor:
         """Predict eps-hat for ``x`` ``(B, D, H, W, in_channels)`` at integer
@@ -141,7 +176,7 @@ class DiffusionUNet3D(nn.Module):
                 skips.append(h)
             else:
                 h = getattr(self, name)(h, temb) if kind == "res" else getattr(self, name)(h)
-        h = self.mid_res_2(self.mid_attn(self.mid_res_1(h, temb)), temb)
+        h = self.mid_exit(self.mid_stack_apply(self.mid_entry(h, temb), temb), temb)
         for kind, name in self._up:
             if kind == "skip":
                 h = torch.cat([h, skips.pop()], dim=1)

@@ -58,6 +58,8 @@ def test_port_imports_without_nvcc_gpu_or_triton(tmp_path):
         "import ldm3d_torch.serving.health_check\n"
         "import ldm3d_torch.cli.distill, ldm3d_torch.cli.evaluate, ldm3d_torch.evaluation\n"
         "import ldm3d_torch.training.distill\n"
+        "import ldm3d_torch.configs.schema, ldm3d_torch.ckpt.import_torch\n"
+        "import ldm3d_torch.cli.import_checkpoint, ldm3d_torch.cli.export_checkpoint\n"
         "import ldm3d_torch.ops._kernels as k\n"
         "bad = [m for m in ('jax', 'flax', 'triton', 'ldm3d_tpu', 'psutil', 'fastapi')\n"
         "       if m in sys.modules]\n"

@@ -76,9 +76,16 @@ def micro():
 
 
 def test_port_presets_are_the_jax_presets():
-    for name in ("config_train_32g.json", "config_tiny_cpu.json", "config_micro_cpu.json",
-                 "environment.json"):
-        assert load_json(port_preset_path(name)) == load_json(preset_path(name))
+    """All eight of the JAX package's preset files, byte for byte."""
+    import os
+
+    from ldm3d_tpu.configs import PRESET_DIR
+
+    names = sorted(os.listdir(PRESET_DIR))
+    assert len(names) == 8 and sorted(os.listdir(os.path.dirname(port_preset_path("x")))) == names
+    for name in names:
+        with open(port_preset_path(name), "rb") as a, open(preset_path(name), "rb") as b:
+            assert a.read() == b.read(), name
 
 
 @pytest.mark.parametrize("preset", ["config_micro_cpu.json", "config_tiny_cpu.json"])
@@ -149,13 +156,6 @@ def test_ddim_rejects_what_is_not_ported():
             cls.create(timestep_spacing="karras")
         with pytest.raises(ValueError, match="trailing"):
             cls.create(num_train_timesteps=16, num_inference_steps=5, timestep_spacing="trailing")
-
-
-def test_unet_mid_depth_names_the_roadmap_item():
-    from ldm3d_torch.nn import DiffusionUNet3D
-
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DiffusionUNet3D.from_config(channels=[8, 16], mid_depth=2)
 
 
 def test_bridge_consumes_every_leaf_and_fills_every_parameter(micro):
