@@ -6,8 +6,8 @@ CUDA device, ``nvcc`` and the port's sources; it exits non-zero, without a
 result line, when any of them is missing or any phase fails. ``--phases
 kernel,kernel_conv`` (any of kernel, kernel_bwd, kernel_c2, kernel_conv,
 train_ae, train_ae_fp32, stage1_card_vs_cpu, sample_fused, distill,
-distill_card_vs_cpu, evaluate, presets) runs only those phases after device
-and build, and prints no result line.
+distill_card_vs_cpu, evaluate, presets, follow_ups) runs only those phases
+after device and build, and prints no result line.
 Phases, each printing JSON lines:
 
 1. device: the card's name and power limit (``nvidia-smi``);
@@ -183,6 +183,35 @@ Phases, each printing JSON lines:
    bits, timed at batch 20), and kernel_gn their GroupNorm inputs (batch 12, 2.84 M voxels,
    16 groups).
 
+15. follow_ups: the trainers' follow-ups at the full width of
+   ``config_train_32g.json``. Remat: one bf16 stage-2 step (conditional,
+   batch 20, 80^3) and one adversarial bf16 stage-1 step (batch 1, 64^3,
+   LPIPS) with remat unset, ``full`` and ``convs``, from the same weights
+   and draws (after one warm-up step), with cuDNN's deterministic
+   algorithms: every optimizer's gradients and the step's metrics within
+   2^-7 of the unremated step's (relative to each tensor's largest |g|;
+   a second unremated step gives the spread); the launches by kernel and
+   route exactly the unremated step's plus the forward launches of the
+   GroupNorms and attention blocks inside the wrapped blocks
+   (``_remat_recompute``, from the models' structure); then, with cuDNN as
+   the run set it, ms a step (median of 3 after a warm-up, the modes in
+   turns) and peak memory. The same for ``config_train_pp.json``'s stage-2
+   step with remat unset and ``full`` (its ``mid_stack`` blocks hold
+   attention, so B1/B2 rerun in the backward). Accumulation: fp32, TF32
+   off, the mean gradient that ``--grad-accum 2`` hands to clip and Adam
+   over the halves of a batch of 20 (the batch-20 draws split) within
+   ACCUM_TOL (5e-5) of the batch-20 step's largest |g|, two planted faults
+   above it, one update emitted on the second micro-step only. Profile:
+   ``cli.train_autoencoder`` at one ResBlock a level for 5 bf16 steps with
+   ``--profile --remat convs --grad-accum 2 --track --debug-nans``: one
+   Chrome trace naming ``gn_sums_onepass``, one tracked run. Preemption:
+   ``cli.train_diffusion`` in a subprocess (config_train_stable's models at
+   batch 2, ``--remat full --grad-accum 2``) gets SIGTERM after its first
+   step: exit 75, ``last`` with meta epoch -1 and ``preempted``, the
+   accumulation state in it; a resumed run (``--track --debug-nans
+   --profile``) replays epoch 0.
+   ``device_prefetch`` on the card.
+
 The GroupNorm kernel phase (7) runs after the serving and presets paths,
 and replays the inputs of every main-path run (the discriminator's instance
 norms, g = C, among them).
@@ -213,6 +242,7 @@ import functools
 import gc
 import json
 import math
+import os
 import shutil
 import statistics
 import subprocess
@@ -3309,10 +3339,688 @@ def phase_presets(torch, workdir: Path, card: str, smi_line: str) -> dict:
     return {"gn_paths": gn_paths, "launches": launches}
 
 
+# --- phase 15: the trainers' follow-ups (remat, accumulation, profile, preemption) ---
+
+REMAT_MODES = (None, "full", "convs")
+# the one preset whose remat-wrapped UNet blocks hold attention (mid_stack):
+# its stage-2 step with remat unset and ``full``
+REMAT_ATTN_PRESET = "config_train_pp.json"
+# the accumulated mean gradient against the batch-20 step's, relative to its
+# largest |g|: sound fp32 readings 1.119e-5 to 1.877e-5 on one H100 (the
+# batch-20 gradient's own fp32 sums at another batch size), planted faults
+# (one micro-batch's gradient alone, the two summed unscaled) far above
+ACCUM_TOL = 5e-5
+# the stage-2 preemption run: config_train_stable's models at batch 2, so
+# that an epoch of PREEMPT_PAIRS synthetic pairs has PREEMPT_STEPS steps
+PREEMPT_PRESET = "config_train_stable.json"
+PREEMPT_BATCH = 2
+PREEMPT_PAIRS = 10
+PREEMPT_STEPS = 4
+# runs cli.train_diffusion in a subprocess and prints a marker after each
+# training step, for the parent to send SIGTERM after the first
+PREEMPT_RUNNER = r"""
+import sys
+sys.path.insert(0, sys.argv[1])
+import ldm3d_torch.cli.train_diffusion as td
+make = td.make_stage2_train_step
+def marked(*a, **k):
+    step = make(*a, **k)
+    def run(*args, **kwargs):
+        out = step(*args, **kwargs)
+        print("STEP_DONE", flush=True)
+        return out
+    return run
+td.make_stage2_train_step = marked
+td.main(sys.argv[2:])
+"""
+
+
+class _ClipInputs:
+    """Records what each ``ClippedAdam`` hands to its clip (a step's
+    gradients; under accumulation their running mean), copied to the host
+    so that the copies take no device memory."""
+
+    def __enter__(self):
+        import torch
+
+        import ldm3d_torch.training.state as S
+
+        self.module, self.real, self.seen = S, S.clip_by_global_norm_, []
+
+        def recording(tensors, max_norm, norm=None):
+            self.seen.append([t.detach().to("cpu", torch.float32, copy=True) for t in tensors])
+            return self.real(tensors, max_norm, norm)
+
+        S.clip_by_global_norm_ = recording
+        return self.seen
+
+    def __exit__(self, *exc):
+        self.module.clip_by_global_norm_ = self.real
+
+
+class _MicroGrads:
+    """Records the gradients each accumulating ``ClippedAdam`` micro-step
+    hands in (its ``global_norm`` of them), copied to the host."""
+
+    def __enter__(self):
+        import torch
+
+        import ldm3d_torch.training.state as S
+
+        self.module, self.real, self.seen = S, S.global_norm, []
+
+        def recording(tensors):
+            tensors = list(tensors)
+            if len(self.seen) < 2:
+                self.seen.append([t.detach().to("cpu", torch.float32, copy=True)
+                                  for t in tensors])
+            return self.real(tensors)
+
+        S.global_norm = recording
+        return self.seen
+
+    def __exit__(self, *exc):
+        self.module.global_norm = self.real
+
+
+def _grad_err(got: list, want: list) -> float:
+    """The largest over tensors of max |got - want| / max |want|."""
+    return max((e for e, _ in _grad_errs(got, want)), default=0.0)
+
+
+def _grad_errs(got: list, want: list) -> list:
+    """(max |got - want| / max |want|, index) of each tensor."""
+    out = []
+    for i, (g, w) in enumerate(zip(got, want, strict=True)):
+        scale = float(w.abs().max())
+        if scale > 0:
+            out.append((float((g - w).abs().max()) / scale, i))
+    return out
+
+
+def _seed_conv_out(torch, unet, gen) -> None:
+    """Seeded non-zero weights in the UNet's zero-init output conv, so that
+    every layer's gradient is non-zero and the gradient checks hold them."""
+    with torch.no_grad():
+        unet.conv_out.weight.normal_(0.0, 0.05, generator=gen)
+
+
+def _remat_recompute(torch, ns) -> dict:
+    """GroupNorms and attention blocks (by head width) inside the blocks a
+    remat mode wraps, per model part, from models built on the meta device:
+    the forward launches a remated backward adds, once per step."""
+    from ldm3d_torch.configs import define_instance
+    from ldm3d_torch.nn.blocks import AttentionBlock3D, GroupNorm32
+
+    with torch.device("meta"):
+        ae = define_instance(ns, "autoencoder_def")
+        unet = define_instance(ns, "diffusion_def")
+    wrapped = {"unet": [getattr(unet, n) for kind, n in unet._down + unet._up if kind == "res"]
+               + list(unet.mid_stack)}
+    for part in ("encoder", "decoder"):
+        stack = getattr(ae, part)
+        wrapped[part] = [getattr(stack, n) for n, remat in stack._order if remat]
+    out = {}
+    for part, blocks in wrapped.items():
+        gn, attn = 0, {}
+        for m in (m for b in blocks for m in b.modules()):
+            gn += isinstance(m, GroupNorm32)
+            if isinstance(m, AttentionBlock3D):
+                d = m.proj.weight.shape[0] // m.heads
+                attn[d] = attn.get(d, 0) + 1
+        out[part] = {"blocks": len(blocks), "gn": gn, "attn": attn}
+    return out
+
+
+def _add_routes(*dicts) -> dict:
+    out: dict = {}
+    for d in dicts:
+        for k, v in d.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+class _Deterministic:
+    """cuDNN's deterministic algorithms inside the block (and its chosen
+    flags back after): the gradient checks compare remat with no remat, not
+    two runs of nondeterministic convolution backwards."""
+
+    def __init__(self, torch):
+        self.cudnn = torch.backends.cudnn
+
+    def __enter__(self):
+        self.before = self.cudnn.deterministic, self.cudnn.benchmark
+        self.cudnn.deterministic, self.cudnn.benchmark = True, False
+
+    def __exit__(self, *exc):
+        self.cudnn.deterministic, self.cudnn.benchmark = self.before
+
+
+def _recorded_step(torch, step, init: dict, model, mode, make_states) -> dict:
+    """One step of ``step`` under remat ``mode`` from the weights ``init``:
+    the launches by kernel and route, the step's metrics and the gradients
+    each optimizer was handed."""
+    model.load_state_dict(init)
+    model.remat = mode
+    states = make_states()
+    torch.cuda.synchronize()
+    _reset_counts()
+    with _ClipInputs() as grads:
+        metrics = step(*states)
+        torch.cuda.synchronize()
+    return {"metrics": {k: float(v) for k, v in metrics.items()}, "routes": _route_counts(),
+            "launches": _read_counts(), "grads": grads}
+
+
+def _remat_timed_steps(torch, step, init: dict, model, make_states, modes: tuple,
+                       steps: int = 3) -> dict:
+    """Each remat mode's ms a step (host clock to a device sync; the median
+    of ``steps`` steps after one warm-up step each) and peak device memory
+    over those steps, on one optimizer state from the weights ``init``."""
+    model.load_state_dict(init)
+    states = make_states()  # one optimizer state for every mode's steps
+    times = {mode: [] for mode in modes}
+    out = {}
+    for mode in modes:  # one warm-up step each
+        model.remat = mode
+        step(*states)
+    for mode in modes:
+        model.remat = mode
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(*states)
+            torch.cuda.synchronize()
+            times[mode].append((time.perf_counter() - t0) * 1e3)
+        out[str(mode)] = {"ms": statistics.median(times[mode]), "step_ms": times[mode],
+                          "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    return out
+
+
+def _remat_runs(torch, name: str, step, model, make_states, expected, tol: float,
+                names: list, modes: tuple = REMAT_MODES) -> dict:
+    """The unremated step (after one warm-up) and each remat mode of ``modes``'s, all
+    from the same weights and draws, with cuDNN's deterministic algorithms:
+    every optimizer's gradients and the step's metrics within ``tol`` of the
+    unremated step's (relative to each tensor's largest |g|), and the
+    launches by kernel and route exactly ``expected(mode)``. A second
+    unremated step gives the run-to-run spread. Then each mode's ms a step
+    and peak memory with the flags as the run set them
+    (:func:`_remat_timed_steps`). ``names``: each optimizer's parameter names."""
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    model.remat = None
+    step(*make_states())  # warm-up: kernel plans, cuDNN's choices
+    with _Deterministic(torch):
+        runs = {str(m): _recorded_step(torch, step, init, model, m, make_states)
+                for m in modes}
+        again = _recorded_step(torch, step, init, model, None, make_states)
+    ref = runs["None"]
+
+    def compare(r: dict) -> dict:
+        errs = sorted(((e, f"{k}:{names[k][i]}") for k, (g, w) in enumerate(
+            zip(r["grads"], ref["grads"], strict=True)) for e, i in _grad_errs(g, w)),
+            reverse=True)
+        metric_errs = {k: abs(r["metrics"][k] - v) / max(abs(v), 1e-30)
+                       for k, v in ref["metrics"].items()}
+        return {"max_grad_err_rel": errs[0][0] if errs else 0.0, "worst_grads": errs[:5],
+                "metric_errs": metric_errs, "tol": tol, "metrics": r["metrics"],
+                "routes": r["routes"], "launches": r["launches"]}
+
+    out = {mode: compare(r) for mode, r in runs.items()}
+    out["spread"] = compare(again)
+    for mode in modes:
+        rec = out[str(mode)]
+        metric_err = max(v for k, v in rec["metric_errs"].items() if "grad_norm" not in k)
+        check(rec["max_grad_err_rel"] <= tol and metric_err <= tol,
+              f"{name} remat {mode}: gradients {rec['max_grad_err_rel']:.3e} of the unremated "
+              f"step's (worst {rec['worst_grads']}), metrics {rec['metric_errs']}, over "
+              f"{tol:.3e}; two unremated runs: {out['spread']['max_grad_err_rel']:.3e}")
+        routes, gn = expected(mode)
+        check(rec["routes"] == routes, f"{name} remat {mode}: attention launches by route "
+                                       f"{rec['routes']}, expected {routes}")
+        for kernel, n in gn.items():
+            check(rec["launches"][kernel] == n, f"{name} remat {mode}: {kernel} launched "
+                                                f"{rec['launches'][kernel]} times, expected {n}")
+        check(rec["launches"]["conv3d_igemm"] == 0, f"{name} remat {mode}: a conv kernel ran")
+    for mode, timed in _remat_timed_steps(torch, step, init, model, make_states,
+                                          modes).items():
+        out[mode].update(timed)
+    model.load_state_dict(init)
+    model.remat = False
+    return out
+
+
+def _follow_stage2_remat(torch, ns, counts, rec, widths, config: str = "config_train_32g.json",
+                         modes: tuple = REMAT_MODES) -> dict:
+    """bf16 stage-2 steps of ``config``'s full-width models at its batch and
+    patch (``make_stage2_train_step``, conditional) under each remat mode of
+    ``modes``."""
+    from ldm3d_torch.configs import define_instance
+    from ldm3d_torch.diffusion import DDPMScheduler
+    from ldm3d_torch.nn import init_weights_
+    from ldm3d_torch.training import (Stage2Config, TrainState, draw_stage2,
+                                      make_diffusion_optimizer, make_stage2_train_step)
+    from ldm3d_torch.utils import TrainContext
+
+    dt = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    with torch.device("cuda"):
+        ae = init_weights_(define_instance(ns, "autoencoder_def"), gen).eval()
+        unet = init_weights_(define_instance(ns, "diffusion_def"), gen)
+    _seed_conv_out(torch, unet, gen)
+    ae.requires_grad_(False)
+    ae.compute_dtype = unet.compute_dtype = dt
+    cfg = Stage2Config()
+    scheduler = DDPMScheduler.create(**TrainContext(ns).scheduler_config())
+    b, patch = ns.diffusion_train["batch_size"], ns.diffusion_train["patch_size"]
+    batch = {k: torch.rand((b, *patch, ns.image_channels), generator=gen, device="cuda")
+             for k in ("image", "label")}
+    f = ae.downsample_factor
+    draws = draw_stage2(gen, (b, *[p // f for p in patch], ae.latent_channels),
+                        scheduler.num_train_timesteps, cfg, "cuda")
+    step = make_stage2_train_step(unet, ae, scheduler, cfg)
+    lr = ns.diffusion_train["lr"]
+
+    def make_states():
+        return (TrainState(unet, make_diffusion_optimizer(unet.parameters(), lambda c: lr)),)
+
+    def run(state):
+        return step(state, batch, PRESET_SCALE, draws=draws)
+
+    def expected(mode):
+        routes = _expected_routes(torch, widths, {"encoder": 2, "unet": 1}, {"unet": 1})
+        gn = {"gn_sums": 2 * counts["encoder"]["gn"] + counts["unet"]["gn"],
+              "gn_bwd_sums": counts["unet"]["gn"]}
+        if mode:
+            routes = _add_routes(routes, _expected_routes(
+                torch, {"unet": rec["unet"]["attn"]}, {"unet": 1}))
+            gn["gn_sums"] += rec["unet"]["gn"]
+        return routes, gn
+
+    names = [[n for n, p in unet.named_parameters() if p.requires_grad]]
+    out = _remat_runs(torch, f"stage-2 bf16 {config}", run, unet, make_states, expected,
+                      2.0 ** -7, names, modes)
+    del ae, unet, batch, draws
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"path": f"training.make_stage2_train_step (conditional), {config}, bf16",
+            "batch": b, "patch": patch,
+            "recomputed_per_step": rec["unet"], "modes": out}
+
+
+def _follow_stage1_remat(torch, ns, counts, rec, widths) -> dict:
+    """One adversarial bf16 stage-1 step of the full-width 32g VAE against
+    the CLI's discriminator and LPIPS, at batch 1 on a 64^3 patch, with
+    remat unset, ``full`` and ``convs``; G's and D's gradients held."""
+    from ldm3d_torch.cli.train_autoencoder import build_discriminator, build_lpips
+    from ldm3d_torch.configs import define_instance
+    from ldm3d_torch.nn import init_weights_
+    from ldm3d_torch.training import (Stage1Config, TrainState, draw_stage1, make_optimizer,
+                                      make_stage1_train_step)
+
+    dt = torch.bfloat16
+    tc = ns.autoencoder_train
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    with torch.device("cuda"):
+        ae = init_weights_(define_instance(ns, "autoencoder_def"), gen)
+        disc = init_weights_(build_discriminator(ns), gen)
+    ae.compute_dtype = disc.compute_dtype = dt
+    lpips = build_lpips(SimpleNamespace(lpips_weights=""), dt, torch.device("cuda"))
+    cfg = Stage1Config(kl_weight=tc["kl_weight"], perceptual_weight=tc["perceptual_weight"])
+    images = torch.rand((tc["batch_size"], *tc["patch_size"], ns.image_channels),
+                        generator=gen, device="cuda")
+    f = ae.downsample_factor
+    draws = draw_stage1(gen, (tc["batch_size"], *[p // f for p in tc["patch_size"]],
+                              ae.latent_channels), images.shape, cfg, "cuda")
+    d_init = {k: v.detach().clone() for k, v in disc.state_dict().items()}
+    step = make_stage1_train_step(ae, disc, lpips, cfg)
+
+    def make_states():
+        disc.load_state_dict(d_init)
+        return (TrainState(ae, make_optimizer(ae.parameters(), lambda c: tc["lr"])),
+                TrainState(disc, make_optimizer(disc.parameters(), lambda c: tc["lr"])))
+
+    def run(g_state, d_state):
+        return step(g_state, d_state, images, True, draws=draws)
+
+    vae_gn = counts["encoder"]["gn"] + counts["decoder"]["gn"]
+    d_gn = counts["discriminator"]["gn"]
+
+    def expected(mode):
+        parts = {"encoder": 1, "decoder": 1}
+        routes = _expected_routes(torch, widths, parts, parts)
+        gn = {"gn_sums": vae_gn + 3 * d_gn, "gn_bwd_sums": vae_gn + 3 * d_gn}
+        if mode:
+            routes = _add_routes(routes, *(_expected_routes(
+                torch, {p: rec[p]["attn"]}, {p: 1}) for p in parts))
+            gn["gn_sums"] += rec["encoder"]["gn"] + rec["decoder"]["gn"]
+        return routes, gn
+
+    names = [[n for n, p in m.named_parameters() if p.requires_grad] for m in (ae, disc)]
+    out = _remat_runs(torch, "stage-1 bf16", run, ae, make_states, expected, 2.0 ** -7,
+                      names)
+    del ae, disc, lpips, images
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"path": "training.make_stage1_train_step (adversarial, LPIPS), "
+                    "config_train_32g.json, bf16", "batch": tc["batch_size"],
+            "patch": tc["patch_size"],
+            "recomputed_per_step": {p: rec[p] for p in ("encoder", "decoder")}, "modes": out}
+
+
+def _follow_accumulation(torch, ns) -> dict:
+    """fp32 (TF32 off, cuDNN's deterministic algorithms) stage-2 step of the
+    full-width 32g models: the mean gradient ``--grad-accum 2`` hands to
+    clip and Adam over the two halves of a batch of 20 (the batch-20 draws
+    split in halves) against the gradient of one step on the whole batch,
+    within ``ACCUM_TOL`` of that gradient's largest |g| (over every tensor);
+    each tensor's own worst share is reported beside it. Two planted faults
+    computed from the same micro-batch gradients (one half's gradient
+    alone, as if the same half ran twice; the two summed without the 1/k)
+    must read above ``ACCUM_TOL``, so that the check can fail."""
+    from ldm3d_torch.cli.common import tf32_flags
+    from ldm3d_torch.configs import define_instance
+    from ldm3d_torch.diffusion import DDPMScheduler
+    from ldm3d_torch.nn import init_weights_
+    from ldm3d_torch.training import (Stage2Config, Stage2Draws, TrainState, draw_stage2,
+                                      make_diffusion_optimizer, make_stage2_train_step)
+    from ldm3d_torch.utils import TrainContext
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    with torch.device("cuda"):
+        ae = init_weights_(define_instance(ns, "autoencoder_def"), gen).eval()
+        unet = init_weights_(define_instance(ns, "diffusion_def"), gen)
+    _seed_conv_out(torch, unet, gen)
+    ae.requires_grad_(False)
+    cfg = Stage2Config()
+    scheduler = DDPMScheduler.create(**TrainContext(ns).scheduler_config())
+    b, patch = ns.diffusion_train["batch_size"], ns.diffusion_train["patch_size"]
+    half = b // 2
+    batch = {k: torch.rand((b, *patch, ns.image_channels), generator=gen, device="cuda")
+             for k in ("image", "label")}
+    f = ae.downsample_factor
+    draws = draw_stage2(gen, (b, *[p // f for p in patch], ae.latent_channels),
+                        scheduler.num_train_timesteps, cfg, "cuda")
+
+    def halves(i):
+        sl = slice(i * half, (i + 1) * half)
+        return ({k: v[sl] for k, v in batch.items()},
+                Stage2Draws(*(None if t is None else t[sl] for t in (
+                    draws.eps_label, draws.eps_image, draws.noise, draws.timesteps,
+                    draws.keep))))
+
+    step = make_stage2_train_step(unet, ae, scheduler, cfg)
+    init = {k: v.detach().clone() for k, v in unet.state_dict().items()}
+    lr = ns.diffusion_train["lr"]
+    times = {}
+    with tf32_flags(False), _Deterministic(torch):
+        state = TrainState(unet, make_diffusion_optimizer(unet.parameters(), lambda c: lr))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with _ClipInputs() as whole:
+            step(state, batch, PRESET_SCALE, draws=draws)
+            torch.cuda.synchronize()
+        times["batch_step_ms"] = (time.perf_counter() - t0) * 1e3
+        unet.load_state_dict(init)
+        opt = make_diffusion_optimizer(unet.parameters(), lambda c: lr, grad_accum=2)
+        state = TrainState(unet, opt, ema_decay=0.999, ema_every=2)
+        norms = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with _ClipInputs() as mean, _MicroGrads() as micro:
+            for i in range(2):
+                hb, hd = halves(i)
+                norms.append(float(step(state, hb, PRESET_SCALE, draws=hd)["grad_norm"]))
+                if i == 0:
+                    check(not opt.adam.state and opt.mini_step == 1 and not mean,
+                          "--grad-accum 2 updated or clipped on its first micro-step")
+            torch.cuda.synchronize()
+        times["two_micro_steps_ms"] = (time.perf_counter() - t0) * 1e3
+    check(len(whole) == 1 and len(mean) == 1 and opt.mini_step == 0 and state.step == 2
+          and all(int(s["step"]) == 1 for s in opt.adam.state.values()),
+          "--grad-accum 2 did not emit exactly one update on its second micro-step")
+    names = [n for n, p in unet.named_parameters() if p.requires_grad]
+    largest = max(float(w.abs().max()) for w in whole[0])
+
+    def err_to(got, ref) -> float:
+        return max(float((g.double() - w.double()).abs().max())
+                   for g, w in zip(got, ref, strict=True)) / largest
+
+    check(len(micro) == 2, f"{len(micro)} micro-step gradients recorded, not 2")
+    # the exact (fp64) mean of the two micro-batches' own gradients
+    exact = [(a.double() + b.double()) / 2 for a, b in zip(micro[0], micro[1], strict=True)]
+    err = err_to(mean[0], whole[0])
+    accum_err = err_to(mean[0], exact)
+    spread = err_to(whole[0], exact)
+    faults = {"one_half_alone": err_to(micro[0], whole[0]),
+              "summed_unscaled": err_to([a.double() + b.double() for a, b in
+                                         zip(micro[0], micro[1])], whole[0])}
+    per_tensor = sorted(((e, names[i]) for e, i in _grad_errs(mean[0], whole[0])),
+                        reverse=True)[:5]
+    # the accumulator's own arithmetic: 1e-6 of the largest |g|
+    check(accum_err <= 1e-6,
+          f"--grad-accum 2 mean gradient {accum_err:.3e} of the largest |g| from the exact mean "
+          "of its micro-batches' gradients, over 1e-6")
+    check(err <= ACCUM_TOL,
+          f"--grad-accum 2 mean gradient {err:.3e} of the batch-20 gradient's largest |g|, over "
+          f"{ACCUM_TOL:.0e} (worst tensors, each to its own largest |g|: {per_tensor})")
+    check(min(faults.values()) > ACCUM_TOL,
+          f"a planted accumulation fault reads within {ACCUM_TOL:.0e}: {faults}")
+    unet.load_state_dict(init)
+    del ae, unet, batch, draws, state, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"path": "training.make_stage2_train_step (conditional), config_train_32g.json, "
+                    "fp32, TF32 off", "batch": b, "micro_batch": half, "grad_accum": 2,
+            "max_grad_err_rel": err, "accumulator_vs_exact_mean": accum_err,
+            "batch20_vs_exact_mean": spread, "largest_abs_grad": largest, "tol": ACCUM_TOL,
+            "within_1e-5": err <= 1e-5, "planted_faults": faults,
+            "worst_tensors_rel_to_own_largest": per_tensor, "micro_grad_norms": norms,
+            **times}
+
+
+def _follow_profile(torch, workdir: Path) -> dict:
+    """``cli.train_autoencoder`` over the 32g config at one ResBlock a level
+    (warmup_epochs -1) for 5 bf16 steps with ``--profile --remat convs
+    --grad-accum 2 --track --debug-nans``: the trace exists and names the
+    GroupNorm sums kernel, the run is tracked."""
+    from ldm3d_torch.cli.train_autoencoder import main as train_ae_main
+    from ldm3d_torch.configs import load_json, preset_path
+
+    run_dir = workdir / "follow_profile"
+    run_dir.mkdir()
+    cfg = load_json(preset_path("config_train_32g.json"))
+    cfg["autoencoder_def"]["num_res_blocks"] = 1
+    cfg["autoencoder_train"].update(warmup_epochs=-1, val_interval=1, max_epochs=1)
+    cfg_path = run_dir / "config.json"
+    cfg_path.write_text(json.dumps(cfg))
+    steps = 5
+    env = _write_env(run_dir, synthetic_num=_pairs_for_steps(1, steps),
+                     synthetic_shape=list(AE_PATCH), resume_ckpt=False)
+    timings: dict = {}
+    cwd = os.getcwd()
+    os.chdir(run_dir)
+    try:
+        t0 = time.perf_counter()
+        train_ae_main(["-c", str(cfg_path), "-e", str(env), "--amp", "--no-images",
+                       "--profile", "--remat", "convs", "--grad-accum", "2", "--track",
+                       "--experiment", "follow-ups", "--debug-nans"], timings=timings)
+        run_s = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+    check(len(timings["train_step_ms"]) == steps and all(timings["adv_active"]),
+          f"the profiled stage-1 run ran {timings['adv_active']} steps")
+    check(not torch.is_anomaly_enabled(), "--debug-nans stayed on after the CLI returned")
+    traces = sorted((run_dir / "profiler_logs").glob("*.json"))
+    check(len(traces) == 1, f"--profile wrote {len(traces)} traces")
+    trace = json.loads(traces[0].read_text())
+    kernels = sorted({e.get("name", "") for e in trace.get("traceEvents", [])
+                      if e.get("cat") == "kernel"})
+    gn_kernels = [k for k in kernels if "gn_sums_onepass" in k]
+    check(gn_kernels, f"the --profile trace names no gn_sums_onepass kernel: {kernels[:20]}")
+    tracked = list((run_dir / "mlruns_local" / "follow-ups").glob("*/meta.json"))
+    check(len(tracked) == 1 and json.loads(tracked[0].read_text())["status"] == "FINISHED",
+          "--track recorded no finished run")
+    out = {"steps": steps, "run_s": run_s, "train_step_ms": timings["train_step_ms"],
+           "trace_mb": traces[0].stat().st_size / 1e6, "trace_kernel_names": len(kernels),
+           "gn_kernels": gn_kernels, "tracked": True}
+    shutil.rmtree(run_dir)
+    return out
+
+
+def _run_marked(cmd: list, cwd: Path, signal_after_first_step: bool,
+                timeout_s: float = 420.0) -> tuple[int, str, int]:
+    """Run ``cmd``; with ``signal_after_first_step`` send SIGTERM at the
+    first step marker. Returns (exit code, output, markers seen)."""
+    import signal
+    import threading
+
+    proc = subprocess.Popen(cmd, cwd=cwd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    watchdog = threading.Timer(timeout_s, proc.kill)
+    watchdog.start()
+    lines, marks = [], 0
+    try:
+        for line in proc.stdout:
+            lines.append(line)
+            if line.strip() == "STEP_DONE":
+                marks += 1
+                if marks == 1 and signal_after_first_step:
+                    proc.send_signal(signal.SIGTERM)
+        rc = proc.wait()
+    finally:
+        watchdog.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    return rc, "".join(lines), marks
+
+
+def _follow_preemption(torch, workdir: Path) -> dict:
+    """A bf16 stage-2 CLI run in a subprocess (config_train_stable's models
+    at batch 2, ``--remat full --grad-accum 2``) gets SIGTERM after its
+    first step: exit 75, a resumable ``last`` with the JAX trainer's meta;
+    then a resumed run (``--track --debug-nans``, and ``--profile``, which
+    stage 2 accepts and ignores as JAX's does) replays epoch 0 and
+    finishes, writing no trace."""
+    from ldm3d_torch.ckpt import CheckpointManager
+    from ldm3d_torch.configs import define_instance, load_json, preset_path
+    from ldm3d_torch.nn import init_weights_
+
+    run_dir = workdir / "follow_preempt"
+    run_dir.mkdir()
+    cfg = load_json(preset_path(PREEMPT_PRESET))
+    cfg["diffusion_train"].update(batch_size=PREEMPT_BATCH, max_epochs=2, val_interval=1)
+    cfg_path = run_dir / "config.json"
+    cfg_path.write_text(json.dumps(cfg))
+    env = _write_env(run_dir, synthetic_num=PREEMPT_PAIRS,
+                     synthetic_shape=list(cfg["diffusion_train"]["patch_size"]),
+                     resume_ckpt=False)
+    with torch.device("cuda"):
+        ae = init_weights_(define_instance(SimpleNamespace(**cfg), "autoencoder_def"),
+                           torch.Generator(device="cuda").manual_seed(18))
+    CheckpointManager(str(run_dir), "autoencoder").save("best", {"state_dict": ae.state_dict()})
+    del ae
+    torch.cuda.empty_cache()
+    flags = ["-c", str(cfg_path), "-e", str(env), "--amp", "--no-images", "--remat", "full",
+             "--grad-accum", "2"]
+    t0 = time.perf_counter()
+    rc, log, marks = _run_marked([sys.executable, "-c", PREEMPT_RUNNER, str(ROOT), *flags],
+                                 run_dir, signal_after_first_step=True)
+    first_s = time.perf_counter() - t0
+    check(rc == 75, f"the SIGTERM'd stage-2 CLI exited {rc}, not 75: {log[-3000:]}")
+    mgr = CheckpointManager(str(run_dir), "diffusion")
+    meta = mgr.load_meta("last")
+    last = mgr.load("last", map_location="cpu")
+    stopped_after = int(last["step"])
+    check(set(meta) == {"epoch", "best_val", "scale_factor", "preempted"}
+          and meta["epoch"] == -1 and meta["preempted"] is True
+          and 1 <= stopped_after == marks < PREEMPT_STEPS,
+          f"preempted 'last': meta {meta}, {stopped_after} steps saved, {marks} steps run")
+    check(last["optimizer"]["accum"]["mini_step"] == stopped_after % 2,
+          "the preempted 'last' lost the accumulation state")
+    env_data = json.loads(Path(env).read_text())
+    env_data["resume_ckpt"] = True
+    Path(env).write_text(json.dumps(env_data))
+    t0 = time.perf_counter()
+    rc2, log2, marks2 = _run_marked([sys.executable, "-c", PREEMPT_RUNNER, str(ROOT), *flags,
+                                     "--max-epochs", "1", "--track", "--experiment",
+                                     "follow-ups", "--debug-nans", "--profile"], run_dir,
+                                    signal_after_first_step=False)
+    resume_s = time.perf_counter() - t0
+    check(rc2 == 0, f"the resumed stage-2 CLI exited {rc2}: {log2[-3000:]}")
+    meta2 = mgr.load_meta("last")
+    steps2 = int(mgr.load("last", map_location="cpu")["step"])
+    check(meta2["epoch"] == 0 and "preempted" not in meta2
+          and marks2 == PREEMPT_STEPS and steps2 == stopped_after + PREEMPT_STEPS,
+          f"the resumed run: meta {meta2}, {marks2} steps run, {steps2} saved")
+    check(len(list((run_dir / "mlruns_local" / "follow-ups").glob("*/meta.json"))) == 1,
+          "the resumed run was not tracked")
+    check(not (run_dir / "profiler_logs").exists(), "stage 2 wrote a --profile trace")
+    shutil.rmtree(run_dir)
+    return {"preset": PREEMPT_PRESET, "batch": PREEMPT_BATCH,
+            "steps_per_epoch": PREEMPT_STEPS, "stopped_after_steps": stopped_after,
+            "exit_code": rc, "preempted_meta": meta, "resumed_exit_code": rc2,
+            "resumed_steps": marks2, "first_run_s": first_s, "resumed_run_s": resume_s}
+
+
+def _follow_prefetch(torch) -> dict:
+    """``data.device_prefetch`` on the card: batches arrive in order, on the
+    device, equal to the host arrays."""
+    from ldm3d_torch.data import device_prefetch
+
+    host = [{"image": np.random.default_rng(i).random((2, 32, 32, 32, 1), np.float32)}
+            for i in range(6)]
+    got = list(device_prefetch(iter(host), size=2, device="cuda"))
+    check(len(got) == len(host) and all(
+        g["image"].is_cuda and np.array_equal(g["image"].cpu().numpy(), h["image"])
+        for g, h in zip(got, host)), "device_prefetch changed or reordered a batch")
+    return {"batches": len(got)}
+
+
+def phase_follow_ups(torch, ns, counts, workdir: Path, card: str, smi_line: str) -> dict:
+    """15. The trainers' follow-ups on the card (see the module docstring);
+    one line a part as it ends, then the phase's line."""
+    from ldm3d_torch.configs import load_json, preset_path
+
+    t0 = time.perf_counter()
+    rec, widths = _remat_recompute(torch, ns), _attn_routes(torch, ns)
+    pp = SimpleNamespace(**load_json(preset_path(REMAT_ATTN_PRESET)))
+    pp_rec = _remat_recompute(torch, pp)
+    check(sum(pp_rec["unet"]["attn"].values()) > 0,
+          f"{REMAT_ATTN_PRESET}'s remat-wrapped UNet blocks hold no attention")
+    parts = (("stage2_remat", lambda: _follow_stage2_remat(torch, ns, counts, rec, widths)),
+             ("stage2_pp_remat", lambda: _follow_stage2_remat(
+                 torch, pp, _module_counts(torch, pp), pp_rec, _attn_routes(torch, pp),
+                 REMAT_ATTN_PRESET, (None, "full"))),
+             ("stage1_remat", lambda: _follow_stage1_remat(torch, ns, counts, rec, widths)),
+             ("accumulation", lambda: _follow_accumulation(torch, ns)),
+             ("profile", lambda: _follow_profile(torch, workdir)),
+             ("preemption", lambda: _follow_preemption(torch, workdir)),
+             ("prefetch", lambda: _follow_prefetch(torch)))
+    out = {}
+    for part, run in parts:
+        t_part = time.perf_counter()
+        out[part] = run()
+        out[part]["seconds"] = time.perf_counter() - t_part
+        emit({"phase": f"follow_ups_{part}", "card": card, "nvidia_smi": smi_line,
+              **out[part]})
+    emit({"phase": "follow_ups", "card": card, "nvidia_smi": smi_line,
+          "seconds": time.perf_counter() - t0,
+          **{part: {k: v for k, v in r.items() if k in ("seconds", "max_grad_err_rel")}
+             for part, r in out.items()}})
+    per_step = {run: {mode: r["launches"] for mode, r in out[f"{run}_remat"]["modes"].items()
+                      if mode != "spread"}
+                for run in ("stage2", "stage2_pp", "stage1")}
+    return {"launches_per_step": per_step}
+
+
 def _kernel_summary(fwd: dict, bwd: dict, gn: dict, sample_launches: dict,
                     train: dict, train_fp32: dict, serve: dict, conv: dict,
                     train_ae: dict, train_ae_fp32: dict, distill: dict,
-                    presets: dict) -> list:
+                    presets: dict, follow_ups: dict) -> list:
     """The kernels line: each kernel's ms, plain_ms, bound_ms and library_ms
     are summed over the ``launches`` it counts (one flagship sample for
     flash_fwd, the bf16 training main path's run for the other four; the
@@ -3326,7 +4034,9 @@ def _kernel_summary(fwd: dict, bwd: dict, gn: dict, sample_launches: dict,
     bf16 stage-1 run's launches (``train_ae_fp32_*`` the fp32 run's).
     conv3d_igemm's launches are the A/B tool's run; its times are per call
     at the tool's headline shape. ``presets_launches`` are each presets-phase
-    run's launches (the forward's wgmma row: its route's)."""
+    run's launches (the forward's wgmma row: its route's);
+    ``remat_launches_per_step`` are the follow_ups phase's stage-2 (32g and
+    pp) and stage-1 steps' launches under each remat mode."""
     def per(results, weights, key, by=None, dtype="bfloat16"):
         return sum(n * results[(shape, dtype)][key] for shape, n in weights.items()
                    if by is None or results[(shape, dtype)].get("bound_by", by) == by)
@@ -3554,13 +4264,16 @@ def _kernel_summary(fwd: dict, bwd: dict, gn: dict, sample_launches: dict,
             row[f"distill_{run}_launches"] = r["launches"][key]
             row[f"distill_{run}_launches_per_step"] = r["launches_per_step"][key]
         row["presets_launches"] = {run: r[key] for run, r in presets.items()}
+        row["remat_launches_per_step"] = {
+            run: {mode: c[key] for mode, c in modes.items()}
+            for run, modes in follow_ups["launches_per_step"].items()}
     return rows
 
 
 # phases that ``--phases`` runs alone, after device and build
 ALONE_PHASES = ("kernel", "kernel_bwd", "kernel_c2", "kernel_conv", "train_ae", "train_ae_fp32",
                 "stage1_card_vs_cpu", "sample_fused", "distill", "distill_card_vs_cpu",
-                "evaluate", "presets")
+                "evaluate", "presets", "follow_ups")
 
 
 def main(argv=None) -> int:
@@ -3610,7 +4323,9 @@ def main(argv=None) -> int:
                    "evaluate": lambda: phase_evaluate(torch, ns, Path(workdir), card,
                                                       smi_line),
                    "presets": lambda: phase_kernel_gn(torch, phase_presets(
-                       torch, Path(workdir), card, smi_line)["gn_paths"])}
+                       torch, Path(workdir), card, smi_line)["gn_paths"]),
+                   "follow_ups": lambda: phase_follow_ups(torch, ns, counts, Path(workdir),
+                                                          card, smi_line)}
             for name in phases:
                 run[name]()
         emit({"phase": "done", "phases": phases})
@@ -3640,6 +4355,7 @@ def main(argv=None) -> int:
                                 stage2_per_step=train["launches_per_step"])
         phase_evaluate(torch, ns, Path(workdir), card, smi_line, model_dir=distill["model_dir"])
         presets = phase_presets(torch, Path(workdir), card, smi_line)
+        follow_ups = phase_follow_ups(torch, ns, counts, Path(workdir), card, smi_line)
     gn = phase_kernel_gn(torch, {"sampling": sample_gn, "training": train.pop("gn_cases"),
                                  **{f"distilling_{run}": r.pop("gn_cases")
                                     for run, r in distill["runs"].items()},
@@ -3657,7 +4373,7 @@ def main(argv=None) -> int:
     emit({"phase": "done"})
     emit({"kernels": _kernel_summary(fwd, bwd, gn, sample_launches, train, train_fp32, serve,
                                      conv, train_ae, train_ae_fp32, distill,
-                                     presets["launches"])})
+                                     presets["launches"], follow_ups)})
     print(smi_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": card,
                                  "count": torch.cuda.device_count()}})

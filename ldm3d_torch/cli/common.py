@@ -6,7 +6,9 @@ training need: the parser (every flag of the JAX ``build_parser``, plus
 not ported, config merging, the compute dtype, the environment seed, the
 device rule, the two-stage checkpoints (``best``, or the UNet's ``ema``), the
 sampler and grid-spacing registries with ``make_sampling_scheduler``, and the
-decode-chunk choice.
+decode-chunk choice; the trainers' ``--debug-nans`` mode
+(:func:`enable_debug_nans`, scoped to the CLI call by :func:`cli_main`) and
+``--track`` (:func:`track_run`).
 
 Device rule: entry points run on ``cuda`` unless the caller passes
 ``--device cpu``. Without a CUDA device and without ``--device cpu`` they
@@ -31,6 +33,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import logging
 import sys
 import time
@@ -42,7 +45,8 @@ from ldm3d_torch.configs import define_instance, preset_path
 from ldm3d_torch.utils import merge_configs_onto_args
 
 __all__ = ["SAMPLERS", "TIMESTEP_SPACINGS", "UNPORTED", "build_parser", "reject_unported",
-           "setup", "resolve_device", "pin_fp32_precision", "tf32_flags",
+           "setup", "cli_main", "enable_debug_nans", "disable_debug_nans", "track_run",
+           "resolve_device", "pin_fp32_precision", "tf32_flags",
            "model_dtype", "env_seed", "save_two_stage", "load_two_stage",
            "load_distilled_meta", "load_distilled",
            "make_sampling_scheduler", "default_sampler_steps", "probe_readback_gbps",
@@ -72,20 +76,34 @@ def build_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--compile", action="store_true",
                    help="accepted for reference parity; the port runs eager PyTorch and its own "
                         "CUDA kernels, with no torch.compile")
-    p.add_argument("--profile", action="store_true", help="not ported (torch.profiler window)")
+    p.add_argument("--profile", action="store_true",
+                   help="stage-1 training: trace steps 2-4 with torch.profiler (CPU and CUDA) "
+                        "into ./profiler_logs as a Chrome trace; the other CLIs accept it and "
+                        "do nothing, as in JAX")
     p.add_argument("--no-images", action="store_true",
                    help="no slice images and no periodic sample for TensorBoard (training)")
     p.add_argument("--max-epochs", type=int, default=None,
                    help="override config max_epochs (training)")
     p.add_argument("--synthetic-data", action="store_true",
                    help="use generated synthetic pairs when no NPZ dirs are set")
-    p.add_argument("--track", action="store_true", help="not ported (experiment tracker)")
+    p.add_argument("--track", action="store_true",
+                   help="record the finished run in the local JSON experiment tracker "
+                        "(./mlruns_local; the port has no MLflow backend)")
     p.add_argument("--experiment", default="ldm3d-tpu",
                    help="experiment name, read only by --track")
-    p.add_argument("--debug-nans", action="store_true", help="not ported")
-    p.add_argument("--grad-accum", type=int, default=1, help="not ported (must be 1)")
+    p.add_argument("--debug-nans", action="store_true",
+                   help="debug mode: raise FloatingPointError at the first module whose output "
+                        "holds a NaN, and anomaly detection (NaN checks) in the backward; it "
+                        "syncs the device after every module, so it is slow")
+    p.add_argument("--grad-accum", type=int, default=1,
+                   help="training: accumulate the mean gradient over this many micro-batches "
+                        "before each optimizer update (optax.MultiSteps semantics)")
     p.add_argument("--remat", nargs="?", const="full", default=None,
-                   choices=["full", "convs"], help="not ported")
+                   choices=["full", "convs"],
+                   help="training: rematerialize ResBlocks (torch.utils.checkpoint). Bare "
+                        "--remat = 'full' (least memory: every forward op of the block reruns "
+                        "in the backward); --remat convs keeps the blocks' convolution outputs "
+                        "and recomputes the rest (GroupNorm, SiLU)")
     p.add_argument("--spatial", type=int, default=1, help="not ported (must be 1)")
     p.add_argument("--ema-decay", type=float, default=0.0,
                    help="keep an EMA of the UNet params (e.g. 0.9999), saved as 'ema' (training)")
@@ -105,7 +123,6 @@ def build_parser(description: str) -> argparse.ArgumentParser:
 # the port runs, ROADMAP.md queue A item); any other value raises
 _PARALLEL = "'Parallelism'"
 _PIPELINE = "'UNet mid_depth stack, then pipeline parallelism'"
-_FOLLOW_UPS = "'Training follow-ups'"
 UNPORTED = (
     ("gpus", (0, 1), _PARALLEL),
     ("multihost", (False,), _PARALLEL),
@@ -115,11 +132,6 @@ UNPORTED = (
     ("zero", (False,), _PARALLEL),
     ("pipeline", (1,), _PIPELINE),
     ("pipeline_microbatches", (0,), _PIPELINE),
-    ("remat", (None,), _FOLLOW_UPS),
-    ("grad_accum", (1,), _FOLLOW_UPS),
-    ("profile", (False,), _FOLLOW_UPS),
-    ("track", (False,), _FOLLOW_UPS),
-    ("debug_nans", (False,), _FOLLOW_UPS),
 )
 
 
@@ -135,15 +147,86 @@ def reject_unported(args) -> None:
 
 
 def setup(args) -> tuple:
-    """Merge the config files onto ``args``, pin the fp32 precision and
-    resolve the device."""
+    """Merge the config files onto ``args``, pin the fp32 precision, enter
+    the ``--debug-nans`` mode when asked, and resolve the device."""
     logging.basicConfig(
         stream=sys.stdout, level=logging.INFO,
         format="[%(asctime)s.%(msecs)03d][%(levelname)5s](%(name)s) - %(message)s",
         datefmt="%Y-%m-%d %H:%M:%S")
+    if getattr(args, "debug_nans", False):
+        enable_debug_nans()
+        log.info("debug mode: NaN checks on every module output and in the backward")
     merge_configs_onto_args(args, args.environment_file, args.config_file)
     pin_fp32_precision()
     return args, resolve_device(args.device)
+
+
+# what enable_debug_nans installed: the anomaly-mode switch, the hook handle
+_DEBUG_NANS: list = []
+
+
+def _nan_check_hook(module, inputs, output) -> None:
+    tensors = output if isinstance(output, (tuple, list)) else (output,)
+    for t in tensors:
+        if isinstance(t, torch.Tensor) and t.is_floating_point() and bool(torch.isnan(t).any()):
+            raise FloatingPointError(f"invalid value (nan) encountered in the output of "
+                                     f"{type(module).__name__} (--debug-nans)")
+
+
+def enable_debug_nans() -> None:
+    """The port's ``jax_debug_nans``: a global forward hook raises
+    ``FloatingPointError`` naming the first module (innermost first) whose
+    output holds a NaN, and autograd's anomaly mode with ``check_nan`` raises
+    at the backward function that returns one. Each check syncs the device.
+    :func:`cli_main` takes both off when the CLI call returns or raises."""
+    if _DEBUG_NANS:
+        return
+    _DEBUG_NANS.append(torch.autograd.set_detect_anomaly(True, check_nan=True))
+    _DEBUG_NANS.append(torch.nn.modules.module.register_module_forward_hook(_nan_check_hook))
+
+
+def disable_debug_nans() -> None:
+    """Undo :func:`enable_debug_nans` (a no-op when it is off)."""
+    if _DEBUG_NANS:
+        anomaly, hook = _DEBUG_NANS
+        hook.remove()
+        anomaly.__exit__(None, None, None)
+        _DEBUG_NANS.clear()
+
+
+def cli_main(main):
+    """A CLI's ``main``, with the process-wide modes its :func:`setup` may
+    enter (``--debug-nans``) taken off again when it returns or raises."""
+
+    @functools.wraps(main)
+    def run(*args, **kwargs):
+        try:
+            return main(*args, **kwargs)
+        finally:
+            disable_debug_nans()
+
+    return run
+
+
+def track_run(args, stage: str, final_metrics: dict) -> None:
+    """Log a finished training run in the experiment tracker when
+    ``--track`` is set (``ldm3d_tpu/cli/common.py`` ``track_run``): the
+    stage, the config file, ``amp``, the device count and the stage's
+    training section as params, ``final_metrics``, and the checkpoints'
+    ``best`` metas."""
+    if not getattr(args, "track", False):
+        return
+    from ldm3d_torch.mlops.tracking import ExperimentTracker, log_training_run
+
+    tracker = ExperimentTracker(args.experiment)
+    config = {"stage": stage, "config_file": args.config_file, "amp": bool(args.amp),
+              "devices": 1}
+    section = getattr(args, f"{stage}_train", None)
+    if isinstance(section, dict):
+        config.update({f"{stage}_{k}": v for k, v in section.items()})
+    run_id = log_training_run(tracker, config, final_metrics,
+                              checkpoint_dir=getattr(args, "model_dir", None), run_name=stage)
+    log.info("tracked run %s (%s)", run_id, stage)
 
 
 def pin_fp32_precision() -> None:

@@ -38,11 +38,13 @@ import torch
 from ldm3d_torch.ckpt import CheckpointManager
 from ldm3d_torch.cli.common import (
     build_parser,
+    cli_main,
     env_seed,
     load_two_stage,
     model_dtype,
     reject_unported,
     setup,
+    track_run,
 )
 from ldm3d_torch.cli.train_diffusion import _to_device
 from ldm3d_torch.data import prepare_dataloader
@@ -101,6 +103,7 @@ def _check_args(args) -> None:
                          "(incompatible with --unconditional)")
 
 
+@cli_main
 def main(argv=None, timings: dict | None = None) -> float:
     """Run the CLI; returns the final round's loss (the mean of its last 10
     steps). When ``timings`` is a dict it receives ``step_ms``, a list per
@@ -209,6 +212,8 @@ def main(argv=None, timings: dict | None = None) -> float:
     })
     log.info("saved %d-step distilled sampler (grid %s) to %s",
              final_steps, [int(t) for t in grid], ckpt.path("distilled"))
+    track_run(args, "diffusion", {"distill_final_loss": losses_final,
+                                  "distilled_steps": final_steps})
     return losses_final
 
 

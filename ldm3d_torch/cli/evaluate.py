@@ -36,6 +36,7 @@ from ldm3d_torch.cli.common import (
     SAMPLERS,
     TIMESTEP_SPACINGS,
     build_parser,
+    cli_main,
     env_seed,
     load_two_stage,
     make_sampling_scheduler,
@@ -82,6 +83,7 @@ def build_parser_evaluate():
     return parser
 
 
+@cli_main
 def main(argv=None, timings: dict | None = None):
     """Run the CLI; returns the :class:`~ldm3d_torch.evaluation.EvalReport`.
     When ``timings`` is a dict it receives, a batch, the sampler's

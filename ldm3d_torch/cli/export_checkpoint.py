@@ -40,7 +40,7 @@ from ldm3d_torch.ckpt.import_torch import (
     export_torch_state_dict,
     unet_manifest,
 )
-from ldm3d_torch.cli.common import build_parser, reject_unported, setup
+from ldm3d_torch.cli.common import build_parser, cli_main, reject_unported, setup
 from ldm3d_torch.configs import define_instance
 
 log = logging.getLogger("export_checkpoint")
@@ -55,6 +55,7 @@ def _checked_state_dict(args, key: str, state_dict: dict) -> dict:
     return model.state_dict()
 
 
+@cli_main
 def main(argv=None):
     parser = build_parser("Export checkpoints to reference torch format")
     parser.add_argument("--autoencoder", default=None, help="output path for autoencoder.pt")

@@ -40,7 +40,7 @@ from ldm3d_torch.ckpt.import_torch import (
     sequential_manifest,
     unet_manifest,
 )
-from ldm3d_torch.cli.common import build_parser, reject_unported, setup
+from ldm3d_torch.cli.common import build_parser, cli_main, reject_unported, setup
 from ldm3d_torch.configs import define_instance
 
 log = logging.getLogger("import_checkpoint")
@@ -91,6 +91,7 @@ def derive_scale_factor(args, ae_sd: dict, device: torch.device) -> float:
         return float(compute_scale_factor(ae, labels, eps))
 
 
+@cli_main
 def main(argv=None):
     parser = build_parser("Import reference torch checkpoints")
     parser.add_argument("--autoencoder", default=None, help="path to autoencoder.pt")

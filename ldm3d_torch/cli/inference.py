@@ -54,6 +54,7 @@ from ldm3d_torch.cli.common import (
     SAMPLERS,
     TIMESTEP_SPACINGS,
     build_parser,
+    cli_main,
     env_seed,
     load_distilled,
     load_distilled_meta,
@@ -144,6 +145,7 @@ def build_sampler(args, ae, unet, scheduler, scale_factor: float, latent_batch_s
     return run
 
 
+@cli_main
 def main(argv=None, timings: dict | None = None) -> list[str]:
     """Run the CLI; returns the written paths. When ``timings`` is a dict it
     receives lists of per-call milliseconds under ``encode_ms``,

@@ -24,8 +24,18 @@ LPIPS takes the port's fixed-seed initialisation, or the port's LPIPS
 state_dict saved with ``torch.save`` at the environment key
 ``lpips_weights``.
 
+``--remat full|convs`` checkpoints the VAE's level ResBlocks; ``--grad-accum
+k`` applies one update of each model per k batches on their mean gradients.
+SIGTERM (:class:`GracefulShutdown`, polled once a batch) saves the
+resumable ``last`` with meta ``epoch`` = the interrupted epoch - 1,
+``best_val`` and ``preempted: True``, then exits 75; a resume replays that
+epoch. ``--profile`` traces steps 2-4 (:class:`StepProfiler`) into
+``./profiler_logs``; ``--track`` records the finished run.
+
 Usage: python -m ldm3d_torch.cli.train_autoencoder -c CONFIG -e ENV [--amp]
        [--device cuda|cpu] [--max-epochs N] [--no-images] [-g 0|1] [--compile]
+       [--remat [full|convs]] [--grad-accum K] [--profile] [--track]
+       [--experiment NAME] [--debug-nans]
 Every other flag of the JAX parser parses and raises ``NotImplementedError``
 naming its ROADMAP item (``ldm3d_torch.cli.common.UNPORTED``); ``--pipeline``
 raises the JAX CLI's ``ValueError``.
@@ -41,12 +51,21 @@ import numpy as np
 import torch
 
 from ldm3d_torch.ckpt import CheckpointManager
-from ldm3d_torch.cli.common import build_parser, env_seed, model_dtype, reject_unported, setup
+from ldm3d_torch.cli.common import (
+    build_parser,
+    cli_main,
+    env_seed,
+    model_dtype,
+    reject_unported,
+    setup,
+    track_run,
+)
 from ldm3d_torch.configs import define_instance
 from ldm3d_torch.data import prepare_dataloader
 from ldm3d_torch.nn import LPIPS, PatchDiscriminator3D, init_lpips_, init_weights_
-from ldm3d_torch.obs import MetricsWriter, visualize_one_slice_in_3d_image
+from ldm3d_torch.obs import MetricsWriter, StepProfiler, visualize_one_slice_in_3d_image
 from ldm3d_torch.training import (
+    GracefulShutdown,
     Stage1Config,
     TrainState,
     build_lr_schedule,
@@ -108,6 +127,13 @@ def _pipeline_refused(args) -> None:
                          "--spatial/--tensor/--fsdp for stage 1 (docs/SCALING.md)")
 
 
+def _gan_last(g_state: TrainState, d_state: TrainState, gen: torch.Generator) -> dict:
+    """The resumable stage-1 state: both models, both optimizers, both
+    update counts and the random generator's state, in one file."""
+    return {"g": g_state.state_dict(), "d": d_state.state_dict(), "generator": gen.get_state()}
+
+
+@cli_main
 def main(argv=None, timings: dict | None = None) -> float:
     """Run the trainer; returns the best validation loss. When ``timings`` is
     a dict it receives the run's record: ``train_step_ms`` per step and
@@ -142,6 +168,8 @@ def main(argv=None, timings: dict | None = None) -> float:
         ae = init_weights_(define_instance(args, "autoencoder_def"), init_gen)
         disc = init_weights_(build_discriminator(args), init_gen)
     ae.compute_dtype = disc.compute_dtype = dt
+    if args.remat:
+        ae.remat = args.remat
     max_epochs = args.max_epochs or train_cfg["max_epochs"]
     val_interval = train_cfg["val_interval"]
     schedule = build_lr_schedule(train_cfg.get("lr_scheduler"), train_cfg["lr"], max_epochs,
@@ -153,8 +181,10 @@ def main(argv=None, timings: dict | None = None) -> float:
         adv_weight=train_cfg.get("adv_weight", 0.01),
         warmup_epochs=train_cfg.get("warmup_epochs", 5),
     )
-    g_state = TrainState(ae, make_optimizer(ae.parameters(), schedule, s1cfg.grad_clip))
-    d_state = TrainState(disc, make_optimizer(disc.parameters(), schedule, s1cfg.grad_clip))
+    g_state = TrainState(ae, make_optimizer(ae.parameters(), schedule, s1cfg.grad_clip,
+                                            grad_accum=args.grad_accum))
+    d_state = TrainState(disc, make_optimizer(disc.parameters(), schedule, s1cfg.grad_clip,
+                                              grad_accum=args.grad_accum))
 
     # checkpoints: G and D resume from one 'last' file -----------------------------
     g_ckpt = CheckpointManager(args.model_dir, "autoencoder")
@@ -178,6 +208,8 @@ def main(argv=None, timings: dict | None = None) -> float:
     train_step = make_stage1_train_step(ae, disc, lpips, s1cfg)
     eval_step = make_stage1_eval_step(ae, lpips, s1cfg)
     writer = MetricsWriter(os.path.join(args.tfevent_path, "autoencoder"))
+    profiler = StepProfiler("./profiler_logs", enabled=args.profile)
+    stop = GracefulShutdown()  # SIGTERM -> resumable 'last', exit 75
 
     for epoch in range(start_epoch, max_epochs):
         t0 = time.time()
@@ -186,6 +218,8 @@ def main(argv=None, timings: dict | None = None) -> float:
         disc.train()
         accum: dict[str, list] = {}
         for step, batch in enumerate(train_loader.epoch(epoch)):
+            if stop.requested_global:
+                break
             images = torch.from_numpy(np.ascontiguousarray(batch["image"])).to(device)
             t_step = _sync(device)
             metrics = train_step(g_state, d_state, images, adv_active, gen)
@@ -195,6 +229,7 @@ def main(argv=None, timings: dict | None = None) -> float:
             for k, v in metrics.items():
                 timings[k].append(v)
                 accum.setdefault(k, []).append(v)
+            profiler.step()
             if step % 10 == 0:
                 total_step += 1
                 writer.add_scalar("train_recon_loss_iter", metrics["recon_loss"], total_step)
@@ -207,6 +242,12 @@ def main(argv=None, timings: dict | None = None) -> float:
             if step % 50 == 0:
                 writer.add_scalar("grad_norm_autoencoder", metrics["g_grad_norm"], total_step)
 
+        if stop.requested_global:
+            # the interrupted epoch replays on restart (meta epoch = epoch - 1)
+            g_ckpt.save("last", _gan_last(g_state, d_state, gen),
+                        {"epoch": epoch - 1, "best_val": best_val, "preempted": True})
+            log.warning("preempted during epoch %d: saved resumable 'last' checkpoint", epoch)
+            break
         means = {k: float(np.mean(v)) for k, v in accum.items()}
         epoch_time = time.time() - t0
         log.info("Epoch %d/%d (%.2fs) - Recon: %.4f, KL: %.4f, Perceptual: %.4f, Adv: %.4f",
@@ -241,8 +282,7 @@ def main(argv=None, timings: dict | None = None) -> float:
         is_best = val_loss < best_val
         best_val = min(best_val, val_loss)
         meta = {"epoch": epoch, "val_loss": val_loss, "best_val": best_val}
-        g_ckpt.save("last", {"g": g_state.state_dict(), "d": d_state.state_dict(),
-                             "generator": gen.get_state()}, meta)
+        g_ckpt.save("last", _gan_last(g_state, d_state, gen), meta)
         if is_best:
             g_ckpt.save("best", {"state_dict": ae.state_dict()}, meta)
             d_ckpt.save("best", {"state_dict": disc.state_dict()}, meta)
@@ -256,7 +296,15 @@ def main(argv=None, timings: dict | None = None) -> float:
                 writer.add_image(f"val_recon_{axis}", visualize_one_slice_in_3d_image(rec0, axis),
                                  epoch)
 
+    stop.restore()
+    profiler.stop()
     writer.close()
+    if stop.requested_global:
+        # exit 75 (EX_TEMPFAIL): a wrapper must not take a preempted stage
+        # for a finished one; the restart resumes and replays the epoch
+        log.warning("preempted: resumable state saved; exiting 75 for restart")
+        raise SystemExit(75)
+    track_run(args, "autoencoder", {"best_val_recon_loss": best_val})
     log.info("training complete; best val %.4f", best_val)
     return best_val
 

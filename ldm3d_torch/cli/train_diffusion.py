@@ -12,6 +12,15 @@ one volume conditionally with the DDPM scheduler for TensorBoard. A resume
 reference, restarts the best validation loss at inf and the TensorBoard step
 count at 0, so its first validation rewrites ``best``.
 
+``--remat full|convs`` checkpoints the UNet's ResBlocks (and ``mid_stack``);
+``--grad-accum k`` applies one update per k batches on their mean gradient,
+the EMA decaying once per update. SIGTERM (:class:`GracefulShutdown`, polled
+once a batch) saves the resumable ``last`` with meta ``epoch`` = the
+interrupted epoch - 1 and ``preempted: True``, then exits 75; a resume
+replays that epoch. ``--track`` records the finished run
+(:func:`~ldm3d_torch.cli.common.track_run`); ``--profile`` is accepted and
+does nothing here, as in JAX.
+
 Randomness: one ``torch.Generator`` on the training device, seeded from the
 environment's ``seed``, gives every draw (posterior noise, noise, timesteps,
 dropout masks, samples); the UNet's initial weights come from another
@@ -20,7 +29,8 @@ generator with the same seed.
 Usage: python -m ldm3d_torch.cli.train_diffusion -c CONFIG -e ENV [--amp]
        [--device cuda|cpu] [--max-epochs N] [--cache-latents] [--ema-decay D]
        [--min-snr-gamma G] [--cond-dropout P] [--unconditional] [--no-images]
-       [-g 0|1] [--compile] [--experiment NAME]
+       [-g 0|1] [--compile] [--remat [full|convs]] [--grad-accum K] [--track]
+       [--experiment NAME] [--debug-nans] [--profile]
 Every other flag of the JAX parser parses and raises ``NotImplementedError``
 naming its ROADMAP item (``ldm3d_torch.cli.common.UNPORTED``).
 """
@@ -35,13 +45,22 @@ import numpy as np
 import torch
 
 from ldm3d_torch.ckpt import CheckpointManager
-from ldm3d_torch.cli.common import build_parser, env_seed, model_dtype, reject_unported, setup
+from ldm3d_torch.cli.common import (
+    build_parser,
+    cli_main,
+    env_seed,
+    model_dtype,
+    reject_unported,
+    setup,
+    track_run,
+)
 from ldm3d_torch.configs import define_instance
 from ldm3d_torch.data import LatentCache, prepare_dataloader
 from ldm3d_torch.diffusion import DDPMScheduler, inferer
 from ldm3d_torch.nn import init_weights_
 from ldm3d_torch.obs import MetricsWriter, visualize_one_slice_in_3d_image
 from ldm3d_torch.training import (
+    GracefulShutdown,
     Stage2Config,
     TrainState,
     build_lr_schedule,
@@ -95,6 +114,7 @@ def build_parser_train():
     return parser
 
 
+@cli_main
 def main(argv=None, timings: dict | None = None) -> float:
     """Run the trainer; returns the best validation loss. When ``timings`` is
     a dict it receives the run's record: lists of wall-clock milliseconds,
@@ -138,6 +158,8 @@ def main(argv=None, timings: dict | None = None) -> float:
         unet = define_instance(args, "diffusion_def")
     init_weights_(unet, torch.Generator(device=device).manual_seed(seed))
     unet.compute_dtype = dt
+    if args.remat:
+        unet.remat = args.remat
     sched_cfg = TrainContext(args).scheduler_config()
     scheduler = DDPMScheduler.create(
         num_train_timesteps=sched_cfg["num_train_timesteps"],
@@ -150,8 +172,9 @@ def main(argv=None, timings: dict | None = None) -> float:
                                  max_epochs, steps_per_epoch)
     s2cfg = Stage2Config(conditional=not args.unconditional, cond_dropout=args.cond_dropout,
                          min_snr_gamma=args.min_snr_gamma)
-    state = TrainState(unet, make_diffusion_optimizer(unet.parameters(), schedule),
-                       ema_decay=args.ema_decay)
+    state = TrainState(unet, make_diffusion_optimizer(unet.parameters(), schedule,
+                                                      grad_accum=args.grad_accum),
+                       ema_decay=args.ema_decay, ema_every=args.grad_accum)
 
     u_ckpt = CheckpointManager(args.model_dir, "diffusion")
     start_epoch = 0
@@ -177,6 +200,7 @@ def main(argv=None, timings: dict | None = None) -> float:
         train_step = make_stage2_train_step(unet, ae, scheduler, s2cfg)
 
     writer = MetricsWriter(os.path.join(args.tfevent_path, "diffusion"))
+    stop = GracefulShutdown()  # SIGTERM -> resumable 'last', exit 75
     if not args.no_images:
         for axis in range(3):
             writer.add_image(f"train_img_{axis}",
@@ -190,6 +214,8 @@ def main(argv=None, timings: dict | None = None) -> float:
         unet.train()
         batches = cache.epoch(epoch) if args.cache_latents else train_loader.epoch(epoch)
         for batch in batches:
+            if stop.requested_global:
+                break
             if not args.cache_latents:
                 batch = {"image": batch["image"], "label": batch["label"]}
             t_step = _sync(device)
@@ -202,6 +228,13 @@ def main(argv=None, timings: dict | None = None) -> float:
             writer.add_scalar("train_diffusion_loss_iter", loss, total_step)
             if total_step % 50 == 0:
                 writer.add_scalar("grad_norm_diffusion", metrics["grad_norm"], total_step)
+        if stop.requested_global:
+            # the interrupted epoch replays on restart (meta epoch = epoch - 1)
+            u_ckpt.save("last", state.state_dict(), {"epoch": epoch - 1, "best_val": best_val,
+                                                     "scale_factor": scale_factor,
+                                                     "preempted": True})
+            log.warning("preempted during epoch %d: saved resumable 'last' checkpoint", epoch)
+            break
         epoch_loss = float(np.mean(losses)) if losses else float("nan")
         log.info("Epoch %d/%d (%.2fs) - diffusion loss %.5f", epoch, max_epochs,
                  time.time() - t0, epoch_loss)
@@ -253,7 +286,15 @@ def main(argv=None, timings: dict | None = None) -> float:
                 writer.add_image(f"val_denoised_cond_{axis}", visualize_one_slice_in_3d_image(
                     sampled[0, ..., 0], axis), epoch)
 
+    stop.restore()
     writer.close()
+    if stop.requested_global:
+        # exit 75 (EX_TEMPFAIL): a wrapper must not take a preempted stage
+        # for a finished one; the restart resumes and replays the epoch
+        log.warning("preempted: resumable state saved; exiting 75 for restart")
+        raise SystemExit(75)
+    track_run(args, "diffusion", {"best_val_diffusion_loss": best_val,
+                                  "scale_factor": scale_factor})
     log.info("training complete; best val %.5f", best_val)
     return best_val
 

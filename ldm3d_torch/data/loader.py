@@ -2,20 +2,61 @@
 batching, and a background thread that prepares the next batches while the
 device computes.
 
-The port's copy of ``BatchLoader`` from ``ldm3d_tpu/data/loader.py`` for one
-process: ``device_prefetch`` and the multi-host shard of the loader wait for
-ROADMAP.md queue A, 'Training follow-ups'.
+The port's copy of ``BatchLoader`` and ``device_prefetch`` from
+``ldm3d_tpu/data/loader.py`` for one process: the multi-host shard of the
+loader waits for ROADMAP.md queue A, 'Parallelism'.
 """
 
 from __future__ import annotations
 
+import itertools
 import queue
 import threading
-from typing import Iterator, Sequence
+from collections import deque
+from typing import Iterable, Iterator, Sequence
 
 import numpy as np
+import torch
 
-__all__ = ["BatchLoader"]
+__all__ = ["BatchLoader", "device_prefetch"]
+
+
+def device_prefetch(batches: Iterable[dict], size: int = 2, device="cuda") -> Iterator[dict]:
+    """Keep ``size`` host batches in flight to ``device`` ahead of the
+    consumer (``ldm3d_tpu/data/loader.py`` ``device_prefetch``; its mesh
+    ``placement`` waits for the multi-host loader shard).
+
+    On a CUDA device each array is pinned and copied ``non_blocking`` on a
+    side stream, so batch i + 1's copy overlaps batch i's compute; before a
+    batch is yielded the current stream waits for its copies (the event
+    recorded after them on the side stream) and each tensor is marked used
+    on the current stream (``record_stream``), so its memory is not reused
+    while the consumer's kernels read it. On the CPU it is a plain
+    ``to(device)``."""
+    device = torch.device(device)
+    stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+
+    def put(batch: dict) -> tuple[dict, object]:
+        if stream is None:
+            return {k: torch.as_tensor(np.ascontiguousarray(v)).to(device)
+                    for k, v in batch.items()}, None
+        with torch.cuda.stream(stream):
+            out = {k: torch.as_tensor(np.ascontiguousarray(v)).pin_memory().to(
+                device, non_blocking=True) for k, v in batch.items()}
+            return out, stream.record_event()
+
+    it = iter(batches)
+    buf: deque = deque(put(b) for b in itertools.islice(it, max(1, size)))
+    while buf:
+        nxt, copied = buf.popleft()
+        for b in itertools.islice(it, 1):
+            buf.append(put(b))
+        if copied is not None:
+            current = torch.cuda.current_stream(device)
+            current.wait_event(copied)
+            for t in nxt.values():
+                t.record_stream(current)
+        yield nxt
 
 
 def _stack(samples: Sequence[dict]) -> dict:

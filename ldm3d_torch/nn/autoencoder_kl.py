@@ -8,6 +8,11 @@ itself (``forward``) is stage 1's encode -> sample -> decode.
 
 Public functions take and return NDHWC. The posterior noise of
 ``encode_stage_2_inputs`` and of the call is an argument: the caller draws it.
+
+``remat`` (False, True/``"full"`` or ``"convs"``) runs the encoder's and the
+decoder's level ResBlocks under :func:`~ldm3d_torch.nn.blocks.remat_wrapped`,
+as JAX wraps them; the attention blocks and the non-local mid blocks run as
+they are. Setting ``AutoencoderKL.remat`` sets both halves.
 """
 
 from __future__ import annotations
@@ -25,6 +30,8 @@ from ldm3d_torch.nn.blocks import (
     ResBlock3D,
     Upsample3D,
     _conv3,
+    check_remat,
+    remat_wrapped,
     to_channels_last,
 )
 
@@ -32,19 +39,23 @@ __all__ = ["AutoencoderKL", "Encoder3D", "Decoder3D"]
 
 
 class _Stack(nn.Module):
-    """Named blocks run in order (the Flax names become the state_dict keys)."""
+    """Named blocks run in order (the Flax names become the state_dict keys);
+    the blocks added with ``remat=True`` run under the stack's ``remat``."""
 
-    def __init__(self):
+    def __init__(self, remat=False):
         super().__init__()
-        self._order: list[str] = []
+        check_remat(remat)
+        self.remat = remat
+        self._order: list[tuple[str, bool]] = []
 
-    def _add(self, name: str, module: nn.Module) -> None:
+    def _add(self, name: str, module: nn.Module, remat: bool = False) -> None:
         self.add_module(name, module)
-        self._order.append(name)
+        self._order.append((name, remat))
 
     def _run(self, h: torch.Tensor) -> torch.Tensor:
-        for name in self._order:
-            h = getattr(self, name)(h)
+        for name, remat in self._order:
+            block = getattr(self, name)
+            h = (remat_wrapped(block, self.remat) if remat else block)(h)
         return h
 
 
@@ -57,15 +68,17 @@ def _mid(stack: _Stack, ch: int, g: int, eps: float) -> None:
 class Encoder3D(_Stack):
     def __init__(self, in_channels: int, channels: Sequence[int], latent_channels: int,
                  num_res_blocks: Sequence[int], attention_levels: Sequence[bool],
-                 num_groups: int = 32, norm_eps: float = 1e-6, with_nonlocal_attn: bool = False):
-        super().__init__()
+                 num_groups: int = 32, norm_eps: float = 1e-6, with_nonlocal_attn: bool = False,
+                 remat=False):
+        super().__init__(remat)
         g, eps = num_groups, norm_eps
         self._add("conv_in", _conv3(in_channels, channels[0]))
         ch = channels[0]
         levels = len(channels)
         for level in range(levels):
             for block in range(num_res_blocks[level]):
-                self._add(f"down_{level}_res_{block}", ResBlock3D(ch, channels[level], g, eps))
+                self._add(f"down_{level}_res_{block}", ResBlock3D(ch, channels[level], g, eps),
+                          remat=True)
                 ch = channels[level]
                 if attention_levels[level]:
                     self._add(f"down_{level}_attn_{block}", AttentionBlock3D(ch, 0, g, eps))
@@ -83,8 +96,9 @@ class Encoder3D(_Stack):
 class Decoder3D(_Stack):
     def __init__(self, channels: Sequence[int], latent_channels: int, out_channels: int,
                  num_res_blocks: Sequence[int], attention_levels: Sequence[bool],
-                 num_groups: int = 32, norm_eps: float = 1e-6, with_nonlocal_attn: bool = False):
-        super().__init__()
+                 num_groups: int = 32, norm_eps: float = 1e-6, with_nonlocal_attn: bool = False,
+                 remat=False):
+        super().__init__(remat)
         g, eps = num_groups, norm_eps
         rev_channels = list(reversed(channels))
         rev_blocks = list(reversed(num_res_blocks))
@@ -96,7 +110,8 @@ class Decoder3D(_Stack):
         levels = len(rev_channels)
         for level in range(levels):
             for block in range(rev_blocks[level]):
-                self._add(f"up_{level}_res_{block}", ResBlock3D(ch, rev_channels[level], g, eps))
+                self._add(f"up_{level}_res_{block}", ResBlock3D(ch, rev_channels[level], g, eps),
+                          remat=True)
                 ch = rev_channels[level]
                 if rev_attn[level]:
                     self._add(f"up_{level}_attn_{block}", AttentionBlock3D(ch, 0, g, eps))
@@ -125,6 +140,7 @@ class AutoencoderKL(nn.Module):
         with_encoder_nonlocal_attn: bool = False,
         with_decoder_nonlocal_attn: bool = False,
         compute_dtype: torch.dtype = torch.float32,
+        remat=False,
     ):
         super().__init__()
         self.latent_channels = latent_channels
@@ -132,7 +148,7 @@ class AutoencoderKL(nn.Module):
         self.compute_dtype = compute_dtype
         common = dict(num_res_blocks=tuple(num_res_blocks),
                       attention_levels=tuple(attention_levels),
-                      num_groups=norm_num_groups, norm_eps=norm_eps)
+                      num_groups=norm_num_groups, norm_eps=norm_eps, remat=remat)
         self.encoder = Encoder3D(in_channels, channels, latent_channels,
                                  with_nonlocal_attn=with_encoder_nonlocal_attn, **common)
         self.decoder = Decoder3D(channels, latent_channels, out_channels,
@@ -164,7 +180,17 @@ class AutoencoderKL(nn.Module):
             with_encoder_nonlocal_attn=kw.pop("with_encoder_nonlocal_attn", False),
             with_decoder_nonlocal_attn=kw.pop("with_decoder_nonlocal_attn", False),
             compute_dtype=getattr(torch, dtype) if isinstance(dtype, str) else dtype,
+            remat=kw.pop("remat", False),
         )
+
+    @property
+    def remat(self):
+        return self.encoder.remat
+
+    @remat.setter
+    def remat(self, value) -> None:
+        check_remat(value)
+        self.encoder.remat = self.decoder.remat = value
 
     @property
     def downsample_factor(self) -> int:

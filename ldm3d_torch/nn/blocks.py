@@ -20,17 +20,27 @@ Gradients. Attention and GroupNorm are autograd Functions whose backward
 runs the hand-written kernels on the card (``ldm3d_torch/ops``); the rest is
 PyTorch autograd.
 
-The JAX package's depth-sharded (``spatial_axis``) and rematerialised
-variants are not ported in this slice.
+Rematerialisation. :func:`remat_wrapped` runs a block under
+``torch.utils.checkpoint``: the models wrap their ResBlocks (and the UNet's
+``mid_stack`` layers) with it when their ``remat`` is set, as the JAX
+package's ``nn.remat`` does. The JAX package's depth-sharded
+(``spatial_axis``) variants are not ported.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Callable
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+    noop_context_fn,
+)
 
 from ldm3d_torch.ops.attention import volumetric_attention
 from ldm3d_torch.ops.groupnorm import gn_bwd_sums, gn_sums
@@ -48,6 +58,8 @@ __all__ = [
     "sinusoidal_time_embedding",
     "TimestepEmbedding",
     "init_weights_",
+    "remat_wrapped",
+    "check_remat",
     "to_channels_last",
 ]
 
@@ -209,6 +221,60 @@ class GroupNorm32(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return GroupNormAffine.apply(x, self.weight, self.bias, self.num_groups, self.eps)
+
+
+# the outputs JAX's "convs" policy keeps (the ``resblock_conv`` tags: conv1,
+# conv2 and the shortcut of a ResBlock) are the block's convolutions
+_CONV_OPS = frozenset({torch.ops.aten.convolution.default})
+
+
+def _save_convs(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return CheckpointPolicy.MUST_SAVE if op in _CONV_OPS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _convs_context():
+    return create_selective_checkpoint_contexts(_save_convs)
+
+
+def check_remat(remat):
+    """The checkpoint context of a remat mode: None for no remat (``False``,
+    ``None``), every activation recomputed for ``True``/``"full"``, only the
+    convolutions' outputs kept for ``"convs"``; any other value raises
+    ``ValueError`` with JAX's message."""
+    if not remat:
+        return None
+    if remat == "convs":
+        return _convs_context
+    if remat is not True and remat != "full":
+        raise ValueError(f"remat must be False, True/'full', or 'convs': {remat!r}")
+    return noop_context_fn
+
+
+def remat_wrapped(block: Callable, remat) -> Callable:
+    """``block`` as it runs under a remat mode (``ldm3d_tpu/nn/blocks.py``
+    ``remat_wrapped``): ``False``/``None`` is the block itself;
+    ``True``/``"full"`` runs it under ``torch.utils.checkpoint`` (non-reentrant),
+    which keeps only its inputs and reruns its forward in the backward;
+    ``"convs"`` adds a selective policy that keeps the convolutions' outputs
+    and recomputes every other op.
+
+    The GroupNorm and attention Functions launch their kernels through
+    ``ctypes``, which no policy sees: their forwards rerun in the backward
+    under either mode, and what they save (x, weight, mean, inv; q, k, v, O,
+    LSE) is what the rerun computes. Without autograd (sampling, validation)
+    the block runs as it is."""
+    context_fn = check_remat(remat)
+    if context_fn is None:
+        return block
+
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return block(*args)
+        # the blocks draw no random numbers: no RNG state to stash and restore
+        return checkpoint(block, *args, use_reentrant=False, context_fn=context_fn,
+                          preserve_rng_state=False)
+
+    return run
 
 
 class ResBlock3D(nn.Module):

@@ -16,6 +16,12 @@ pairs, :class:`MidBlock3D`, at the bottleneck between ``mid_attn`` and
 ``mid_depth=0`` (the default) is the reference architecture. The
 bottleneck is split into ``mid_entry`` / ``mid_stack_apply`` / ``mid_exit``
 as in JAX, where pipeline parallelism cuts the model.
+
+``remat`` (False, True/``"full"`` or ``"convs"``) runs the down and up
+ResBlocks and each ``mid_stack`` layer under
+:func:`~ldm3d_torch.nn.blocks.remat_wrapped`, as JAX wraps them;
+``mid_res_1``, ``mid_attn``, ``mid_res_2`` and the level attention blocks
+run as they are.
 """
 
 from __future__ import annotations
@@ -34,6 +40,8 @@ from ldm3d_torch.nn.blocks import (
     TimestepEmbedding,
     Upsample3D,
     _conv3,
+    check_remat,
+    remat_wrapped,
     to_channels_last,
 )
 
@@ -71,8 +79,11 @@ class DiffusionUNet3D(nn.Module):
         norm_eps: float = 1e-6,
         compute_dtype: torch.dtype = torch.float32,
         mid_depth: int = 0,
+        remat=False,
     ):
         super().__init__()
+        check_remat(remat)
+        self.remat = remat
         self.in_channels, self.out_channels = in_channels, out_channels
         self.mid_depth = mid_depth
         self.channels = tuple(channels)
@@ -151,6 +162,7 @@ class DiffusionUNet3D(nn.Module):
             norm_eps=kw.pop("norm_eps", 1e-6),
             compute_dtype=getattr(torch, dtype) if isinstance(dtype, str) else dtype,
             mid_depth=kw.pop("mid_depth", 0),
+            remat=kw.pop("remat", False),
         )
 
     def mid_entry(self, h: torch.Tensor, temb: torch.Tensor) -> torch.Tensor:
@@ -159,8 +171,14 @@ class DiffusionUNet3D(nn.Module):
     def mid_stack_apply(self, h: torch.Tensor, temb: torch.Tensor) -> torch.Tensor:
         """The uniform bottleneck stack, in order (``h`` unchanged at depth 0)."""
         for block in self.mid_stack:
-            h = block(h, temb)
+            h = remat_wrapped(block, self.remat)(h, temb)
         return h
+
+    def _block(self, kind: str, name: str, h: torch.Tensor, temb: torch.Tensor) -> torch.Tensor:
+        block = getattr(self, name)
+        if kind == "res":
+            return remat_wrapped(block, self.remat)(h, temb)
+        return block(h)
 
     def mid_exit(self, h: torch.Tensor, temb: torch.Tensor) -> torch.Tensor:
         return self.mid_res_2(h, temb)
@@ -175,12 +193,12 @@ class DiffusionUNet3D(nn.Module):
             if kind == "skip":
                 skips.append(h)
             else:
-                h = getattr(self, name)(h, temb) if kind == "res" else getattr(self, name)(h)
+                h = self._block(kind, name, h, temb)
         h = self.mid_exit(self.mid_stack_apply(self.mid_entry(h, temb), temb), temb)
         for kind, name in self._up:
             if kind == "skip":
                 h = torch.cat([h, skips.pop()], dim=1)
             else:
-                h = getattr(self, name)(h, temb) if kind == "res" else getattr(self, name)(h)
+                h = self._block(kind, name, h, temb)
         h = self.conv_out(F.silu(self.norm_out(h)))
         return h.permute(0, 2, 3, 4, 1)

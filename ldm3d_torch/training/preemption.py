@@ -1,0 +1,67 @@
+"""Graceful shutdown on SIGTERM: the port of ``ldm3d_tpu/training/preemption.py``.
+
+A scheduler that reclaims a machine sends SIGTERM ahead of the kill. The
+trainers poll :class:`GracefulShutdown` once a batch; on a pending signal
+they save a resumable ``last`` checkpoint (meta ``epoch`` = the interrupted
+epoch - 1, ``preempted: True``) and exit 75 (``EX_TEMPFAIL``), so a restart
+with ``resume_ckpt`` replays the interrupted epoch.
+
+One process only: with ``torch.distributed`` initialised over more than one
+rank, :attr:`GracefulShutdown.requested_global` raises (the cross-rank
+agreement waits for ROADMAP.md queue A, 'Parallelism').
+"""
+
+from __future__ import annotations
+
+import logging
+import signal
+import threading
+
+import torch
+
+__all__ = ["GracefulShutdown"]
+
+log = logging.getLogger("preemption")
+
+
+class GracefulShutdown:
+    """Latches SIGTERM (and optionally other signals) into a pollable flag."""
+
+    def __init__(self, signals=(signal.SIGTERM,)):
+        self._flag = threading.Event()
+        self._prev = {}
+        for sig in signals:
+            try:
+                self._prev[sig] = signal.signal(sig, self._handle)
+            except ValueError:  # not the main thread (tests, embedded use)
+                log.warning("cannot install handler for %s off the main thread", sig)
+
+    def _handle(self, signum, frame):
+        log.warning("received %s: finishing current step, then saving 'last' "
+                    "checkpoint and exiting", signal.Signals(signum).name)
+        self._flag.set()
+
+    @property
+    def requested(self) -> bool:
+        """The local process's flag."""
+        return self._flag.is_set()
+
+    @property
+    def requested_global(self) -> bool:
+        """The flag as every rank must agree on it: with one process, the
+        local flag."""
+        dist = torch.distributed
+        if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
+            raise NotImplementedError("a preemption agreement across ranks is not ported yet: "
+                                      "ROADMAP.md queue A, item 11 ('Parallelism')")
+        return self.requested
+
+    def trigger(self) -> None:
+        """Set the flag programmatically (tests, cooperative shutdown)."""
+        self._flag.set()
+
+    def restore(self) -> None:
+        """Re-install the previous signal handlers."""
+        for sig, prev in self._prev.items():
+            signal.signal(sig, prev)
+        self._prev.clear()

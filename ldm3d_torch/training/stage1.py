@@ -104,13 +104,13 @@ def make_optimizer(params: Iterable[torch.nn.Parameter], lr_schedule: Callable[[
                    grad_clip: float = 0.5, weight_decay: float = 1e-5,
                    grad_accum: int = 1) -> ClippedAdam:
     """The reference's stage-1 optimizer: global-norm clip, then AdamW with
-    b1 0.5, b2 0.9, eps 1e-8 at ``lr_schedule(count)``. Gradient
-    accumulation (``grad_accum > 1``) is not ported."""
-    if grad_accum > 1:
-        raise NotImplementedError(f"--grad-accum {grad_accum} is not ported yet: ROADMAP.md "
-                                  "queue A, 'Training follow-ups'")
+    b1 0.5, b2 0.9, eps 1e-8 at ``lr_schedule(count)``. ``grad_accum > 1``
+    accumulates the mean gradient over that many micro-steps before each
+    update (``optax.MultiSteps``), at the schedule re-indexed by
+    :func:`_accum_schedule`."""
     return ClippedAdam(params, _accum_schedule(lr_schedule, grad_accum), grad_clip,
-                       betas=(0.5, 0.9), eps=1e-8, weight_decay=weight_decay)
+                       betas=(0.5, 0.9), eps=1e-8, weight_decay=weight_decay,
+                       grad_accum=grad_accum)
 
 
 def _recon_fn(name: str) -> Callable:

@@ -131,10 +131,14 @@ def _stage2_mse(pred, target, timesteps, scheduler, cfg: Stage2Config) -> torch.
 
 def make_diffusion_optimizer(params: Iterable[torch.nn.Parameter],
                              lr_schedule: Callable[[int], float],
-                             grad_clip: float = 1.0) -> ClippedAdam:
+                             grad_clip: float = 1.0, grad_accum: int = 1) -> ClippedAdam:
     """Adam (not AdamW: reference ``train_diffusion.py:155``) behind a
-    global-norm clip of 1.0."""
-    return ClippedAdam(params, lr_schedule, grad_clip)
+    global-norm clip of 1.0; ``grad_accum > 1`` as in
+    :func:`~ldm3d_torch.training.stage1.make_optimizer`."""
+    from ldm3d_torch.training.stage1 import _accum_schedule
+
+    return ClippedAdam(params, _accum_schedule(lr_schedule, grad_accum), grad_clip,
+                       grad_accum=grad_accum)
 
 
 @torch.no_grad()

@@ -11,6 +11,13 @@ with a weight decay of 0 (``adam``, stage 2) or not (stage 1): the
 global-norm clip is optax's rule, ``g`` kept when ``||g|| < c`` and
 ``(g / ||g||) * c`` otherwise, not ``torch.nn.utils.clip_grad_norm_``,
 whose ``+1e-6`` in the denominator scales every clipped update differently.
+
+Gradient accumulation (``grad_accum = k > 1``) is
+``optax.MultiSteps(chain(clip, adam), every_k_schedule=k)``: each
+micro-step's gradients go into a running mean (optax's Welford form,
+``acc + (g - acc) / (n + 1)``); the k-th micro-step clips that mean and
+applies one Adam update; the other k - 1 leave the parameters and the Adam
+state as they are.
 """
 
 from __future__ import annotations
@@ -50,14 +57,26 @@ class ClippedAdam:
     optax's ``adamw``: every parameter decays by ``lr * weight_decay`` times
     its value before the update, besides the Adam step
     (``torch.optim.AdamW``'s decoupled decay is the same sum). At the
-    default ``weight_decay`` 0 the decay multiplies by exactly 1: Adam."""
+    default ``weight_decay`` 0 the decay multiplies by exactly 1: Adam.
+
+    With ``grad_accum = k > 1`` an update is emitted every k-th micro-step
+    (the module docstring); ``lr_schedule`` is then indexed by the emitted
+    updates' count, as the inner optimizer of ``optax.MultiSteps`` is (wrap
+    a micro-step schedule in ``training.stage1._accum_schedule``). The
+    running mean and the micro-step index are in :meth:`state_dict`, so a
+    resume continues mid-accumulation."""
 
     def __init__(self, params: Iterable[torch.nn.Parameter], lr_schedule: Callable[[int], float],
                  grad_clip: float = 1.0, betas: tuple[float, float] = (0.9, 0.999),
-                 eps: float = 1e-8, weight_decay: float = 0.0):
+                 eps: float = 1e-8, weight_decay: float = 0.0, grad_accum: int = 1):
+        grad_accum = max(1, grad_accum)  # as JAX: MultiSteps only above 1
         self.params = [p for p in params if p.requires_grad]
         self.lr_schedule = lr_schedule
         self.grad_clip = grad_clip
+        self.grad_accum = grad_accum
+        self.mini_step = 0
+        self.acc_grads = ([torch.zeros_like(p) for p in self.params] if grad_accum > 1
+                          else None)
         self.adam = torch.optim.AdamW(self.params, lr=lr_schedule(0), betas=betas, eps=eps,
                                       weight_decay=weight_decay)
 
@@ -65,24 +84,63 @@ class ClippedAdam:
         self.adam.zero_grad(set_to_none=True)
 
     def step(self, count: int) -> torch.Tensor:
-        """Clip the parameters' gradients and apply one Adam update; returns
-        the gradients' global norm before the clip. A parameter that got no
-        gradient is updated with a zero one, as optax does."""
+        """One micro-step at micro-step ``count`` (0-based): with no
+        accumulation, clip the parameters' gradients and apply one Adam
+        update; with ``grad_accum = k``, add them to the running mean and,
+        on the k-th micro-step, clip the mean and apply the update of count
+        ``count // k``. Returns the micro-step gradients' global norm (the
+        norm before the clip). A parameter that got no gradient takes a
+        zero one, as optax does."""
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in self.params]
-        norm = clip_by_global_norm_(grads, self.grad_clip)
+        if self.acc_grads is None:
+            norm = clip_by_global_norm_(grads, self.grad_clip)
+            self._adam_step(count)
+            return norm
+        norm = global_norm(grads)
+        n = self.mini_step
+        for acc, g in zip(self.acc_grads, grads):
+            acc.add_((g - acc) / (n + 1))
+        if n + 1 < self.grad_accum:
+            self.mini_step = n + 1
+            return norm
+        self.mini_step = 0
+        for p, acc in zip(self.params, self.acc_grads):
+            p.grad = acc
+        clip_by_global_norm_(self.acc_grads, self.grad_clip)
+        self._adam_step(count // self.grad_accum)
+        self.adam.zero_grad(set_to_none=True)
+        for acc in self.acc_grads:
+            acc.zero_()
+        return norm
+
+    def _adam_step(self, count: int) -> None:
         for group in self.adam.param_groups:
             group["lr"] = self.lr_schedule(count)
         self.adam.step()
-        return norm
 
     def state_dict(self) -> dict:
-        return self.adam.state_dict()
+        state = self.adam.state_dict()
+        if self.acc_grads is not None:
+            state["accum"] = {"mini_step": self.mini_step,
+                              "acc_grads": [a.clone() for a in self.acc_grads]}
+        return state
 
     def load_state_dict(self, state: dict) -> None:
+        state = dict(state)
+        accum = state.pop("accum", None)
+        if (accum is None) != (self.acc_grads is None):
+            raise ValueError("the checkpoint's optimizer was saved with another --grad-accum "
+                             "setting than this run's")
         self.adam.load_state_dict(state)
+        if accum is not None:
+            if len(accum["acc_grads"]) != len(self.acc_grads):
+                raise ValueError("the checkpoint's accumulator does not match the parameters")
+            self.mini_step = int(accum["mini_step"])
+            for acc, saved in zip(self.acc_grads, accum["acc_grads"]):
+                acc.copy_(saved)
 
 
 class TrainState:
@@ -94,8 +152,8 @@ class TrainState:
         self.optimizer = optimizer
         self.step = 0
         self.ema_decay = ema_decay
-        # EMA cadence in micro-steps (the JAX rule under gradient accumulation:
-        # decay once per emitted update)
+        # EMA cadence in micro-steps: under gradient accumulation the decay
+        # applies once per emitted update, as the JAX rule (ema_every = k)
         self.ema_every = max(1, ema_every)
         self.ema_params = ({n: p.detach().clone() for n, p in model.named_parameters()}
                            if ema_decay > 0 else None)

@@ -25,6 +25,8 @@ import torch
 import ldm3d_tpu.ops.attention as jattn
 from ldm3d_torch.ops import attention as tattn
 
+torch.set_num_threads(1)
+
 ATOL = 1e-5
 
 

@@ -40,6 +40,8 @@ from test_torch_attention import _frag_mm, _k_order, _tf32_rna, _tf32_trunc
 import ldm3d_tpu.ops.attention as jattn
 from ldm3d_torch.ops import attention as tattn
 
+torch.set_num_threads(1)
+
 ATOL = 1e-5
 
 

@@ -22,6 +22,8 @@ from ldm3d_torch.ckpt.from_jax import state_dict_from_jax
 from ldm3d_torch.nn import blocks as tb
 from ldm3d_tpu.nn import blocks as jb
 
+torch.set_num_threads(1)
+
 ATOL = 1e-4
 
 

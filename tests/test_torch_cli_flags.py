@@ -16,6 +16,7 @@ JAX CLI's ``ValueError`` (distillation runs data-parallel).
 import json
 
 import pytest
+import torch
 
 from ldm3d_torch.cli.distill import main as port_distill
 from ldm3d_torch.cli.evaluate import main as port_evaluate
@@ -24,9 +25,10 @@ from ldm3d_torch.cli.train_autoencoder import main as port_train_ae
 from ldm3d_torch.cli.train_diffusion import main as port_train
 from ldm3d_torch.configs import preset_path
 
+torch.set_num_threads(1)
+
 PARALLEL = "'Parallelism'"
 PIPELINE = "'UNet mid_depth stack, then pipeline parallelism'"
-FOLLOW_UPS = "'Training follow-ups'"
 
 # (argv, None if the flag runs, else the ROADMAP item its error names)
 FLAGS = {
@@ -34,15 +36,15 @@ FLAGS = {
     "--gpus": [(["--gpus", "1"], None)],
     "--amp": [(["--amp"], None)],
     "--compile": [(["--compile"], None)],
-    "--profile": [(["--profile"], FOLLOW_UPS)],
+    "--profile": [(["--profile"], None)],
     "--no-images": [(["--no-images"], None)],
     "--max-epochs": [(["--max-epochs", "1"], None)],
     "--synthetic-data": [(["--synthetic-data"], None)],
-    "--track": [(["--track"], FOLLOW_UPS)],
+    "--track": [(["--track"], None)],
     "--experiment": [(["--experiment", "port-run"], None)],
-    "--debug-nans": [(["--debug-nans"], FOLLOW_UPS)],
-    "--grad-accum": [(["--grad-accum", "2"], FOLLOW_UPS)],
-    "--remat": [(["--remat"], FOLLOW_UPS)],
+    "--debug-nans": [(["--debug-nans"], None)],
+    "--grad-accum": [(["--grad-accum", "2"], None)],
+    "--remat": [(["--remat"], None), (["--remat", "convs"], None)],
     "--spatial": [(["--spatial", "2"], PARALLEL)],
     "--ema-decay": [(["--ema-decay", "0.9"], None)],
     "--multihost": [(["--multihost"], PARALLEL)],

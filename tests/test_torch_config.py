@@ -4,9 +4,9 @@
   both packages, and each broken config or environment is rejected by both
   with the same ``ConfigSchemaError`` message, did-you-mean included.
 * ``utils.config_merge``: the attributes the port's merge sets equal the JAX
-  merge's, the optional environment keys' defaults among them; a minimal
-  environment file (``model_dir`` alone) trains with both trainers of the
-  port, as it does with the JAX trainers (C9).
+  merge's, the optional environment keys' defaults among them (C9; that a
+  minimal environment file, ``model_dir`` alone, trains with both trainers
+  of both packages is ``tests/test_torch_config_minimal_env.py``).
 * ``resolve_config`` and ``register``.
 * Every preset builds in the port (on the meta device) with the JAX models'
   parameter counts (``jax.eval_shape`` of their init).
@@ -16,10 +16,6 @@ import argparse
 import copy
 import json
 import math
-import os
-import subprocess
-import sys
-from pathlib import Path
 from types import SimpleNamespace
 
 import jax
@@ -41,7 +37,6 @@ from ldm3d_tpu.configs import schema as jax_schema
 from ldm3d_tpu.configs.registry import _EXTRA as JAX_EXTRA
 from ldm3d_tpu.utils import merge_configs_onto_args as jax_merge
 
-ROOT = Path(__file__).resolve().parents[1]
 CONFIGS = ("config_micro_cpu.json", "config_tiny_cpu.json", "config_train_16g.json",
            "config_train_32g.json", "config_train_multigpu.json", "config_train_pp.json",
            "config_train_stable.json")
@@ -189,70 +184,3 @@ def test_every_preset_builds_with_the_jax_parameter_count(name):
     assert sum(p.numel() for p in tae.parameters()) == want_ae
     assert sum(p.numel() for p in tunet.parameters()) == want_unet
     assert tunet.mid_depth == junet.mid_depth
-
-
-# --- C9: a minimal environment file trains ------------------------------------
-
-def _run(module: str, cwd: Path, *flags) -> subprocess.Popen:
-    # one host device (the suite's conftest forces 8 virtual ones)
-    env = dict(os.environ, PYTHONPATH=str(ROOT), JAX_PLATFORMS="cpu", OMP_NUM_THREADS="1",
-               XLA_FLAGS="")
-    cmd = [sys.executable, "-m", module, "-c", str(cwd / "config.json"), "-e",
-           str(cwd / "env.json"), "--synthetic-data", "--max-epochs", "1", "--no-images", *flags]
-    return subprocess.Popen(cmd, cwd=cwd, env=env, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
-
-
-def _stage2_ready_dir(path: Path, jax_side: bool) -> Path:
-    """A directory holding the micro preset, an environment of ``model_dir``
-    alone, and a stage-1 ``best`` autoencoder for the stage-2 trainer."""
-    path.mkdir()
-    (path / "config.json").write_text(
-        Path(port_preset_path("config_micro_cpu.json")).read_text())
-    (path / "env.json").write_text(json.dumps({"model_dir": "m"}))
-    cfg = load_json(port_preset_path("config_micro_cpu.json"))
-    if jax_side:
-        from ldm3d_tpu.ckpt import CheckpointManager, StageArtifacts
-
-        ae = ConfigResolver(cfg).instantiate("autoencoder_def")
-        key = jax.random.PRNGKey(0)
-        params = ae.init({"params": key, "sample": key}, jnp.zeros((1, 16, 16, 16, 1)))["params"]
-        CheckpointManager(str(path / "m"), StageArtifacts.AUTOENCODER).save(
-            "best", {"params": params})
-    else:
-        from ldm3d_torch.ckpt import CheckpointManager
-
-        with torch.device("cpu"):
-            ae = port_define_instance(SimpleNamespace(**cfg), "autoencoder_def")
-        CheckpointManager(str(path / "m"), "autoencoder").save(
-            "best", {"state_dict": ae.state_dict()})
-    return path
-
-
-def test_minimal_environment_trains_both_stages_as_in_jax(tmp_path):
-    """``environment.json`` holding only ``model_dir``: the JAX trainers run
-    (their merge defaults ``resume_ckpt``, ``tfevent_path`` and
-    ``output_dir``), and so do the port's, writing their TensorBoard events
-    under the default ``./runs``."""
-    runs = {}
-    for side, pkg, flags in (("jax", "ldm3d_tpu", ()), ("port", "ldm3d_torch",
-                                                         ("--device", "cpu"))):
-        stage1 = tmp_path / f"{side}_stage1"
-        stage1.mkdir()
-        (stage1 / "config.json").write_text(
-            Path(port_preset_path("config_micro_cpu.json")).read_text())
-        (stage1 / "env.json").write_text(json.dumps({"model_dir": "m"}))
-        stage2 = _stage2_ready_dir(tmp_path / f"{side}_stage2", jax_side=side == "jax")
-        runs[(side, "train_autoencoder")] = (stage1, _run(f"{pkg}.cli.train_autoencoder",
-                                                          stage1, *flags))
-        runs[(side, "train_diffusion")] = (stage2, _run(f"{pkg}.cli.train_diffusion", stage2,
-                                                        *flags))
-    for (side, cli), (cwd, proc) in runs.items():
-        out, _ = proc.communicate(timeout=900)
-        assert proc.returncode == 0, f"{side} {cli} failed:\n{out[-3000:]}"
-        assert "training complete" in out, f"{side} {cli}:\n{out[-2000:]}"
-        assert (cwd / "runs").is_dir(), f"{side} {cli} wrote no ./runs"
-    for cli, files in (("train_autoencoder", ("autoencoder_best.pt", "discriminator_best.pt")),
-                       ("train_diffusion", ("diffusion_best.pt", "diffusion_last.pt"))):
-        model_dir = runs[("port", cli)][0] / "m"
-        assert all((model_dir / f).is_file() for f in files), sorted(os.listdir(model_dir))

@@ -28,6 +28,8 @@ import torch.nn.functional as F
 from ldm3d_torch.ops import conv3d as tconv
 from ldm3d_torch.tools.conv_ab import SHAPES as AB_SHAPES
 
+torch.set_num_threads(1)
+
 SHAPES = [
     (1, 3, 8, 8, 8, 8),      # generic tiny
     (2, 4, 8, 16, 16, 8),    # multi-batch, rectangular plane, cout != cin

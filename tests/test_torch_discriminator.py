@@ -30,6 +30,8 @@ from ldm3d_torch.nn.discriminator import same_pads
 from ldm3d_tpu.losses import lsgan_discriminator_loss as jax_d_loss
 from ldm3d_tpu.nn import PatchDiscriminator3D as JaxDisc
 
+torch.set_num_threads(1)
+
 ATOL = 1e-4
 GRAD_REL = 1e-4
 

@@ -41,6 +41,8 @@ from ldm3d_torch.evaluation import (
 from ldm3d_torch.evaluation import metrics as M
 from ldm3d_torch.nn import init_weights_
 
+torch.set_num_threads(1)
+
 ATOL = 1e-5
 
 

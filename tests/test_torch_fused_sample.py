@@ -45,6 +45,8 @@ from ldm3d_torch.ops import graphs
 from ldm3d_torch.ops import groupnorm as tgn
 from ldm3d_torch.utils.nifti import read_nifti
 
+torch.set_num_threads(1)
+
 ATOL_SAMPLE = 1e-4
 SCALE_FACTOR = 0.8
 N_TRAIN = 16

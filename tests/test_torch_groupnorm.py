@@ -29,6 +29,8 @@ from ldm3d_tpu.nn.blocks import _gn_affine
 from ldm3d_tpu.ops.groupnorm import gn_bwd_sums as jax_gn_bwd_sums
 from ldm3d_tpu.ops.groupnorm import gn_sums as jax_gn_sums
 
+torch.set_num_threads(1)
+
 SUM_REL = 1e-5
 ATOL = 1e-4
 

@@ -58,8 +58,8 @@ def tiny():
     cfg, jae, ae_params, junet, u_params = jax_models(TINY, seed=3)
     tae, tunet = port_models(cfg, ae_params, u_params)
     jd = JaxDisc(num_layers_d=3, channels=4, in_channels=1)
-    d_params = jax.device_get(jd.init(jax.random.PRNGKey(2), jnp.zeros((1, 16, 16, 16, 1)))
-                              ["params"])
+    d_params = jax.device_get(jax.jit(jd.init)(jax.random.PRNGKey(2),
+                                               jnp.zeros((1, 16, 16, 16, 1)))["params"])
     td = PortDisc(num_layers_d=3, channels=4, in_channels=1)
     td.load_state_dict(state_dict_from_jax(d_params, td))
     return {"cfg": cfg,
@@ -155,8 +155,8 @@ def test_port_export_is_the_jax_export(tiny, name, qkv_mode):
 
 def _mid_depth_pair(depth: int = 2):
     junet = JaxUNet(**MID_KW, mid_depth=depth)
-    params = jax.device_get(junet.init(jax.random.PRNGKey(4), jnp.zeros((1, 4, 4, 4, 4)),
-                                       jnp.zeros((1,), jnp.int32))["params"])
+    params = jax.device_get(jax.jit(junet.init)(jax.random.PRNGKey(4), jnp.zeros((1, 4, 4, 4, 4)),
+                                                jnp.zeros((1,), jnp.int32))["params"])
     tunet = DiffusionUNet3D(**MID_KW, mid_depth=depth)
     tunet.load_state_dict(state_dict_from_jax(params, tunet))
     return params, tunet

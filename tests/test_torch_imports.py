@@ -1,8 +1,9 @@
 """Import rules of the PyTorch port.
 
 The port (``ldm3d_torch/``) and ``chip_smoke.py`` import torch, numpy and the
-standard library: never JAX, Flax, Optax, Orbax or the JAX package
-(``ldm3d_tpu``), not even its numpy-only modules. And the port imports on a
+standard library: never JAX, Flax, Optax, Orbax, MLflow (the port's
+tracker writes local JSON only) or the JAX package (``ldm3d_tpu``), not
+even its numpy-only modules. And the port imports on a
 machine with no ``nvcc``, no GPU and no ``triton``: kernels are built and
 loaded only when a CUDA tensor first reaches them.
 """
@@ -16,7 +17,7 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "ldm3d_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "mlflow", "ldm3d_tpu")
 
 
 def _port_sources():

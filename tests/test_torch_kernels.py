@@ -22,6 +22,8 @@ import torch
 
 from ldm3d_torch.ops import attention as tattn
 
+torch.set_num_threads(1)
+
 
 def _qkv(shape, seed):
     rng = np.random.default_rng(seed)
@@ -348,6 +350,42 @@ def test_kernel_routes_by_dtype_on_card():
     assert not any("tf32" in name for name in names[torch.bfloat16])
     assert any("flash_fwd_tf32x3_mma_kernel" in name for name in names[torch.float32])
     assert not any("bf16" in name for name in names[torch.float32])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+def test_checkpointed_groupnorm_attention_block_on_card(dtype):
+    """A GroupNorm + attention block (``AttentionBlock3D``, two heads of 32)
+    under ``remat_wrapped`` on the card: under ``"full"`` and ``"convs"`` its
+    gradients (input and parameters) hold the unremated call's bits, the
+    same kernels on the same inputs; and a CUDA graph of the remated call
+    holds each forward kernel twice (the call and the backward's rerun) and
+    the GroupNorm backward sums once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from ldm3d_torch.nn.blocks import AttentionBlock3D, remat_wrapped
+
+    torch.manual_seed(6)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    with torch.device("cuda"):
+        block = AttentionBlock3D(64, 32, 8)
+    x = torch.randn((2, 64, 6, 6, 6), generator=gen, device="cuda").to(dtype)
+    x = x.contiguous(memory_format=torch.channels_last_3d).requires_grad_()
+    dy = torch.randn(x.shape, generator=gen, device="cuda").to(dtype)
+    dy = dy.contiguous(memory_format=torch.channels_last_3d)
+    inputs = [x, *block.parameters()]
+
+    def call(mode):
+        return torch.autograd.grad(remat_wrapped(block, mode)(x), inputs, dy)
+
+    plain = call(False)
+    for mode in ("full", "convs"):
+        assert _same_bits(call(mode), plain), f"remat {mode} changed a gradient"
+    fwd = _kernel_names(lambda: call("full"), "flash_fwd", 2)
+    assert all(("bf16" in name) == (dtype == torch.bfloat16) for name in fwd)
+    _kernel_names(lambda: call("full"), "gn_sums_onepass", 2)
+    _kernel_names(lambda: call("full"), "gn_bwd_sums_onepass", 1)
+    _kernel_names(lambda: call(False), "flash_fwd", 1)
 
 
 @pytest.mark.cuda

@@ -16,6 +16,8 @@ import torch
 import ldm3d_torch.losses as T
 import ldm3d_tpu.losses as J
 
+torch.set_num_threads(1)
+
 RTOL = 1e-6
 
 

@@ -26,6 +26,8 @@ from ldm3d_tpu.nn import LPIPS as JaxLPIPS
 from ldm3d_tpu.nn import SqueezeNetFeatures as JaxSqueeze
 from ldm3d_tpu.nn import lpips as J
 
+torch.set_num_threads(1)
+
 RTOL = 1e-5
 
 

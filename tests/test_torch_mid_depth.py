@@ -56,9 +56,9 @@ def _pair(depth: int = DEPTH, seed: int = 0):
     cfg = _cfg(depth)
     junet = ConfigResolver(cfg).instantiate("diffusion_def")
     latent = [p // 4 for p in cfg["diffusion_train"]["patch_size"]]
-    params = jax.device_get(junet.init(jax.random.PRNGKey(seed),
-                                       jnp.zeros((1, *latent, junet.in_channels)),
-                                       jnp.zeros((1,), jnp.int32))["params"])
+    params = jax.device_get(jax.jit(junet.init)(jax.random.PRNGKey(seed),
+                                                jnp.zeros((1, *latent, junet.in_channels)),
+                                                jnp.zeros((1,), jnp.int32))["params"])
     kernel = params["conv_out"]["kernel"]
     params["conv_out"]["kernel"] = 0.05 * np.random.default_rng(seed).standard_normal(
         kernel.shape).astype(np.float32)
@@ -99,7 +99,7 @@ def test_forward_matches_jax(pair):
     rng = np.random.default_rng(2)
     x = rng.standard_normal((2, *latent, junet.in_channels), dtype=np.float32)
     t = np.array([3, 11], np.int32)
-    ref = np.asarray(junet.apply({"params": params}, jnp.asarray(x), jnp.asarray(t)))
+    ref = np.asarray(jax.jit(junet.apply)({"params": params}, jnp.asarray(x), jnp.asarray(t)))
     with torch.no_grad():
         out = tunet(torch.from_numpy(x), torch.from_numpy(t)).numpy()
     np.testing.assert_allclose(out, ref, atol=ATOL, rtol=0)

@@ -47,10 +47,10 @@ def jax_models(preset: str, seed: int = 0):
     patch = cfg["diffusion_train"]["patch_size"]
     latent = [p // ae.downsample_factor for p in patch]
     key = jax.random.PRNGKey(seed)
-    ae_params = ae.init({"params": key, "sample": key},
-                        jnp.zeros((1, *patch, cfg["image_channels"])))["params"]
-    u_params = unet.init(key, jnp.zeros((1, *latent, unet.in_channels)),
-                         jnp.zeros((1,), jnp.int32))["params"]
+    ae_params = jax.jit(ae.init)({"params": key, "sample": key},
+                                 jnp.zeros((1, *patch, cfg["image_channels"])))["params"]
+    u_params = jax.jit(unet.init)(key, jnp.zeros((1, *latent, unet.in_channels)),
+                                  jnp.zeros((1,), jnp.int32))["params"]
     u_params = jax.device_get(u_params)
     rng = np.random.default_rng(seed)
     kernel = u_params["conv_out"]["kernel"]
@@ -99,7 +99,7 @@ def test_unet_forward_matches_jax(preset, micro):
     rng = np.random.default_rng(2)
     x = rng.standard_normal((2, *latent, junet.in_channels), dtype=np.float32)
     t = np.array([3, 11], np.int32)
-    ref = np.asarray(junet.apply({"params": u_params}, jnp.asarray(x), jnp.asarray(t)))
+    ref = np.asarray(jax.jit(junet.apply)({"params": u_params}, jnp.asarray(x), jnp.asarray(t)))
     with torch.no_grad():
         out = tunet(torch.from_numpy(x), torch.from_numpy(t)).numpy()
     assert out.shape == ref.shape
@@ -111,7 +111,8 @@ def test_autoencoder_matches_jax(micro):
     patch = cfg["diffusion_train"]["patch_size"]
     rng = np.random.default_rng(3)
     x = rng.uniform(0, 1, (2, *patch, 1)).astype(np.float32)
-    jmu, jsigma = jae.apply({"params": ae_params}, jnp.asarray(x), method="encode")
+    jmu, jsigma = jax.jit(lambda p, v: jae.apply({"params": p}, v, method="encode"))(
+        ae_params, jnp.asarray(x))
     eps = rng.standard_normal(jmu.shape, dtype=np.float32)
     with torch.no_grad():
         mu, sigma = tae.encode(torch.from_numpy(x))
@@ -121,8 +122,9 @@ def test_autoencoder_matches_jax(micro):
     np.testing.assert_allclose(sigma.numpy(), np.asarray(jsigma), atol=ATOL, rtol=0)
     ref_z = np.asarray(jmu + jsigma * jnp.asarray(eps))
     np.testing.assert_allclose(z.numpy(), ref_z, atol=ATOL, rtol=0)
-    ref_recon = np.asarray(jae.apply({"params": ae_params}, jnp.asarray(ref_z),
-                                     method="decode_stage_2_outputs"))
+    ref_recon = np.asarray(jax.jit(
+        lambda p, z: jae.apply({"params": p}, z, method="decode_stage_2_outputs"))(
+        ae_params, jnp.asarray(ref_z)))
     assert recon.shape == x.shape
     np.testing.assert_allclose(recon, ref_recon, atol=ATOL, rtol=0)
 

@@ -18,6 +18,8 @@ from test_torch_serving import port_two_stage
 from ldm3d_torch.cli.common import tf32_flags
 from ldm3d_torch.serving.model_server import ModelServer
 
+torch.set_num_threads(1)
+
 
 @pytest.fixture
 def tf32_on():

@@ -69,10 +69,10 @@ def _pairs(cfg: dict, image, latent):
     r = ConfigResolver(cfg)
     jae, junet = r.instantiate("autoencoder_def"), r.instantiate("diffusion_def")
     key = jax.random.PRNGKey(1)
-    ae_params = jax.device_get(jae.init({"params": key, "sample": key},
-                                        jnp.zeros((1, *image, cfg["image_channels"])))["params"])
-    u_params = jax.device_get(junet.init(key, jnp.zeros((1, *latent, junet.in_channels)),
-                                         jnp.zeros((1,), jnp.int32))["params"])
+    ae_params = jax.device_get(jax.jit(jae.init)(
+        {"params": key, "sample": key}, jnp.zeros((1, *image, cfg["image_channels"])))["params"])
+    u_params = jax.device_get(jax.jit(junet.init)(key, jnp.zeros((1, *latent, junet.in_channels)),
+                                                  jnp.zeros((1,), jnp.int32))["params"])
     u_params["conv_out"]["kernel"] = 0.05 * np.random.default_rng(1).standard_normal(
         u_params["conv_out"]["kernel"].shape).astype(np.float32)
     ns = SimpleNamespace(**cfg)
@@ -89,11 +89,13 @@ def test_narrowed_preset_models_match_jax(name):
     (jae, ae_params, tae), (junet, u_params, tunet) = _pairs(cfg, image, latent)
     rng = np.random.default_rng(4)
     x = rng.uniform(0, 1, (1, *image, cfg["image_channels"])).astype(np.float32)
-    jmu, _ = jae.apply({"params": ae_params}, jnp.asarray(x), method="encode")
-    jrecon = jae.apply({"params": ae_params}, jmu, method="decode_stage_2_outputs")
+    jmu, _ = jax.jit(lambda p, v: jae.apply({"params": p}, v, method="encode"))(
+        ae_params, jnp.asarray(x))
+    jrecon = jax.jit(lambda p, v: jae.apply({"params": p}, v, method="decode_stage_2_outputs"))(
+        ae_params, jmu)
     z = rng.standard_normal((2, *latent, junet.in_channels), dtype=np.float32)
     t = np.array([1, 900], np.int32)
-    jeps = junet.apply({"params": u_params}, jnp.asarray(z), jnp.asarray(t))
+    jeps = jax.jit(junet.apply)({"params": u_params}, jnp.asarray(z), jnp.asarray(t))
     with torch.no_grad():
         mu, _ = tae.encode(torch.from_numpy(x))
         recon = tae.decode_stage_2_outputs(torch.from_numpy(np.array(jmu)))
@@ -144,7 +146,8 @@ def test_16g_trainers_refuse_one_channel_data_as_jax(tmp_path):
     # JAX: params built for 2 channels, then the first 1-channel crop
     jae = ConfigResolver(cfg).instantiate("autoencoder_def")
     key = jax.random.PRNGKey(0)
-    params = jae.init({"params": key, "sample": key}, jnp.zeros((1, 16, 16, 16, 2)))["params"]
+    params = jax.jit(jae.init)({"params": key, "sample": key},
+                               jnp.zeros((1, 16, 16, 16, 2)))["params"]
     with pytest.raises(flax.errors.ScopeParamShapeError):
         jae.apply({"params": params}, jnp.zeros((1, 16, 16, 16, 1)), method="encode")
     with pytest.raises(RuntimeError, match="to have 2 channels, but got 1"):

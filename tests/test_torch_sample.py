@@ -34,6 +34,8 @@ from ldm3d_torch.utils.nifti import read_nifti
 from ldm3d_tpu.diffusion import DDIMScheduler as JaxDDIM
 from ldm3d_tpu.diffusion import inferer as jax_inferer
 
+torch.set_num_threads(1)
+
 ATOL_SAMPLE = 1e-4
 SCALE_FACTOR = 0.8
 

@@ -33,6 +33,8 @@ from ldm3d_tpu.diffusion import distillation_grid as jax_distillation_grid
 from ldm3d_tpu.diffusion import inferer as jax_inferer
 from ldm3d_tpu.diffusion import karras_timestep_grid as jax_karras
 
+torch.set_num_threads(1)
+
 ATOL = 1e-5
 N_TRAIN = 16
 SCHED_CFG = {"num_train_timesteps": N_TRAIN, "schedule": "scaled_linear_beta",

@@ -27,6 +27,8 @@ from ldm3d_torch.serving.api_server import Api, make_stdlib_server
 from ldm3d_torch.serving.metrics import Counter, Gauge, Histogram, Registry
 from ldm3d_torch.serving.model_server import ModelServer
 
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parents[1]
 
 

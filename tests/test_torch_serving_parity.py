@@ -23,6 +23,8 @@ from ldm3d_torch.cli.common import save_two_stage
 from ldm3d_torch.serving.model_server import ModelServer as PortServer
 from ldm3d_tpu.serving.model_server import ModelServer as JaxServer
 
+torch.set_num_threads(1)
+
 ATOL = 1e-4
 SCALE_FACTOR = 0.8
 

@@ -14,10 +14,13 @@ import threading
 
 import numpy as np
 import pytest
+import torch
 from test_torch_serving import http, port_two_stage, serving
 
 from ldm3d_torch.serving.api_server import Api
 from ldm3d_torch.serving.model_server import ModelServer
+
+torch.set_num_threads(1)
 
 
 def _vol(out, i=0):

@@ -70,6 +70,8 @@ from ldm3d_tpu.training.stage1 import make_optimizer as jax_make_optimizer
 from ldm3d_tpu.training.stage1 import make_stage1_eval_step as jax_eval_step
 from ldm3d_tpu.training.stage1 import make_stage1_train_step as jax_train_step
 
+torch.set_num_threads(1)
+
 LR = 1e-4
 D_CHANNELS = 8
 
@@ -202,8 +204,18 @@ def test_accum_schedule_matches_jax(grad_accum):
 
 
 def test_make_optimizer_refuses_grad_accum():
-    with pytest.raises(NotImplementedError, match="Training follow-ups"):
-        make_optimizer([torch.nn.Parameter(torch.zeros(2))], lambda c: 1e-3, grad_accum=2)
+    """Since gradient accumulation is ported, ``grad_accum=2`` builds an
+    accumulating optimizer (its first micro-step moves nothing), and an
+    optimizer refuses a state saved under another ``grad_accum`` setting."""
+    w = torch.nn.Parameter(torch.ones(2))
+    opt = make_optimizer([w], lambda c: 1e-3, grad_accum=2)
+    w.grad = torch.ones(2)
+    opt.step(0)
+    assert opt.grad_accum == 2 and opt.mini_step == 1
+    torch.testing.assert_close(w.detach(), torch.ones(2), rtol=0, atol=0)
+    with pytest.raises(ValueError, match="grad-accum"):
+        make_optimizer([torch.nn.Parameter(torch.ones(2))], lambda c: 1e-3).load_state_dict(
+            opt.state_dict())
 
 
 # --- the steps --------------------------------------------------------------------
