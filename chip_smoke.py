@@ -6,8 +6,8 @@ CUDA device, ``nvcc`` and the port's sources; it exits non-zero, without a
 result line, when any of them is missing or any phase fails. ``--phases
 kernel,kernel_conv`` (any of kernel, kernel_bwd, kernel_c2, kernel_conv,
 train_ae, train_ae_fp32, stage1_card_vs_cpu, sample_fused, distill,
-distill_card_vs_cpu, evaluate, presets, follow_ups) runs only those phases
-after device and build, and prints no result line.
+distill_card_vs_cpu, evaluate, presets, follow_ups, data_tools) runs only
+those phases after device and build, and prints no result line.
 Phases, each printing JSON lines:
 
 1. device: the card's name and power limit (``nvidia-smi``);
@@ -68,14 +68,15 @@ Phases, each printing JSON lines:
 5b. sample_fused: ``cli.inference --fused-decode`` (the reverse loop and the
    decode replayed as CUDA graphs) on the same full-width checkpoints: DDIM-50
    bf16 batch 1; ddpm strided to 50 steps, fp32, batch 2, guidance 2.0;
-   dpm3-20 bf16; ddpm over the full 1,000-step schedule (stride 1: the
-   ``betas[t]`` rows, which no strided run reaches), bf16; each held bit
+   dpm3-20 bf16; ddpm over a full schedule (stride 1: the ``betas[t]``
+   rows, which no strided run reaches), bf16, on a copy of the config whose
+   schedule has FULL_SCHEDULE_STEPS (250) steps, not 1,000; each held bit
    for bit to its eager twin (the same argv and seed), its launches a sample
    equal to the twin's (warm-up taken off) and to those the sampler implies,
    the graphs captured once a run (however many steps), the replay loop
    under ``set_sync_debug_mode("error")``; capture ms, device ms a step and
    of the decode, volumes/s and peak memory beside the twin's; then one fused
-   DDIM-50 sample profiled;
+   DDIM-10 sample profiled;
 6. main path, training: ``ldm3d_torch.cli.train_diffusion.main`` with
    ``--amp --no-images`` on synthetic 80^3 pairs, batch 20, one epoch of 4
    steps (the first a warm-up) and one validation pass; finite losses, the
@@ -121,8 +122,9 @@ Phases, each printing JSON lines:
    a dpm-20 override, a NIfTI output, GET /health, /metrics and /model/info;
    every response 200, a real (not dummy) model, finite 80^3 volumes, the
    echoed sampler and spacing, and the exact attention and GroupNorm-sums
-   launches the served calls imply; then one more request under
-   ``torch.profiler`` gives the device time by category;
+   launches the served calls imply; then one more request (DDIM-10, the
+   fewest steps the REST layer takes) under ``torch.profiler`` gives the
+   device time by category;
 9. kernel_conv: the implicit-GEMM conv kernels (B6 on the tensor cores: bf16
    on wgmma, fp32 on mma.sync in 3xTF32) through their entry point
    ``ldm3d_torch.tools.conv_ab`` at its L0 shapes in bf16 and fp32: held
@@ -212,9 +214,42 @@ Phases, each printing JSON lines:
    --profile``) replays epoch 0.
    ``device_prefetch`` on the card.
 
-The GroupNorm kernel phase (7) runs after the serving and presets paths,
-and replays the inputs of every main-path run (the discriminator's instance
-norms, g = C, among them).
+16. data_tools: ``cli.prepare_data`` over ragged low/high volumes (``.npy``,
+   ``.npz`` and ``.nii``) fitted to 96^3; every written pair read through
+   the native NPZ loader (``csrc/npz_loader.cpp``, built with g++; the
+   dataset's counter must count each file on the native path) and bit-equal
+   to the numpy path, ``load_batch`` too; ``scale_intensity_percentiles`` on
+   the card at (2, 96, 96, 96, 1) within 1e-6 of the CPU. Calibration: the
+   allocator's peak (``max_memory_reserved`` less what earlier phases left
+   reserved) of adversarial bf16 stage-1 steps (32g's VAE, the CLI's
+   discriminator, LPIPS) at ``check_system.CALIBRATION``'s points and under
+   ``--remat convs`` and ``full`` at the largest, the device memory held
+   outside the allocator, the fit (state + bytes a voxel); the advisor's
+   model must be within 5 % of every point. The advisor:
+   ``cli.check_system`` on the card (the >= 24 GiB tier: 32g, batch 2,
+   96^3), then its recipe (warmup_epochs -1, one epoch) through
+   ``cli.train_autoencoder`` on the prepared data: 3 bf16 steps and one
+   validation batch, every attention launch at DATA_ATTN_SHAPE, (2, 13824,
+   1, 256), the launches by route; then the recipe it gives a 16 GiB card
+   (32g, batch 8, 64^3, its remat choice) for 3 steps on synthetic volumes
+   with the allocator capped so that the process has 16 GiB. For both the
+   measured peak (the allocator's and what lies outside it) must leave the
+   20 % headroom the recommendation claims, and the model must be within 5 %
+   of the allocator's part. The pipeline: ``TrainingPipeline.run_local``
+   over the prepared data with the advisor's config (one epoch a stage,
+   bf16): its evaluation must take the sampled path, and the run must
+   launch every attention and GroupNorm kernel. Every attention input that
+   these runs gave the kernels (the wrappers' ``cases``) that the kernel
+   phases do not hold is held to the plain versions and timed here, forward
+   and backward, and their GroupNorm inputs go to the kernel_gn phase. The
+   memory gates are read once every part has printed its readings. The
+   whole script runs this phase first, right after build, so that no
+   earlier phase holds blocks of the caching allocator.
+
+The GroupNorm kernel phase (7) runs after the serving, presets and
+data_tools paths, and replays the inputs of every main-path run (the
+discriminator's instance norms, g = C, among them); with ``--phases presets``
+or ``data_tools`` it replays that phase's.
 
 Precision: the kernel phases (3, 4, 9, 10) run with both ``allow_tf32``
 flags False, so that the plain versions, SDPA and cuDNN compute in full
@@ -237,9 +272,11 @@ runs' launches, in all and a step), the ``nvidia-smi`` line, and
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import gc
+import io
 import json
 import math
 import os
@@ -394,6 +431,10 @@ BIG_SHAPE = (20, 32768, 1, 128)
 # stable's VAE at d = 128; stage 2: 16g, multigpu and stable's UNets)
 PRESET_BWD_SHAPES = [(1, 32768, 1, 128), (1, 1728, 1, 128), (2, 5544, 4, 64), (2, 693, 8, 64),
                      (20, 512, 8, 64), (20, 64, 16, 64), (10, 27, 16, 32)]
+# every shape the kernel and kernel_bwd phases hold, in both dtypes
+FWD_KERNEL_SHAPES = (SHAPES + TRAIN_SHAPES + DISTILL_CFG_SHAPES + PRESET_SHAPES + EDGE_SHAPES
+                     + C2_SHAPES)
+BWD_KERNEL_SHAPES = BWD_SHAPES + PRESET_BWD_SHAPES + BWD_EDGE_SHAPES
 # B6's route for each dtype (csrc/conv3d_igemm.cu)
 CONV_ROUTES = {"bfloat16": "wgmma bf16 tensor cores, implicit GEMM over a staged input slab",
                "float32": "mma.sync tf32 tensor cores, 3xTF32 split, per-tap partials"}
@@ -516,6 +557,9 @@ STAGE1_REL = 1e-3
 # 1e-3 like the tiny sample card vs CPU.
 SERVE_STEPS = 50
 SERVE_DPM_STEPS = 20
+# the profiled request: DDIM-10, the fewest steps the REST layer takes (a
+# profiled DDIM-50 request took about 57 s of the script's time limit)
+SERVE_PROFILE_STEPS = 10
 SERVE_BATCH = 2
 SERVE_TOL = 1e-3
 
@@ -744,56 +788,62 @@ def _check_bwd_plan(torch, dtype: str, shape, q, k, v, do) -> None:
 def phase_kernel(torch, F) -> dict:
     """Forward kernel against plain version at every shape and dtype; returns
     the per-(shape, dtype) measurements."""
-    from ldm3d_torch.ops.attention import attention_reference, flash_attention_fwd
-
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = {}
-    shapes = (SHAPES + TRAIN_SHAPES + DISTILL_CFG_SHAPES + PRESET_SHAPES + EDGE_SHAPES
-              + C2_SHAPES)
+    shapes = FWD_KERNEL_SHAPES
     cases = [("bfloat16", s) for s in shapes] + [("float32", s) for s in shapes]
     for dtype, shape in cases:
-        dt = getattr(torch, dtype)
-        b, n, h, d = shape[:4]
-        qkv, (q, k, v) = _fused_qkv(torch, shape, dt, gen)
-        _check_fwd_plan(torch, dtype, shape, q, k, v)
-        route = fwd_route(dtype, d)
-        before = flash_attention_fwd.route_launches[route]
-        out, lse = flash_attention_fwd(q, k, v)
-        torch.cuda.synchronize()
-        check(flash_attention_fwd.route_launches[route] == before + 1,
-              f"the {route} route did not run at {shape} {dtype}")
-        ref, ref_lse = attention_reference(q, k, v)
-        err = (out.float() - ref.float()).abs().max().item()
-        lse_err = (lse - ref_lse).abs().max().item()
-        tol = out_tol(dtype, ref.float().abs().max().item())
-        del ref, ref_lse
-        check(math.isfinite(err) and err <= tol,
-              f"kernel O differs from plain by {err} (limit {tol}) at {shape} {dtype}")
-        check(math.isfinite(lse_err) and lse_err <= TOL_FP32,
-              f"kernel LSE differs from plain by {lse_err} at {shape} {dtype}")
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        loop = loop_size(4.0 * b * h * n * k.shape[1] * d)
-        row = {
-            "kernel_ms": cuda_ms(torch, lambda: flash_attention_fwd(q, k, v), **loop),
-            "kernel_host_ms": host_ms(torch, lambda: flash_attention_fwd(q, k, v)),
-            "plain_ms": cuda_ms(torch, lambda: attention_reference(q, k, v), **loop),
-            "library_ms": cuda_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt),
-                                  **loop),
-            "max_abs_err": err, "lse_max_abs_err": lse_err,
-        }
-        row["bound_ms"], row["bound_by"] = bound(shape, dtype, qkv.element_size())
-        if (shape, dtype) in EARLIER_FWD_MS:
-            row["recorded_earlier_ms"] = EARLIER_FWD_MS[(shape, dtype)]
-        results[(shape, dtype)] = row
-        emit({"phase": "kernel", "kernel": "flash_fwd", "shape_bnhd": list(shape[:4]),
-              "kv_len": k.shape[1], "dtype": dtype, "route": FWD_ROUTES[route], **row,
-              "tflops": 4.0 * b * h * n * k.shape[1] * d / row["kernel_ms"] / 1e9,
-              "out_tol": tol, "lse_tol": TOL_FP32})
-        del qkv, q, k, v, out, lse
+        results[(shape, dtype)] = _fwd_case(torch, F, dtype, shape, gen)
     torch.cuda.empty_cache()
     for dtype in ("bfloat16", "float32"):
         results[(BIG_SHAPE, dtype)] = _kernel_big(torch, F, dtype, gen, results)
     return results
+
+
+def _fwd_case(torch, F, dtype: str, shape, gen, phase: str = "kernel") -> dict:
+    """The forward kernel at one shape and dtype: its route's count rises by
+    one, O and the LSE within their limits of the plain version; device ms
+    of the kernel, the plain version and SDPA, host ms, the bound."""
+    from ldm3d_torch.ops.attention import attention_reference, flash_attention_fwd
+
+    dt = getattr(torch, dtype)
+    b, n, h, d = shape[:4]
+    qkv, (q, k, v) = _fused_qkv(torch, shape, dt, gen)
+    _check_fwd_plan(torch, dtype, shape, q, k, v)
+    route = fwd_route(dtype, d)
+    before = flash_attention_fwd.route_launches[route]
+    out, lse = flash_attention_fwd(q, k, v)
+    torch.cuda.synchronize()
+    check(flash_attention_fwd.route_launches[route] == before + 1,
+          f"the {route} route did not run at {shape} {dtype}")
+    ref, ref_lse = attention_reference(q, k, v)
+    err = (out.float() - ref.float()).abs().max().item()
+    lse_err = (lse - ref_lse).abs().max().item()
+    tol = out_tol(dtype, ref.float().abs().max().item())
+    del ref, ref_lse
+    check(math.isfinite(err) and err <= tol,
+          f"kernel O differs from plain by {err} (limit {tol}) at {shape} {dtype}")
+    check(math.isfinite(lse_err) and lse_err <= TOL_FP32,
+          f"kernel LSE differs from plain by {lse_err} at {shape} {dtype}")
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    loop = loop_size(4.0 * b * h * n * k.shape[1] * d)
+    row = {
+        "kernel_ms": cuda_ms(torch, lambda: flash_attention_fwd(q, k, v), **loop),
+        "kernel_host_ms": host_ms(torch, lambda: flash_attention_fwd(q, k, v)),
+        "plain_ms": cuda_ms(torch, lambda: attention_reference(q, k, v), **loop),
+        "library_ms": cuda_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt),
+                              **loop),
+        "max_abs_err": err, "lse_max_abs_err": lse_err,
+    }
+    row["bound_ms"], row["bound_by"] = bound(shape, dtype, qkv.element_size())
+    if (shape, dtype) in EARLIER_FWD_MS:
+        row["recorded_earlier_ms"] = EARLIER_FWD_MS[(shape, dtype)]
+    emit({"phase": phase, "kernel": "flash_fwd", "shape_bnhd": list(shape[:4]),
+          "kv_len": k.shape[1], "dtype": dtype, "route": FWD_ROUTES[route], **row,
+          "tflops": 4.0 * b * h * n * k.shape[1] * d / row["kernel_ms"] / 1e9,
+          "out_tol": tol, "lse_tol": TOL_FP32})
+    del qkv, q, k, v, out, lse
+    return row
 
 
 def _kernel_big(torch, F, dtype: str, gen, results: dict) -> dict:
@@ -844,85 +894,93 @@ def _kernel_big(torch, F, dtype: str, gen, results: dict) -> dict:
 def phase_kernel_bwd(torch, F) -> dict:
     """dQ and dK/dV kernels against their plain versions; returns the
     per-(shape, dtype) measurements."""
-    from ldm3d_torch.ops import attention as A
-
     gen = torch.Generator(device="cuda").manual_seed(1)
     results = {}
-    shapes = BWD_SHAPES + PRESET_BWD_SHAPES + BWD_EDGE_SHAPES
+    shapes = BWD_KERNEL_SHAPES
     cases = [("bfloat16", s) for s in shapes] + [("float32", s) for s in shapes]
     for dtype, shape in cases:
-        dt = getattr(torch, dtype)
-        b, n, h, d = shape[:4]
-        qkv, (q, k, v) = _fused_qkv(torch, shape, dt, gen)
-        do = torch.randn((b, n, h, d), generator=gen, device="cuda").to(dt)
-        _check_bwd_plan(torch, dtype, shape, q, k, v, do)
-        out, lse = A.flash_attention_fwd(q, k, v)
-        dvec = A.attention_bwd_dvec(do, out)
-        route = bwd_route(dtype, d)
-        before = [fn.route_launches[route] for fn in (A.flash_attention_bwd_dq,
-                                                       A.flash_attention_bwd_dkv)]
-        grads = A.flash_attention_bwd(q, k, v, out, lse, do)
-        again = A.flash_attention_bwd(q, k, v, out, lse, do)
-        torch.cuda.synchronize()
-        check([fn.route_launches[route] for fn in (A.flash_attention_bwd_dq,
-                                                   A.flash_attention_bwd_dkv)]
-              == [x + 2 for x in before], f"the {route} backward route did not run at {shape} "
-                                          f"{dtype}")
-        check(all(torch.equal(x, y) for x, y in zip(grads, again)),
-              f"flash_bwd gave other gradients on a second run at {shape} {dtype}")
-        del again
-        refs = A.attention_bwd_reference(q, k, v, out, lse, do)
-        errs, tols = {}, {}
-        for name, got, want in zip(("dq", "dk", "dv"), grads, refs):
-            errs[name] = (got.float() - want.float()).abs().max().item()
-            tols[name] = grad_tol(dtype, want.float().abs().max().item())
-            check(math.isfinite(errs[name]) and errs[name] <= tols[name],
-                  f"flash_bwd {name} differs from plain by {errs[name]} (limit "
-                  f"{tols[name]}) at {shape} {dtype}")
-        del grads, refs
-        loop = loop_size(8.0 * b * h * n * k.shape[1] * d)
-        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
-        dot = do.transpose(1, 2)
-
-        def sdpa_fwd_bwd():
-            o = F.scaled_dot_product_attention(qt, kt, vt)
-            torch.autograd.grad(o, (qt, kt, vt), dot)
-
-        def sdpa_fwd():
-            with torch.no_grad():
-                F.scaled_dot_product_attention(qt, kt, vt)
-
-        row = {
-            "dq_ms": cuda_ms(torch, lambda: A.flash_attention_bwd_dq(q, k, v, do, lse, dvec),
-                             **loop),
-            "dkv_ms": cuda_ms(torch, lambda: A.flash_attention_bwd_dkv(q, k, v, do, lse,
-                                                                       dvec), **loop),
-            "dq_host_ms": host_ms(torch, lambda: A.flash_attention_bwd_dq(q, k, v, do, lse,
-                                                                          dvec)),
-            "dkv_host_ms": host_ms(torch, lambda: A.flash_attention_bwd_dkv(q, k, v, do, lse,
-                                                                            dvec)),
-            "dq_plain_ms": cuda_ms(torch, lambda: A.attention_bwd_dq_reference(
-                q, k, v, do, lse, dvec), **loop),
-            "dkv_plain_ms": cuda_ms(torch, lambda: A.attention_bwd_dkv_reference(
-                q, k, v, do, lse, dvec), **loop),
-            "sdpa_bwd_ms": cuda_ms(torch, sdpa_fwd_bwd, **loop) - cuda_ms(torch, sdpa_fwd,
-                                                                          **loop),
-            "max_abs_err": errs, "tol": tols,
-            "max_err_over_tol": max(errs[x] / tols[x] for x in errs),
-        }
-        for kind in ("dq", "dkv"):
-            row[f"{kind}_bound_ms"], row[f"{kind}_bound_by"] = bound_bwd(
-                shape, dtype, qkv.element_size(), kind)
-        if dtype == "float32":
-            row.update(SCALAR_FP32_BWD.get(shape, {}))
-        if (shape, dtype) in EARLIER_BWD_MS:
-            row["recorded_earlier_ms"] = EARLIER_BWD_MS[(shape, dtype)]
-        results[(shape, dtype)] = row
-        emit({"phase": "kernel_bwd", "kernel": "flash_bwd", "shape_bnhd": list(shape[:4]),
-              "kv_len": k.shape[1], "dtype": dtype, "route": BWD_ROUTES[route], **row})
-        del qkv, q, k, v, do, out, lse, dvec, qt, kt, vt
-        torch.cuda.empty_cache()
+        results[(shape, dtype)] = _bwd_case(torch, F, dtype, shape, gen)
     return results
+
+
+def _bwd_case(torch, F, dtype: str, shape, gen, phase: str = "kernel_bwd") -> dict:
+    """dQ and dK/dV at one shape and dtype (TF32 off): their route's counts
+    rise, the same bits on a second run, each gradient within its limit of
+    the plain version; device ms of each kernel, the plain versions and
+    SDPA's backward, host ms, the bounds."""
+    from ldm3d_torch.ops import attention as A
+
+    dt = getattr(torch, dtype)
+    b, n, h, d = shape[:4]
+    qkv, (q, k, v) = _fused_qkv(torch, shape, dt, gen)
+    do = torch.randn((b, n, h, d), generator=gen, device="cuda").to(dt)
+    _check_bwd_plan(torch, dtype, shape, q, k, v, do)
+    out, lse = A.flash_attention_fwd(q, k, v)
+    dvec = A.attention_bwd_dvec(do, out)
+    route = bwd_route(dtype, d)
+    before = [fn.route_launches[route] for fn in (A.flash_attention_bwd_dq,
+                                                   A.flash_attention_bwd_dkv)]
+    grads = A.flash_attention_bwd(q, k, v, out, lse, do)
+    again = A.flash_attention_bwd(q, k, v, out, lse, do)
+    torch.cuda.synchronize()
+    check([fn.route_launches[route] for fn in (A.flash_attention_bwd_dq,
+                                               A.flash_attention_bwd_dkv)]
+          == [x + 2 for x in before], f"the {route} backward route did not run at {shape} "
+                                      f"{dtype}")
+    check(all(torch.equal(x, y) for x, y in zip(grads, again)),
+          f"flash_bwd gave other gradients on a second run at {shape} {dtype}")
+    del again
+    refs = A.attention_bwd_reference(q, k, v, out, lse, do)
+    errs, tols = {}, {}
+    for name, got, want in zip(("dq", "dk", "dv"), grads, refs):
+        errs[name] = (got.float() - want.float()).abs().max().item()
+        tols[name] = grad_tol(dtype, want.float().abs().max().item())
+        check(math.isfinite(errs[name]) and errs[name] <= tols[name],
+              f"flash_bwd {name} differs from plain by {errs[name]} (limit "
+              f"{tols[name]}) at {shape} {dtype}")
+    del grads, refs
+    loop = loop_size(8.0 * b * h * n * k.shape[1] * d)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+    dot = do.transpose(1, 2)
+
+    def sdpa_fwd_bwd():
+        o = F.scaled_dot_product_attention(qt, kt, vt)
+        torch.autograd.grad(o, (qt, kt, vt), dot)
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            F.scaled_dot_product_attention(qt, kt, vt)
+
+    row = {
+        "dq_ms": cuda_ms(torch, lambda: A.flash_attention_bwd_dq(q, k, v, do, lse, dvec),
+                         **loop),
+        "dkv_ms": cuda_ms(torch, lambda: A.flash_attention_bwd_dkv(q, k, v, do, lse,
+                                                                   dvec), **loop),
+        "dq_host_ms": host_ms(torch, lambda: A.flash_attention_bwd_dq(q, k, v, do, lse,
+                                                                      dvec)),
+        "dkv_host_ms": host_ms(torch, lambda: A.flash_attention_bwd_dkv(q, k, v, do, lse,
+                                                                        dvec)),
+        "dq_plain_ms": cuda_ms(torch, lambda: A.attention_bwd_dq_reference(
+            q, k, v, do, lse, dvec), **loop),
+        "dkv_plain_ms": cuda_ms(torch, lambda: A.attention_bwd_dkv_reference(
+            q, k, v, do, lse, dvec), **loop),
+        "sdpa_bwd_ms": cuda_ms(torch, sdpa_fwd_bwd, **loop) - cuda_ms(torch, sdpa_fwd,
+                                                                      **loop),
+        "max_abs_err": errs, "tol": tols,
+        "max_err_over_tol": max(errs[x] / tols[x] for x in errs),
+    }
+    for kind in ("dq", "dkv"):
+        row[f"{kind}_bound_ms"], row[f"{kind}_bound_by"] = bound_bwd(
+            shape, dtype, qkv.element_size(), kind)
+    if dtype == "float32":
+        row.update(SCALAR_FP32_BWD.get(shape, {}))
+    if (shape, dtype) in EARLIER_BWD_MS:
+        row["recorded_earlier_ms"] = EARLIER_BWD_MS[(shape, dtype)]
+    emit({"phase": phase, "kernel": "flash_bwd", "shape_bnhd": list(shape[:4]),
+          "kv_len": k.shape[1], "dtype": dtype, "route": BWD_ROUTES[route], **row})
+    del qkv, q, k, v, do, out, lse, dvec, qt, kt, vt
+    torch.cuda.empty_cache()
+    return row
 
 
 @full_fp32
@@ -1349,6 +1407,8 @@ def _reset_counts() -> None:
     for fn in (A.flash_attention_bwd_dq, A.flash_attention_bwd_dkv):
         fn.route_launches = dict.fromkeys(A.BWD_ROUTE_IDS, 0)
     G.gn_sums.cases, G.gn_bwd_sums.cases = {}, {}
+    for fn in (A.flash_attention_fwd, A.flash_attention_bwd_dq, A.flash_attention_bwd_dkv):
+        fn.cases = {}
 
 
 def _read_counts() -> dict:
@@ -1479,7 +1539,13 @@ def phase_main_path(torch, ns, counts, workdir: Path, card: str, smi_line: str) 
 FUSED_RUNS = {"a_ddim50_bf16": ("ddim", DDIM_STEPS, True, 1, 1.0),
               "b_ddpm50_fp32_b2_cfg": ("ddpm", 50, False, 2, 2.0),
               "c_dpm3_20_bf16": ("dpm3", 20, True, 1, 1.0),
-              "d_ddpm1000_bf16": ("ddpm", None, True, 1, 1.0)}
+              "d_ddpm250_bf16": ("ddpm", None, True, 1, 1.0)}
+# the full-schedule run's schedule: the config's NoiseScheduler cut from 1,000
+# steps to these (its eager twin took 48.6 s of the script's time limit at
+# 1,000); the models and the volume stay the flagship's
+FULL_SCHEDULE_STEPS = 250
+# the profiled fused sample: DDIM-10, as the eager main path's profile
+PROFILE_FUSED_STEPS = 10
 
 
 def _cli_volumes(written) -> np.ndarray:
@@ -1496,7 +1562,7 @@ def phase_sample_fused(torch, ns, counts, workdir: Path, card: str, smi_line: st
     and B4 per UNet call and per VAE part, no backward or conv kernel), and
     the fused run's the same once its warm-up's are taken off; the step and
     decode captured once per run (one step graph, two for ddpm, whose last
-    step adds no noise). Then one fused DDIM-50 sample profiled (the second
+    step adds no noise). Then one fused DDIM-10 sample profiled (the second
     of ``-n 2``, so that the capture is outside the window)."""
     from ldm3d_torch.configs import preset_path
     from ldm3d_torch.diffusion import inferer
@@ -1540,11 +1606,17 @@ def _sample_fused_runs(torch, ns, counts, model_dir, env, cfg_path, unet_attn, v
     from ldm3d_torch.ops import graphs
 
     for name, (sampler, steps, amp, batch, guidance) in FUSED_RUNS.items():
-        argv = ["-c", cfg_path, "-e", str(env), "-n", "1", "--sampler", sampler,
+        run_cfg = cfg_path
+        if not steps:  # the full schedule, cut to FULL_SCHEDULE_STEPS
+            cfg = json.loads(Path(cfg_path).read_text())
+            cfg["NoiseScheduler"]["num_train_timesteps"] = FULL_SCHEDULE_STEPS
+            run_cfg = str(model_dir / "config_full_schedule.json")
+            Path(run_cfg).write_text(json.dumps(cfg))
+        argv = ["-c", run_cfg, "-e", str(env), "-n", "1", "--sampler", sampler,
                 "--batch", str(batch), "--guidance", str(guidance)]
         argv += ["--steps", str(steps)] if steps else []
         argv += ["--amp"] if amp else []
-        n_steps = steps or getattr(ns, "NoiseScheduler", {}).get("num_train_timesteps", 1000)
+        n_steps = steps or FULL_SCHEDULE_STEPS
         runs = {}
         for way, extra in (("eager", []), ("fused", ["--fused-decode"])):
             timings: dict = {}
@@ -1632,12 +1704,12 @@ def _sample_fused_runs(torch, ns, counts, model_dir, env, cfg_path, unet_attn, v
 
 
 def _profile_fused_sample(torch, model_dir, env, cfg_path) -> None:
-    """One fused DDIM-50 sample under the profiler: the second replay run of
+    """One fused DDIM-10 sample under the profiler: the second replay run of
     ``-n 2``, the capture and the first sample outside the window."""
     from ldm3d_torch.cli.inference import main as inference_main
     from ldm3d_torch.diffusion import inferer
 
-    sampler, steps, amp, batch, guidance = FUSED_RUNS["a_ddim50_bf16"]
+    sampler, steps = "ddim", PROFILE_FUSED_STEPS
     argv = ["-c", cfg_path, "-e", str(env), "-n", "2", "--sampler", sampler, "--steps",
             str(steps), "--amp", "--fused-decode"]
     replay = inferer.CapturedSampler._replay
@@ -2224,9 +2296,10 @@ def phase_serve(torch, ns, counts, workdir: Path, card: str, smi_line: str) -> d
         # the device profile of one served call, a request alone (it waits
         # out the batching window, which the profiled window holds)
         prof, (code, _, prof_s) = _profiled(torch, lambda: _post(
-            port, {"num_samples": 1, "seed": 3, "condition": cond_b}))
+            port, {"num_samples": 1, "seed": 3, "condition": cond_b, "sampler": "ddim",
+                   "inference_steps": SERVE_PROFILE_STEPS}))
         check(code == 200, f"the profiled request returned {code}")
-        emit({"phase": "profile", "path": f"serving request (fp32, ddim-{SERVE_STEPS}, batch "
+        emit({"phase": "profile", "path": f"serving request (fp32, ddim-{SERVE_PROFILE_STEPS}, batch "
                                           f"{SERVE_BATCH} call, over HTTP)",
               "request_s": prof_s, "batch_window_s": server._batcher.max_wait,
               **_profile_summary(torch, prof, prof_s * 1e3)})
@@ -4017,10 +4090,451 @@ def phase_follow_ups(torch, ns, counts, workdir: Path, card: str, smi_line: str)
     return {"launches_per_step": per_step}
 
 
+# --- phase 16: data tools, the system advisor and the training pipeline ---
+
+DATA_PATCH = (96, 96, 96)
+# ragged volumes around 96^3 in every input format; the low and high volumes
+# of a pair share a shape (prepare_data refuses a mismatch)
+DATA_VOLUMES = (((100, 92, 96), "npy"), ((96, 104, 90), "npz"), ((90, 96, 100), "nii"),
+                ((104, 100, 92), "npy"), ((92, 90, 104), "npz"), ((96, 96, 96), "nii"),
+                ((98, 94, 102), "npy"), ((94, 102, 98), "npz"))
+# 6 training pairs (3 steps of batch 2) and 2 validation pairs (one batch)
+DATA_VAL_FRACTION = 0.25
+DATA_ATTN_SHAPE = (2, 13824, 1, 256)  # the VAE's mid-attention at batch 2, 96^3
+SCALE_TOL = 1e-6
+CALIBRATION_STEPS = 2  # the peak of the second step: Adam's moments exist by then
+# the advisor's memory model against a measured peak (the allocator's part):
+# each calibration point and each recipe run within 5 % of the model
+MODEL_TOL = 0.05
+# the smaller card whose recipe runs under a per-process cap on this one
+SMALL_CARD_BYTES = 16 * 2**30
+
+
+def _outside_allocator_bytes(torch) -> int:
+    """Device memory this process holds outside PyTorch's caching allocator:
+    the CUDA context, the loaded kernel modules and the libraries' handles."""
+    free, total = torch.cuda.mem_get_info()
+    return total - free - torch.cuda.memory_reserved()
+
+
+def _empty_allocator(torch) -> int:
+    """Free the allocator's cached blocks, restart its peaks and return the
+    bytes it still reserves (blocks that live tensors of earlier phases hold),
+    so that a run's own peak is ``max_memory_reserved()`` less it."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_reserved()
+
+
+def _attn_cases() -> dict:
+    """The attention wrappers' launches by input since the last reset:
+    {"fwd" | "bwd": {(shape[, kv_len], dtype): launches}}, a shape as the
+    kernel phases write it (kv_len only where it is not n)."""
+    from ldm3d_torch.ops import attention as A
+
+    def keyed(cases):
+        return {((*shape, kv) if kv != shape[1] else tuple(shape), dtype): n
+                for (shape, kv, dtype), n in cases.items()}
+
+    return {"fwd": keyed(A.flash_attention_fwd.cases),
+            "bwd": keyed(A.flash_attention_bwd_dq.cases)}
+
+
+def _data_volumes(root: Path) -> tuple[Path, Path]:
+    from ldm3d_torch.utils.nifti import write_nifti
+
+    rng = np.random.default_rng(16)
+    low, high = root / "low", root / "high"
+    low.mkdir(parents=True)
+    high.mkdir()
+    for i, (shape, fmt) in enumerate(DATA_VOLUMES):
+        for d, scale in ((low, 40.0), (high, 100.0)):
+            vol = (rng.gamma(2.0, scale, shape)).astype(np.float32)
+            stem = d / f"subject_{i:02d}"
+            if fmt == "npy":
+                np.save(f"{stem}.npy", vol)
+            elif fmt == "npz":
+                np.savez_compressed(f"{stem}.npz", vol)
+            else:
+                write_nifti(f"{stem}.nii", vol)
+    return low, high
+
+
+def _data_prepare(torch, root: Path) -> dict:
+    """``cli.prepare_data`` over the ragged volumes, fitted to DATA_PATCH;
+    every written pair read through the native library (the dataset's
+    counter must count each file once, on the native path) and held bit for
+    bit to the numpy path; ``load_batch`` of all of them; then
+    ``scale_intensity_percentiles`` on the card against the CPU."""
+    from ldm3d_torch.cli.prepare_data import main as prepare_main
+    from ldm3d_torch.data import native_loader, npz_dataset
+    from ldm3d_torch.data.transforms import scale_intensity_percentiles
+
+    low, high = _data_volumes(root)
+    out = root / "dataset"
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        counts = prepare_main(["--low-dir", str(low), "--high-dir", str(high), "--out", str(out),
+                               "--shape", *map(str, DATA_PATCH), "--val-fraction",
+                               str(DATA_VAL_FRACTION), "--seed", "0"])
+    prepare_s = time.perf_counter() - t0
+    files = sorted(str(p) for p in out.glob("*/*.npz"))
+    check(counts == {"train": 6, "val": 2} and len(files) == len(DATA_VOLUMES),
+          f"prepare_data wrote {counts}, {len(files)} files")
+    t0 = time.perf_counter()
+    check(native_loader.available(), "the native NPZ loader did not build")
+    build_s = time.perf_counter() - t0
+    npz_dataset.load_counts.update(native=0, numpy=0)
+    t0 = time.perf_counter()
+    native = [npz_dataset.load_pair(f) for f in files]
+    native_ms = (time.perf_counter() - t0) * 1e3 / len(files)
+    check(npz_dataset.load_counts == {"native": len(files), "numpy": 0},
+          f"native loads {npz_dataset.load_counts} of {len(files)} files")
+    t0 = time.perf_counter()
+    plain = [npz_dataset.load_pair(f, use_native=False) for f in files]
+    numpy_ms = (time.perf_counter() - t0) * 1e3 / len(files)
+    check(all(np.array_equal(a, b) and a.shape == DATA_PATCH
+              for x, y in zip(native, plain) for a, b in zip(x, y)),
+          "native pairs differ from the numpy path's")
+    batch = native_loader.load_batch(files, DATA_PATCH)
+    check(batch is not None and np.array_equal(batch, np.stack([np.stack(p) for p in plain])),
+          "native load_batch differs from the numpy path's")
+    vols = torch.from_numpy(np.stack([plain[0][0], plain[1][1]])[..., None])
+    cpu = scale_intensity_percentiles(vols)
+    card = scale_intensity_percentiles(vols.cuda())
+    scale_err = (card.cpu() - cpu).abs().max().item()
+    check(scale_err <= SCALE_TOL and bool(torch.isfinite(card).all()),
+          f"scale_intensity_percentiles on the card differs from the CPU by {scale_err}")
+    vols_cuda = vols.cuda()
+    return {"counts": counts, "files": len(files), "prepare_s": prepare_s,
+            "native_build_s": build_s, "loads": dict(npz_dataset.load_counts),
+            "native_load_ms_a_pair": native_ms, "numpy_load_ms_a_pair": numpy_ms,
+            "bit_equal": True, "scale_shape": list(vols.shape), "scale_max_abs_err": scale_err,
+            "scale_tol": SCALE_TOL,
+            "scale_ms": cuda_ms(torch, lambda: scale_intensity_percentiles(vols_cuda), calls=5),
+            "train_dir": str(out / "train"), "val_dir": str(out / "val")}
+
+
+def _model_err(cs, batch: int, patch, remat, measured: int) -> float:
+    """The advisor model's allocator part (its peak less the bytes outside
+    the allocator) over ``measured``, less one."""
+    modeled = cs.estimate_stage1_peak_bytes(batch, patch, remat) - cs._OUTSIDE_ALLOCATOR_BYTES
+    return modeled / measured - 1
+
+
+def _stage1_peaks(torch, ns, gates: list) -> dict:
+    """The allocator's peak (``max_memory_reserved`` less what earlier
+    phases left reserved) of adversarial bf16 stage-1 steps of ``ns``'s VAE,
+    the CLI's discriminator and LPIPS at each point of
+    ``check_system.CALIBRATION`` (and under ``--remat convs`` and ``full`` at
+    the largest), the model's figure beside each (a gate: within
+    MODEL_TOL), the state + bytes-a-voxel fit of these points, and the
+    device memory outside the allocator once the steps have run."""
+    from ldm3d_torch.cli import check_system as cs
+    from ldm3d_torch.cli.train_autoencoder import build_discriminator, build_lpips
+    from ldm3d_torch.configs import define_instance
+    from ldm3d_torch.nn import init_weights_
+    from ldm3d_torch.training import (Stage1Config, TrainState, make_optimizer,
+                                      make_stage1_train_step)
+
+    tc = ns.autoencoder_train
+    base = _empty_allocator(torch)
+    base_allocated = torch.cuda.memory_allocated()
+    _reset_counts()
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    with torch.device("cuda"):
+        ae = init_weights_(define_instance(ns, "autoencoder_def"), gen)
+        disc = init_weights_(build_discriminator(ns), gen)
+    ae.compute_dtype = disc.compute_dtype = torch.bfloat16
+    lpips = build_lpips(SimpleNamespace(lpips_weights=""), torch.bfloat16, torch.device("cuda"))
+    step = make_stage1_train_step(ae, disc, lpips, Stage1Config(
+        kl_weight=tc["kl_weight"], perceptual_weight=tc["perceptual_weight"]))
+    g_state = TrainState(ae, make_optimizer(ae.parameters(), lambda c: tc["lr"]))
+    d_state = TrainState(disc, make_optimizer(disc.parameters(), lambda c: tc["lr"]))
+    largest = max(cs.CALIBRATION, key=lambda p: p[0] * math.prod(p[1]))
+    points = []
+    for (batch, patch), remat in ([(p, None) for p in cs.CALIBRATION]
+                                  + [(largest, "convs"), (largest, "full")]):
+        ae.remat = remat
+        images = torch.rand((batch, *patch, ns.image_channels), generator=gen, device="cuda")
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(CALIBRATION_STEPS):
+            metrics = step(g_state, d_state, images, True, gen)
+        torch.cuda.synchronize()
+        check(all(math.isfinite(float(v)) for v in metrics.values()),
+              f"calibration step at batch {batch}, {patch}, remat {remat}: {metrics}")
+        peak = torch.cuda.max_memory_reserved() - base
+        err = _model_err(cs, batch, patch, remat or False, peak)
+        gates.append((abs(err) <= MODEL_TOL,
+                      f"calibration at batch {batch}, {patch}, remat {remat}: the advisor's "
+                      f"model is {err:+.1%} off the measured allocator peak {peak} B (limit "
+                      f"{MODEL_TOL:.0%})"))
+        points.append({"batch": batch, "patch": list(patch), "remat": remat or False,
+                       "voxels": batch * math.prod(patch), "peak_bytes": peak,
+                       "peak_allocated_bytes": torch.cuda.max_memory_allocated() - base_allocated,
+                       "model_err_rel": err})
+        del images
+    ae.remat = None
+    outside = _outside_allocator_bytes(torch)
+    plain = [p for p in points if not p["remat"]]
+    act, state = np.polyfit([p["voxels"] for p in plain], [p["peak_bytes"] for p in plain], 1)
+    top = next(p for p in plain if p["voxels"] == largest[0] * math.prod(largest[1]))
+    factors = {p["remat"]: (p["peak_bytes"] - state) / (top["peak_bytes"] - state)
+               for p in points if p["remat"]}
+    del ae, disc, lpips, g_state, d_state, step
+    _empty_allocator(torch)
+    return {"points": points, "launches": _read_counts(), "earlier_phases_reserved_bytes": base,
+            "outside_allocator_bytes": outside,
+            "fit": {"state_bytes": float(state), "act_bytes_per_voxel": float(act),
+                    "remat_act_factor": factors},
+            "model": {"outside_allocator_bytes": cs._OUTSIDE_ALLOCATOR_BYTES,
+                      "state_bytes": cs._STAGE1_STATE_BYTES,
+                      "act_bytes_per_voxel": cs._STAGE1_ACT_BYTES_PER_VOXEL,
+                      "remat_act_factor": {k: cs._REMAT_ACT_FACTOR[k] for k in factors}},
+            "max_model_err_rel": max(abs(p["model_err_rel"]) for p in points), "tol": MODEL_TOL,
+            "gn_cases": _read_gn_cases(), "attn_cases": _attn_cases()}
+
+
+def _recipe_run(torch, rec: dict, cfg_path: Path, env: Path, card_bytes: int,
+                gates: list, what: str) -> dict:
+    """The advisor's stage-1 recipe ``rec`` (written to ``cfg_path``) for a
+    card of ``card_bytes``: a copy with warmup_epochs -1, val_interval 1 and
+    one epoch through ``cli.train_autoencoder`` with the recipe's flags,
+    after the allocator is emptied. Below this card's memory the process's
+    allocator is capped (``set_per_process_memory_fraction``) so that what
+    it reserves and what it holds outside the allocator fit ``card_bytes``.
+    The measured peak (the allocator's peak and the bytes outside it) must
+    leave the headroom the recommendation claims, and the model must be
+    within MODEL_TOL of the allocator's part (both gates)."""
+    from ldm3d_torch.cli import check_system as cs
+    from ldm3d_torch.cli.train_autoencoder import main as train_ae_main
+
+    cfg = json.loads(cfg_path.read_text())
+    cfg["autoencoder_train"].update(warmup_epochs=-1, val_interval=1, max_epochs=1)
+    run_cfg = cfg_path.with_name(f"run_{cfg_path.name}")
+    run_cfg.write_text(json.dumps(cfg))
+    argv = ["-c", str(run_cfg), "-e", str(env), "--no-images"]
+    argv += ["--amp"] if rec["amp"] else []
+    argv += [f"--remat={rec['remat']}"] if rec["remat"] else []
+    total = torch.cuda.get_device_properties(0).total_memory
+    outside = _outside_allocator_bytes(torch)
+    base = _empty_allocator(torch)
+    cap = None if card_bytes >= total else base + card_bytes - outside
+    timings: dict = {}
+    _reset_counts()
+    unpin_precision(torch)
+    if cap is not None:
+        torch.cuda.set_per_process_memory_fraction(cap / total)
+    try:
+        best_val = train_ae_main(argv, timings=timings)
+    finally:
+        if cap is not None:
+            torch.cuda.set_per_process_memory_fraction(1.0)
+    flags = pinned_precision(torch, f"cli.train_autoencoder.main ({what})")
+    allocator_peak = torch.cuda.max_memory_reserved() - base
+    outside = max(outside, _outside_allocator_bytes(torch))
+    peak = outside + allocator_peak
+    steps, val = len(timings["train_step_ms"]), sum(timings["val_batches"])
+    check(steps == 3 and val == 1 and all(timings["adv_active"]) and math.isfinite(best_val),
+          f"{what}: the recipe ran {steps} steps ({timings['adv_active']}), {val} validation "
+          f"batches, val {best_val}")
+    batch, patch = rec["batch_size"], rec["patch_size"]
+    err = _model_err(cs, batch, patch, rec["remat"], allocator_peak)
+    gates.append((peak <= (1 - cs._MIN_HEADROOM) * card_bytes,
+                  f"{what}: the measured peak {peak / 2**30:.2f} GiB of "
+                  f"{card_bytes / 2**30:.2f} GiB leaves {1 - peak / card_bytes:.1%} free (the "
+                  f"recommendation claims at least {cs._MIN_HEADROOM:.0%})"))
+    gates.append((abs(err) <= MODEL_TOL,
+                  f"{what}: the advisor's model is {err:+.1%} off the recipe's measured "
+                  f"allocator peak {allocator_peak} B (limit {MODEL_TOL:.0%})"))
+    return {"recommendation": {k: rec[k] for k in ("preset", "batch_size", "patch_size", "amp",
+                                                   "remat", "estimated_peak_hbm_gb",
+                                                   "hbm_headroom_frac", "data_axis")},
+            "card_gib": card_bytes / 2**30, "allocator_cap_gib": cap and cap / 2**30,
+            "modeled_peak_gib": rec["estimated_peak_hbm_gb"],
+            "measured_peak_gib": peak / 2**30,
+            "measured_allocator_peak_gib": allocator_peak / 2**30,
+            "measured_outside_allocator_gib": outside / 2**30,
+            "earlier_phases_reserved_gib": base / 2**30,
+            "measured_headroom": 1 - peak / card_bytes, "model_err_rel": err,
+            "train_step_ms": timings["train_step_ms"], "val_ms": timings["val_ms"],
+            "allow_tf32": flags}
+
+
+def _data_advisor(torch, ns, counts, root: Path, data: dict, gates: list) -> dict:
+    """``cli.check_system`` on the card, then its recipe (a copy of
+    ``config_optimized.json``) for 3 adversarial bf16 steps and one
+    validation batch through ``cli.train_autoencoder`` on the prepared data
+    (:func:`_recipe_run`); the launches by route, every attention launch at
+    DATA_ATTN_SHAPE."""
+    from ldm3d_torch.cli import check_system as cs
+
+    cfg_path = root / "config_optimized.json"
+    with contextlib.redirect_stdout(io.StringIO()):
+        report = cs.main(["--output", str(cfg_path), "--json"])
+    rec, dev = report["recommendation"], report["devices"]
+    total = torch.cuda.get_device_properties(0).total_memory
+    check(dev["platform"] == "gpu" and dev["per_chip_hbm_bytes"] == total,
+          f"check_system probed {dev}")
+    check((rec["preset"], rec["batch_size"], rec["patch_size"], rec["amp"])
+          == ("config_train_32g.json", 2, list(DATA_PATCH), True),
+          f"check_system recommends {rec} on a {dev['per_chip_hbm_bytes'] / 2**30:.1f} GiB card")
+    model_dir = root / "advisor"
+    model_dir.mkdir()
+    env = _write_env(model_dir, synthetic_data=False, npz_dir_train=data["train_dir"],
+                     npz_dir_val=data["val_dir"], resume_ckpt=False)
+    out = _recipe_run(torch, rec, cfg_path, env, total, gates, "the card's recipe")
+    steps = len(out["train_step_ms"])
+    widths = _attn_routes(torch, ns)
+    vae_gn = counts["encoder"]["gn"] + counts["decoder"]["gn"]
+    d_gn = counts["discriminator"]["gn"]
+    parts = ("encoder", "decoder")
+    launched = _check_launches(
+        torch, "config_optimized.json", "stage-1 recipe",
+        _expected_routes(torch, widths, {p: steps + 1 for p in parts},
+                         {p: steps for p in parts}),
+        {"gn_sums": vae_gn * (steps + 1) + 3 * d_gn * steps,
+         "gn_bwd_sums": vae_gn * steps + 3 * d_gn * steps})
+    attn = _attn_cases()
+    check(set(attn["fwd"]) == set(attn["bwd"]) == {(DATA_ATTN_SHAPE, "bfloat16")},
+          f"the recipe's attention ran at {attn}, not only at {DATA_ATTN_SHAPE}")
+    shutil.rmtree(model_dir)
+    return {**out, "launch_command": report["launch_command"],
+            "attention_shape": list(DATA_ATTN_SHAPE), **launched, "config_path": str(cfg_path),
+            "gn_cases": _read_gn_cases(), "attn_cases": attn}
+
+
+def _data_advisor_small(torch, root: Path, gates: list) -> dict:
+    """The advisor's recommendation for a SMALL_CARD_BYTES card (this card's
+    probe with that memory), run for 3 steps of its batch and patch on
+    synthetic volumes of the patch's size under an allocator cap that leaves
+    the process that card's memory (:func:`_recipe_run`)."""
+    from ldm3d_torch.cli import check_system as cs
+
+    dev = {**cs.probe_devices(), "per_chip_hbm_bytes": SMALL_CARD_BYTES}
+    rec = cs.recommend_settings(dev, cs.probe_host())
+    check((rec["preset"], rec["batch_size"], rec["patch_size"], rec["amp"])
+          == ("config_train_32g.json", 8, [64, 64, 64], True),
+          f"check_system recommends {rec} for a {SMALL_CARD_BYTES / 2**30:.0f} GiB card")
+    cfg_path = root / "config_small_card.json"
+    cs.generate_config_file(rec, str(cfg_path))
+    model_dir = root / "advisor_small"
+    model_dir.mkdir()
+    env = _write_env(model_dir, synthetic_num=_pairs_for_steps(rec["batch_size"]),
+                     synthetic_shape=rec["patch_size"], resume_ckpt=False)
+    out = _recipe_run(torch, rec, cfg_path, env, SMALL_CARD_BYTES, gates,
+                      f"the {SMALL_CARD_BYTES / 2**30:.0f} GiB card's recipe")
+    launches = _read_counts()
+    for kernel in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "gn_sums", "gn_bwd_sums"):
+        check(launches[kernel] > 0, f"the small card's recipe launched no {kernel}")
+    shutil.rmtree(model_dir)
+    return {**out, "launch_command": cs.generate_launch_command(rec), "launches": launches,
+            "gn_cases": _read_gn_cases(), "attn_cases": _attn_cases()}
+
+
+def _data_pipeline(torch, root: Path, data: dict, cfg_path: str) -> dict:
+    """``TrainingPipeline.run_local`` over the prepared data with the
+    advisor's ``config_optimized.json``, one epoch a stage (3 steps each),
+    bf16: data check, stage 1, stage 2, the evaluation CLI (DDIM-8 over the 2
+    validation pairs: the sampled path, whose result carries ``ssim``) and
+    the registry (threshold 0, so that the version registers)."""
+    from ldm3d_torch.mlops.pipelines import TrainingPipeline
+    from ldm3d_torch.mlops.tracking import ModelRegistry
+
+    model_dir = root / "pipeline"
+    model_dir.mkdir()
+    env = _write_env(model_dir, synthetic_data=False, npz_dir_train=data["train_dir"],
+                     npz_dir_val=data["val_dir"], resume_ckpt=False)
+    registry = ModelRegistry(str(root / "registry"))
+    pipe = TrainingPipeline(cfg_path, str(env), str(model_dir), eval_threshold=0.0,
+                            registry=registry, max_epochs=1, extra_flags=["--amp", "--no-images"])
+    _reset_counts()
+    unpin_precision(torch)
+    results = pipe.run_local()
+    flags = pinned_precision(torch, "TrainingPipeline.run_local")
+    launches = _read_counts()
+    ev = results["evaluation"]
+    check(results["data_prep"] == {"train_samples": 6, "val_samples": 2},
+          f"pipeline data check {results['data_prep']}")
+    check("ssim" in ev and all(math.isfinite(ev[k]) for k in ("score", "ssim", "psnr")),
+          f"the pipeline's evaluation took the loss proxy or gave non-finite metrics: {ev}")
+    check(results["registered_version"] == 1, f"registered {results['registered_version']}")
+    for kernel in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "gn_sums", "gn_bwd_sums"):
+        check(launches[kernel] > 0, f"the pipeline launched no {kernel}")
+    shutil.rmtree(model_dir)
+    return {"results": {k: v for k, v in results.items() if k != "registered_version"},
+            "registered_version": results["registered_version"], "launches": launches,
+            "allow_tf32": flags, "gn_cases": _read_gn_cases(), "attn_cases": _attn_cases()}
+
+
+def _data_attention_checks(torch, F, runs: dict, checked: tuple) -> tuple[dict, dict]:
+    """The forward and backward kernels held to their plain versions (TF32
+    off) and timed at every attention input the phase's runs gave them
+    (``_fwd_case``/``_bwd_case``), but for the (shape, dtype) pairs in
+    ``checked`` (those the kernel phases hold, in the whole script); each
+    row carries the runs' launches at it."""
+    from ldm3d_torch.cli.common import tf32_flags
+
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    out: tuple[dict, dict] = ({}, {})
+    with tf32_flags(False):
+        for i, (kind, case) in enumerate((("fwd", _fwd_case), ("bwd", _bwd_case))):
+            keys = sorted({k for r in runs.values() for k in r["attn_cases"][kind]}, key=str)
+            for shape, dtype in keys:
+                if (shape, dtype) in checked[i]:
+                    continue
+                out[i][(shape, dtype)] = case(
+                    torch, F, dtype, shape, gen, phase=f"data_tools_kernel_{kind}")
+                emit({"phase": f"data_tools_kernel_{kind}_launches", "shape_bnhd": list(shape),
+                      "dtype": dtype, "launches": {name: r["attn_cases"][kind].get(
+                          (shape, dtype), 0) for name, r in runs.items()}})
+    return out
+
+
+def phase_data_tools(torch, F, ns, counts, workdir: Path, card: str, smi_line: str,
+                     checked: tuple = (set(), set())) -> dict:
+    """16. The data tools, the system advisor and the training pipeline on
+    the card (see the module docstring); one line a part, then the phase's.
+    The memory gates are read at the end, after every part has run and
+    printed its readings."""
+    t0 = time.perf_counter()
+    root = workdir / "data_tools"
+    out: dict = {}
+    gates: list = []
+    parts = (("prepare", lambda: _data_prepare(torch, root)),
+             ("calibration", lambda: _stage1_peaks(torch, ns, gates)),
+             ("advisor", lambda: _data_advisor(torch, ns, counts, root, out["prepare"], gates)),
+             ("advisor_small", lambda: _data_advisor_small(torch, root, gates)),
+             ("pipeline", lambda: _data_pipeline(torch, root, out["prepare"],
+                                                 out["advisor"]["config_path"])))
+    for part, run in parts:
+        t = time.perf_counter()
+        out[part] = run()
+        out[part]["seconds"] = time.perf_counter() - t
+        emit({"phase": f"data_tools_{part}", "card": card, "nvidia_smi": smi_line,
+              **{k: v for k, v in out[part].items() if k not in ("gn_cases", "attn_cases")}})
+    runs = {part: r for part, r in out.items() if "attn_cases" in r}
+    t = time.perf_counter()
+    fwd, bwd = _data_attention_checks(torch, F, runs, checked)
+    shutil.rmtree(root)
+    emit({"phase": "data_tools", "card": card, "nvidia_smi": smi_line,
+          "seconds": time.perf_counter() - t0, "kernel_checks_s": time.perf_counter() - t,
+          **{part: r["seconds"] for part, r in out.items()},
+          "gates": [{"ok": ok, "what": msg} for ok, msg in gates]})
+    for ok, msg in gates:
+        check(ok, msg)
+    return {**{f"{part}_launches": r["launches"] for part, r in runs.items()},
+            "fwd": fwd[(DATA_ATTN_SHAPE, "bfloat16")], "bwd": bwd[(DATA_ATTN_SHAPE, "bfloat16")],
+            "gn_paths": {f"data_tools_{part}": r["gn_cases"] for part, r in runs.items()}}
+
+
 def _kernel_summary(fwd: dict, bwd: dict, gn: dict, sample_launches: dict,
                     train: dict, train_fp32: dict, serve: dict, conv: dict,
                     train_ae: dict, train_ae_fp32: dict, distill: dict,
-                    presets: dict, follow_ups: dict) -> list:
+                    presets: dict, follow_ups: dict, data_tools: dict) -> list:
     """The kernels line: each kernel's ms, plain_ms, bound_ms and library_ms
     are summed over the ``launches`` it counts (one flagship sample for
     flash_fwd, the bf16 training main path's run for the other four; the
@@ -4036,7 +4550,11 @@ def _kernel_summary(fwd: dict, bwd: dict, gn: dict, sample_launches: dict,
     at the tool's headline shape. ``presets_launches`` are each presets-phase
     run's launches (the forward's wgmma row: its route's);
     ``remat_launches_per_step`` are the follow_ups phase's stage-2 (32g and
-    pp) and stage-1 steps' launches under each remat mode."""
+    pp) and stage-1 steps' launches under each remat mode;
+    ``data_tools_launches`` the data_tools phase's runs' (the calibration
+    steps, the card's stage-1 recipe, every attention launch at
+    DATA_ATTN_SHAPE, the small card's recipe and the pipeline's run), and the
+    attention rows' ``data_tools_*`` one call at DATA_ATTN_SHAPE, bf16."""
     def per(results, weights, key, by=None, dtype="bfloat16"):
         return sum(n * results[(shape, dtype)][key] for shape, n in weights.items()
                    if by is None or results[(shape, dtype)].get("bound_by", by) == by)
@@ -4267,13 +4785,30 @@ def _kernel_summary(fwd: dict, bwd: dict, gn: dict, sample_launches: dict,
         row["remat_launches_per_step"] = {
             run: {mode: c[key] for mode, c in modes.items()}
             for run, modes in follow_ups["launches_per_step"].items()}
+        row["data_tools_launches"] = {run.removesuffix("_launches"): r[key]
+                                      for run, r in data_tools.items()
+                                      if run.endswith("_launches")}
+    shape = {"data_tools_shape": list(DATA_ATTN_SHAPE)}
+    fwd_dt, bwd_dt = data_tools["fwd"], data_tools["bwd"]
+    for row in rows:
+        kind = {"flash_bwd_dq": "dq", "flash_bwd_dkv": "dkv"}.get(row["name"])
+        if row["name"] in ("flash_fwd", "flash_fwd_bf16_wgmma"):
+            row.update(shape, data_tools_ms=fwd_dt["kernel_ms"],
+                       data_tools_plain_ms=fwd_dt["plain_ms"],
+                       data_tools_bound_ms=fwd_dt["bound_ms"],
+                       data_tools_library_ms=fwd_dt["library_ms"])
+        if kind:
+            row.update(shape, data_tools_ms=bwd_dt[f"{kind}_ms"],
+                       data_tools_plain_ms=bwd_dt[f"{kind}_plain_ms"],
+                       data_tools_bound_ms=bwd_dt[f"{kind}_bound_ms"],
+                       data_tools_library_ms=bwd_dt["sdpa_bwd_ms"])
     return rows
 
 
 # phases that ``--phases`` runs alone, after device and build
 ALONE_PHASES = ("kernel", "kernel_bwd", "kernel_c2", "kernel_conv", "train_ae", "train_ae_fp32",
                 "stage1_card_vs_cpu", "sample_fused", "distill", "distill_card_vs_cpu",
-                "evaluate", "presets", "follow_ups")
+                "evaluate", "presets", "follow_ups", "data_tools")
 
 
 def main(argv=None) -> int:
@@ -4325,7 +4860,9 @@ def main(argv=None) -> int:
                    "presets": lambda: phase_kernel_gn(torch, phase_presets(
                        torch, Path(workdir), card, smi_line)["gn_paths"]),
                    "follow_ups": lambda: phase_follow_ups(torch, ns, counts, Path(workdir),
-                                                          card, smi_line)}
+                                                          card, smi_line),
+                   "data_tools": lambda: phase_kernel_gn(torch, phase_data_tools(
+                       torch, F, ns, counts, Path(workdir), card, smi_line)["gn_paths"])}
             for name in phases:
                 run[name]()
         emit({"phase": "done", "phases": phases})
@@ -4336,11 +4873,19 @@ def main(argv=None) -> int:
     counts = _module_counts(torch, ns)
     card, smi_line = phase_device(torch)
     phase_build()
+    workdir_root = ROOT / "build" / "chip_smoke"
+    workdir_root.mkdir(parents=True, exist_ok=True)
+    # data_tools first, while no earlier phase holds blocks of the caching
+    # allocator: its memory gates read the allocator's peaks
+    with tempfile.TemporaryDirectory(dir=workdir_root) as workdir:
+        both = ("bfloat16", "float32")
+        data_tools = phase_data_tools(
+            torch, F, ns, counts, Path(workdir), card, smi_line,
+            checked=({(s, d) for s in FWD_KERNEL_SHAPES for d in both},
+                     {(s, d) for s in BWD_KERNEL_SHAPES for d in both}))
     fwd = phase_kernel(torch, F)
     bwd = phase_kernel_bwd(torch, F)
     phase_kernel_c2(torch)
-    workdir_root = ROOT / "build" / "chip_smoke"
-    workdir_root.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=workdir_root) as workdir:
         sample_launches, sample_gn = phase_main_path(torch, ns, counts, Path(workdir), card,
                                                      smi_line)
@@ -4362,7 +4907,8 @@ def main(argv=None) -> int:
                                  "training_fp32": train_fp32.pop("gn_cases"),
                                  "training_ae": train_ae.pop("gn_cases"),
                                  "training_ae_fp32": train_ae_fp32.pop("gn_cases"),
-                                 "serving": serve.pop("gn_cases"), **presets["gn_paths"]})
+                                 "serving": serve.pop("gn_cases"), **presets["gn_paths"],
+                                 **data_tools.pop("gn_paths")})
     phase_gn_host(torch)
     conv = phase_kernel_conv(torch)
     phase_card_vs_cpu(torch)
@@ -4373,7 +4919,7 @@ def main(argv=None) -> int:
     emit({"phase": "done"})
     emit({"kernels": _kernel_summary(fwd, bwd, gn, sample_launches, train, train_fp32, serve,
                                      conv, train_ae, train_ae_fp32, distill,
-                                     presets["launches"], follow_ups)})
+                                     presets["launches"], follow_ups, data_tools)})
     print(smi_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": card,
                                  "count": torch.cuda.device_count()}})

@@ -209,94 +209,94 @@ def main(argv=None, timings: dict | None = None) -> float:
     eval_step = make_stage1_eval_step(ae, lpips, s1cfg)
     writer = MetricsWriter(os.path.join(args.tfevent_path, "autoencoder"))
     profiler = StepProfiler("./profiler_logs", enabled=args.profile)
-    stop = GracefulShutdown()  # SIGTERM -> resumable 'last', exit 75
+    # SIGTERM -> resumable 'last', exit 75; the previous handler is back on
+    # every way out of the block
+    with GracefulShutdown() as stop:
+        for epoch in range(start_epoch, max_epochs):
+            t0 = time.time()
+            adv_active = epoch > s1cfg.warmup_epochs
+            ae.train()
+            disc.train()
+            accum: dict[str, list] = {}
+            for step, batch in enumerate(train_loader.epoch(epoch)):
+                if stop.requested_global:
+                    break
+                images = torch.from_numpy(np.ascontiguousarray(batch["image"])).to(device)
+                t_step = _sync(device)
+                metrics = train_step(g_state, d_state, images, adv_active, gen)
+                metrics = {k: float(v) for k, v in metrics.items()}
+                timings["train_step_ms"].append((_sync(device) - t_step) * 1e3)
+                timings["adv_active"].append(adv_active)
+                for k, v in metrics.items():
+                    timings[k].append(v)
+                    accum.setdefault(k, []).append(v)
+                profiler.step()
+                if step % 10 == 0:
+                    total_step += 1
+                    writer.add_scalar("train_recon_loss_iter", metrics["recon_loss"], total_step)
+                    writer.add_scalar("train_kl_loss_iter", metrics["kl_loss"], total_step)
+                    writer.add_scalar("train_perceptual_loss_iter", metrics["perceptual_loss"],
+                                      total_step)
+                    if adv_active:
+                        writer.add_scalar("train_adv_loss_iter", metrics["adv_loss"], total_step)
+                    writer.add_scalar("lr_generator", schedule(g_state.step), total_step)
+                if step % 50 == 0:
+                    writer.add_scalar("grad_norm_autoencoder", metrics["g_grad_norm"], total_step)
 
-    for epoch in range(start_epoch, max_epochs):
-        t0 = time.time()
-        adv_active = epoch > s1cfg.warmup_epochs
-        ae.train()
-        disc.train()
-        accum: dict[str, list] = {}
-        for step, batch in enumerate(train_loader.epoch(epoch)):
             if stop.requested_global:
+                # the interrupted epoch replays on restart (meta epoch = epoch - 1)
+                g_ckpt.save("last", _gan_last(g_state, d_state, gen),
+                            {"epoch": epoch - 1, "best_val": best_val, "preempted": True})
+                log.warning("preempted during epoch %d: saved resumable 'last' checkpoint", epoch)
                 break
-            images = torch.from_numpy(np.ascontiguousarray(batch["image"])).to(device)
-            t_step = _sync(device)
-            metrics = train_step(g_state, d_state, images, adv_active, gen)
-            metrics = {k: float(v) for k, v in metrics.items()}
-            timings["train_step_ms"].append((_sync(device) - t_step) * 1e3)
-            timings["adv_active"].append(adv_active)
-            for k, v in metrics.items():
-                timings[k].append(v)
-                accum.setdefault(k, []).append(v)
-            profiler.step()
-            if step % 10 == 0:
-                total_step += 1
-                writer.add_scalar("train_recon_loss_iter", metrics["recon_loss"], total_step)
-                writer.add_scalar("train_kl_loss_iter", metrics["kl_loss"], total_step)
-                writer.add_scalar("train_perceptual_loss_iter", metrics["perceptual_loss"],
-                                  total_step)
-                if adv_active:
-                    writer.add_scalar("train_adv_loss_iter", metrics["adv_loss"], total_step)
-                writer.add_scalar("lr_generator", schedule(g_state.step), total_step)
-            if step % 50 == 0:
-                writer.add_scalar("grad_norm_autoencoder", metrics["g_grad_norm"], total_step)
+            means = {k: float(np.mean(v)) for k, v in accum.items()}
+            epoch_time = time.time() - t0
+            log.info("Epoch %d/%d (%.2fs) - Recon: %.4f, KL: %.4f, Perceptual: %.4f, Adv: %.4f",
+                     epoch, max_epochs, epoch_time, means.get("recon_loss", 0),
+                     means.get("kl_loss", 0), means.get("perceptual_loss", 0),
+                     means.get("adv_loss", 0))
+            writer.add_scalar("train_recon_loss_epoch", means.get("recon_loss", 0), epoch)
+            writer.add_scalar("train_kl_loss_epoch", means.get("kl_loss", 0), epoch)
+            writer.add_scalar("train_perceptual_loss_epoch", means.get("perceptual_loss", 0), epoch)
+            writer.add_scalar("epoch_time", epoch_time, epoch)
+            if adv_active:
+                writer.add_scalar("train_adv_loss_epoch", means.get("adv_loss", 0), epoch)
+            if epoch % val_interval:
+                continue
 
-        if stop.requested_global:
-            # the interrupted epoch replays on restart (meta epoch = epoch - 1)
-            g_ckpt.save("last", _gan_last(g_state, d_state, gen),
-                        {"epoch": epoch - 1, "best_val": best_val, "preempted": True})
-            log.warning("preempted during epoch %d: saved resumable 'last' checkpoint", epoch)
-            break
-        means = {k: float(np.mean(v)) for k, v in accum.items()}
-        epoch_time = time.time() - t0
-        log.info("Epoch %d/%d (%.2fs) - Recon: %.4f, KL: %.4f, Perceptual: %.4f, Adv: %.4f",
-                 epoch, max_epochs, epoch_time, means.get("recon_loss", 0),
-                 means.get("kl_loss", 0), means.get("perceptual_loss", 0),
-                 means.get("adv_loss", 0))
-        writer.add_scalar("train_recon_loss_epoch", means.get("recon_loss", 0), epoch)
-        writer.add_scalar("train_kl_loss_epoch", means.get("kl_loss", 0), epoch)
-        writer.add_scalar("train_perceptual_loss_epoch", means.get("perceptual_loss", 0), epoch)
-        writer.add_scalar("epoch_time", epoch_time, epoch)
-        if adv_active:
-            writer.add_scalar("train_adv_loss_epoch", means.get("adv_loss", 0), epoch)
-        if epoch % val_interval:
-            continue
+            # validation ----------------------------------------------------------------
+            ae.eval()
+            t_val = _sync(device)
+            val_losses, recon, images = [], None, None
+            for batch in val_loader.epoch(epoch):
+                images = torch.from_numpy(np.ascontiguousarray(batch["image"])).to(device)
+                vm, recon = eval_step(images, gen)
+                val_losses.append(float(vm["val_recon_loss"]))
+            timings["val_ms"].append((_sync(device) - t_val) * 1e3)
+            timings["val_batches"].append(len(val_losses))
+            if not val_losses:
+                continue
+            val_loss = float(np.mean(val_losses))
+            timings["val_loss"].append(val_loss)
+            log.info("Epoch %d val_recon_loss: %.4f", epoch, val_loss)
+            writer.add_scalar("val_recon_loss", val_loss, epoch)
+            is_best = val_loss < best_val
+            best_val = min(best_val, val_loss)
+            meta = {"epoch": epoch, "val_loss": val_loss, "best_val": best_val}
+            g_ckpt.save("last", _gan_last(g_state, d_state, gen), meta)
+            if is_best:
+                g_ckpt.save("best", {"state_dict": ae.state_dict()}, meta)
+                d_ckpt.save("best", {"state_dict": disc.state_dict()}, meta)
+                log.info("Got best val recon loss; saved best checkpoints to %s", args.model_dir)
+            if not args.no_images and epoch % (val_interval * 5) == 0:
+                img0 = images[0, ..., 0].float().cpu().numpy()
+                rec0 = recon[0, ..., 0].float().cpu().numpy()
+                for axis in range(3):
+                    writer.add_image(f"val_img_{axis}", visualize_one_slice_in_3d_image(img0, axis),
+                                     epoch)
+                    writer.add_image(f"val_recon_{axis}", visualize_one_slice_in_3d_image(rec0, axis),
+                                     epoch)
 
-        # validation ----------------------------------------------------------------
-        ae.eval()
-        t_val = _sync(device)
-        val_losses, recon, images = [], None, None
-        for batch in val_loader.epoch(epoch):
-            images = torch.from_numpy(np.ascontiguousarray(batch["image"])).to(device)
-            vm, recon = eval_step(images, gen)
-            val_losses.append(float(vm["val_recon_loss"]))
-        timings["val_ms"].append((_sync(device) - t_val) * 1e3)
-        timings["val_batches"].append(len(val_losses))
-        if not val_losses:
-            continue
-        val_loss = float(np.mean(val_losses))
-        timings["val_loss"].append(val_loss)
-        log.info("Epoch %d val_recon_loss: %.4f", epoch, val_loss)
-        writer.add_scalar("val_recon_loss", val_loss, epoch)
-        is_best = val_loss < best_val
-        best_val = min(best_val, val_loss)
-        meta = {"epoch": epoch, "val_loss": val_loss, "best_val": best_val}
-        g_ckpt.save("last", _gan_last(g_state, d_state, gen), meta)
-        if is_best:
-            g_ckpt.save("best", {"state_dict": ae.state_dict()}, meta)
-            d_ckpt.save("best", {"state_dict": disc.state_dict()}, meta)
-            log.info("Got best val recon loss; saved best checkpoints to %s", args.model_dir)
-        if not args.no_images and epoch % (val_interval * 5) == 0:
-            img0 = images[0, ..., 0].float().cpu().numpy()
-            rec0 = recon[0, ..., 0].float().cpu().numpy()
-            for axis in range(3):
-                writer.add_image(f"val_img_{axis}", visualize_one_slice_in_3d_image(img0, axis),
-                                 epoch)
-                writer.add_image(f"val_recon_{axis}", visualize_one_slice_in_3d_image(rec0, axis),
-                                 epoch)
-
-    stop.restore()
     profiler.stop()
     writer.close()
     if stop.requested_global:

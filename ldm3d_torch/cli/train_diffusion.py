@@ -200,7 +200,6 @@ def main(argv=None, timings: dict | None = None) -> float:
         train_step = make_stage2_train_step(unet, ae, scheduler, s2cfg)
 
     writer = MetricsWriter(os.path.join(args.tfevent_path, "diffusion"))
-    stop = GracefulShutdown()  # SIGTERM -> resumable 'last', exit 75
     if not args.no_images:
         for axis in range(3):
             writer.add_image(f"train_img_{axis}",
@@ -208,85 +207,87 @@ def main(argv=None, timings: dict | None = None) -> float:
             writer.add_image(f"train_label_{axis}",
                              visualize_one_slice_in_3d_image(first["label"][0, ..., 0], axis), 1)
 
-    for epoch in range(start_epoch, max_epochs):
-        t0 = time.time()
-        losses = []
-        unet.train()
-        batches = cache.epoch(epoch) if args.cache_latents else train_loader.epoch(epoch)
-        for batch in batches:
+    # SIGTERM -> resumable 'last', exit 75; the previous handler is back on
+    # every way out of the block
+    with GracefulShutdown() as stop:
+        for epoch in range(start_epoch, max_epochs):
+            t0 = time.time()
+            losses = []
+            unet.train()
+            batches = cache.epoch(epoch) if args.cache_latents else train_loader.epoch(epoch)
+            for batch in batches:
+                if stop.requested_global:
+                    break
+                if not args.cache_latents:
+                    batch = {"image": batch["image"], "label": batch["label"]}
+                t_step = _sync(device)
+                metrics = train_step(state, _to_device(batch, device), scale_factor, gen)
+                loss = float(metrics["diffusion_loss"])
+                timings["train_step_ms"].append((_sync(device) - t_step) * 1e3)
+                losses.append(loss)
+                timings["diffusion_loss"].append(loss)
+                total_step += 1
+                writer.add_scalar("train_diffusion_loss_iter", loss, total_step)
+                if total_step % 50 == 0:
+                    writer.add_scalar("grad_norm_diffusion", metrics["grad_norm"], total_step)
             if stop.requested_global:
+                # the interrupted epoch replays on restart (meta epoch = epoch - 1)
+                u_ckpt.save("last", state.state_dict(), {"epoch": epoch - 1, "best_val": best_val,
+                                                         "scale_factor": scale_factor,
+                                                         "preempted": True})
+                log.warning("preempted during epoch %d: saved resumable 'last' checkpoint", epoch)
                 break
-            if not args.cache_latents:
-                batch = {"image": batch["image"], "label": batch["label"]}
-            t_step = _sync(device)
-            metrics = train_step(state, _to_device(batch, device), scale_factor, gen)
-            loss = float(metrics["diffusion_loss"])
-            timings["train_step_ms"].append((_sync(device) - t_step) * 1e3)
-            losses.append(loss)
-            timings["diffusion_loss"].append(loss)
-            total_step += 1
-            writer.add_scalar("train_diffusion_loss_iter", loss, total_step)
-            if total_step % 50 == 0:
-                writer.add_scalar("grad_norm_diffusion", metrics["grad_norm"], total_step)
-        if stop.requested_global:
-            # the interrupted epoch replays on restart (meta epoch = epoch - 1)
-            u_ckpt.save("last", state.state_dict(), {"epoch": epoch - 1, "best_val": best_val,
-                                                     "scale_factor": scale_factor,
-                                                     "preempted": True})
-            log.warning("preempted during epoch %d: saved resumable 'last' checkpoint", epoch)
-            break
-        epoch_loss = float(np.mean(losses)) if losses else float("nan")
-        log.info("Epoch %d/%d (%.2fs) - diffusion loss %.5f", epoch, max_epochs,
-                 time.time() - t0, epoch_loss)
-        if epoch % val_interval:
-            continue
+            epoch_loss = float(np.mean(losses)) if losses else float("nan")
+            log.info("Epoch %d/%d (%.2fs) - diffusion loss %.5f", epoch, max_epochs,
+                     time.time() - t0, epoch_loss)
+            if epoch % val_interval:
+                continue
 
-        unet.eval()
-        t_val = _sync(device)
-        val_losses, last_batch = [], None
-        for batch in val_loader.epoch(epoch):
-            vm = eval_step(_to_device({"image": batch["image"], "label": batch["label"]}, device),
-                           scale_factor, gen)
-            val_losses.append(float(vm["val_diffusion_loss"]))
-            last_batch = batch
-        timings["val_ms"].append((_sync(device) - t_val) * 1e3)
-        timings["val_batches"].append(len(val_losses))
-        if val_losses:
-            val_loss = float(np.mean(val_losses))
-            writer.add_scalar("val_diffusion_loss", val_loss, epoch)
-            log.info("Epoch %d val_diffusion_loss: %.5f", epoch, val_loss)
-            is_best = val_loss < best_val
-            best_val = min(best_val, val_loss)
-            meta = {"epoch": epoch, "val_loss": val_loss, "scale_factor": scale_factor}
-            u_ckpt.save_best_and_last(state.state_dict(), is_best, meta)
-            if is_best:
-                if state.ema_params is not None:
-                    u_ckpt.save("ema", {"state_dict": state.ema_params}, meta)
-                log.info("Got best val noise pred loss; saved to %s", u_ckpt.root)
+            unet.eval()
+            t_val = _sync(device)
+            val_losses, last_batch = [], None
+            for batch in val_loader.epoch(epoch):
+                vm = eval_step(_to_device({"image": batch["image"], "label": batch["label"]}, device),
+                               scale_factor, gen)
+                val_losses.append(float(vm["val_diffusion_loss"]))
+                last_batch = batch
+            timings["val_ms"].append((_sync(device) - t_val) * 1e3)
+            timings["val_batches"].append(len(val_losses))
+            if val_losses:
+                val_loss = float(np.mean(val_losses))
+                writer.add_scalar("val_diffusion_loss", val_loss, epoch)
+                log.info("Epoch %d val_diffusion_loss: %.5f", epoch, val_loss)
+                is_best = val_loss < best_val
+                best_val = min(best_val, val_loss)
+                meta = {"epoch": epoch, "val_loss": val_loss, "scale_factor": scale_factor}
+                u_ckpt.save_best_and_last(state.state_dict(), is_best, meta)
+                if is_best:
+                    if state.ema_params is not None:
+                        u_ckpt.save("ema", {"state_dict": state.ema_params}, meta)
+                    log.info("Got best val noise pred loss; saved to %s", u_ckpt.root)
 
-        # periodic conditional sampling (reference train_diffusion.py:308-333)
-        if not args.no_images and epoch % (2 * val_interval) == 0 and last_batch is not None:
-            with torch.no_grad():
-                img1 = torch.clamp(torch.from_numpy(last_batch["image"][:1]).to(device), 0, 1)
-                shape1 = (1, *[s // f for s in img1.shape[1:4]], ae.latent_channels)
-                cond = None
-                if s2cfg.conditional:
-                    eps = torch.randn(shape1, generator=gen, device=device)
-                    cond = ae.encode_stage_2_inputs(img1, eps)
-                noise = torch.randn(shape1, generator=gen, device=device).to(dt)
-                sampled = inferer.sample(unet, ae.decode_stage_2_outputs, scheduler, noise,
-                                         condition=cond, scale_factor=scale_factor,
-                                         generator=gen)
-            sampled = sampled.float().cpu().numpy()
-            for axis in range(3):
-                writer.add_image(f"val_lowcount_input_{axis}", visualize_one_slice_in_3d_image(
-                    last_batch["image"][0, ..., 0], axis), epoch)
-                writer.add_image(f"val_highcount_gt_{axis}", visualize_one_slice_in_3d_image(
-                    last_batch["label"][0, ..., 0], axis), epoch)
-                writer.add_image(f"val_denoised_cond_{axis}", visualize_one_slice_in_3d_image(
-                    sampled[0, ..., 0], axis), epoch)
+            # periodic conditional sampling (reference train_diffusion.py:308-333)
+            if not args.no_images and epoch % (2 * val_interval) == 0 and last_batch is not None:
+                with torch.no_grad():
+                    img1 = torch.clamp(torch.from_numpy(last_batch["image"][:1]).to(device), 0, 1)
+                    shape1 = (1, *[s // f for s in img1.shape[1:4]], ae.latent_channels)
+                    cond = None
+                    if s2cfg.conditional:
+                        eps = torch.randn(shape1, generator=gen, device=device)
+                        cond = ae.encode_stage_2_inputs(img1, eps)
+                    noise = torch.randn(shape1, generator=gen, device=device).to(dt)
+                    sampled = inferer.sample(unet, ae.decode_stage_2_outputs, scheduler, noise,
+                                             condition=cond, scale_factor=scale_factor,
+                                             generator=gen)
+                sampled = sampled.float().cpu().numpy()
+                for axis in range(3):
+                    writer.add_image(f"val_lowcount_input_{axis}", visualize_one_slice_in_3d_image(
+                        last_batch["image"][0, ..., 0], axis), epoch)
+                    writer.add_image(f"val_highcount_gt_{axis}", visualize_one_slice_in_3d_image(
+                        last_batch["label"][0, ..., 0], axis), epoch)
+                    writer.add_image(f"val_denoised_cond_{axis}", visualize_one_slice_in_3d_image(
+                        sampled[0, ..., 0], axis), epoch)
 
-    stop.restore()
     writer.close()
     if stop.requested_global:
         # exit 75 (EX_TEMPFAIL): a wrapper must not take a preempted stage

@@ -1,10 +1,12 @@
-"""Host-side (numpy) volume transforms with reference parity.
+"""Volume transforms with reference parity, on the host (numpy) and on the
+tensor's device (torch).
 
 The port's own copies of ``val_patch_size``, ``center_crop_np``,
-``random_crop_pair_np`` and ``scale_intensity_percentiles_np`` from
-``ldm3d_tpu/data/transforms.py`` (reference ``3d_ldm/utils.py:86-107``:
-``CenterSpatialCropd``, ``RandSpatialCropd`` and
-``ScaleIntensityRangePercentilesd(lower=0, upper=99.5, b_min=0, b_max=1)``).
+``random_crop_pair_np``, ``scale_intensity_percentiles_np`` and
+``scale_intensity_percentiles`` from ``ldm3d_tpu/data/transforms.py``
+(reference ``3d_ldm/utils.py:86-107``: ``CenterSpatialCropd``,
+``RandSpatialCropd`` and ``ScaleIntensityRangePercentilesd(lower=0,
+upper=99.5, b_min=0, b_max=1)``).
 """
 
 from __future__ import annotations
@@ -13,9 +15,10 @@ import math
 from typing import Sequence, Tuple
 
 import numpy as np
+import torch
 
 __all__ = ["val_patch_size", "center_crop_np", "random_crop_pair_np",
-           "scale_intensity_percentiles_np"]
+           "scale_intensity_percentiles_np", "scale_intensity_percentiles"]
 
 
 def val_patch_size(patch_size: Sequence[int], size_divisible: int, randcrop: bool) -> list[int]:
@@ -52,3 +55,38 @@ def scale_intensity_percentiles_np(
     a_max = np.percentile(vol, upper)
     denom = max(a_max - a_min, 1e-8)
     return ((vol - a_min) / denom * (b_max - b_min) + b_min).astype(np.float32)
+
+
+def _percentile_of_sorted(rows: torch.Tensor, q: float) -> torch.Tensor:
+    """``jnp.percentile(..., method="linear")`` of each row of ``rows``
+    (sorted along dim 1), with the fp32 index arithmetic that XLA compiles
+    it to: ``q / 100 * (n - 1)`` folded into ``q * (fp32(1 / 100) * (n - 1))``
+    (the two orders pick weights up to 2e-4 apart), floor and ceil clamped to
+    the row, the two neighbours weighted by the position's fraction."""
+    n = rows.shape[1]
+    f32 = np.float32
+    pos = f32(q) * f32(f32(f32(1) / f32(100)) * f32(n - 1))
+    low, high = np.floor(pos), np.ceil(pos)
+    high_w = np.float32(pos - low)
+    low_w = np.float32(1) - high_w
+    lo = int(min(max(low, 0), n - 1))
+    hi = int(min(max(high, 0), n - 1))
+    return rows[:, lo] * float(low_w) + rows[:, hi] * float(high_w)
+
+
+def scale_intensity_percentiles(vol: torch.Tensor, lower: float = 0.0, upper: float = 99.5,
+                                b_min: float = 0.0, b_max: float = 1.0) -> torch.Tensor:
+    """Per-sample percentile window scaling on the tensor's device, batched
+    over axis 0.
+
+    ``vol``: (B, D, H, W, C). Percentiles are computed per sample over all
+    spatial dims and channels, matching MONAI's per-volume behaviour. Each
+    sample is sorted once (``torch.quantile`` refuses rows of more than 2^24
+    elements and takes its index in another precision than JAX's)."""
+    x = vol.to(torch.float32)
+    rows = torch.sort(x.reshape(x.shape[0], -1), dim=1).values
+    shape = (-1,) + (1,) * (x.ndim - 1)
+    a_min = _percentile_of_sorted(rows, lower).reshape(shape)
+    a_max = _percentile_of_sorted(rows, upper).reshape(shape)
+    denom = torch.clamp(a_max - a_min, min=1e-8)
+    return (x - a_min) / denom * (b_max - b_min) + b_min

@@ -15,7 +15,9 @@ failed launch) the call raises. On CPU tensors each wrapper runs its plain
 PyTorch version of the same fp32 math (:func:`attention_reference`,
 :func:`attention_bwd_dq_reference`, :func:`attention_bwd_dkv_reference`).
 Any other device raises. There is no switch between the two. Each wrapper
-counts its kernel launches in ``<wrapper>.launches``.
+counts its kernel launches in ``<wrapper>.launches``, by route in
+``<wrapper>.route_launches`` and by input in ``<wrapper>.cases`` (a dict from
+``(q's shape, kv_len, dtype name)`` to launches).
 
 Kernel notes. ``flash_fwd.cu`` replaces the TPU's ``_flash_kernel_mono`` and
 ``_flash_kernel`` (``ldm3d_tpu/ops/attention.py:49`` and ``:83``);
@@ -275,6 +277,11 @@ def flash_bwd_plan(kind: str, dtype: torch.dtype, b: int, n: int, h: int, d: int
     return plan
 
 
+def _count_case(fn, q: torch.Tensor, k: torch.Tensor) -> None:
+    key = (tuple(q.shape), k.shape[1], str(q.dtype).removeprefix("torch."))
+    fn.cases[key] = fn.cases.get(key, 0) + 1
+
+
 def _flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float):
     """Launch ``csrc/flash_fwd.cu`` on the current stream; it routes by dtype
     and head_dim."""
@@ -308,6 +315,7 @@ def _flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: fl
                            f"q {tuple(q.shape)} k {tuple(k.shape)} {q.dtype}")
     flash_attention_fwd.launches += 1
     flash_attention_fwd.route_launches[fwd_route_id(q.dtype, d)] += 1
+    _count_case(flash_attention_fwd, q, k)
     return out, lse
 
 
@@ -332,6 +340,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 flash_attention_fwd.launches = 0
 flash_attention_fwd.route_launches = dict.fromkeys(FWD_ROUTE_IDS, 0)
+flash_attention_fwd.cases = {}
 
 
 def _probs(q: torch.Tensor, k: torch.Tensor, lse: torch.Tensor, scale: float) -> torch.Tensor:
@@ -443,11 +452,13 @@ def flash_attention_bwd_dq(q, k, v, do, lse, dvec, scale=None):
                            f"q {tuple(q.shape)} k {tuple(k.shape)} {q.dtype}")
     flash_attention_bwd_dq.launches += 1
     flash_attention_bwd_dq.route_launches[bwd_route_id(q.dtype, d)] += 1
+    _count_case(flash_attention_bwd_dq, q, k)
     return dq
 
 
 flash_attention_bwd_dq.launches = 0
 flash_attention_bwd_dq.route_launches = dict.fromkeys(BWD_ROUTE_IDS, 0)
+flash_attention_bwd_dq.cases = {}
 
 
 def flash_attention_bwd_dkv(q, k, v, do, lse, dvec, scale=None):
@@ -484,11 +495,13 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, dvec, scale=None):
                            f"q {tuple(q.shape)} k {tuple(k.shape)} {q.dtype}")
     flash_attention_bwd_dkv.launches += 1
     flash_attention_bwd_dkv.route_launches[bwd_route_id(q.dtype, d)] += 1
+    _count_case(flash_attention_bwd_dkv, q, k)
     return dk, dv
 
 
 flash_attention_bwd_dkv.launches = 0
 flash_attention_bwd_dkv.route_launches = dict.fromkeys(BWD_ROUTE_IDS, 0)
+flash_attention_bwd_dkv.cases = {}
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, scale=None):

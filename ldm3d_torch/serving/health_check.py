@@ -47,13 +47,19 @@ def check_disk(min_free_gb: float) -> dict:
     return {"ok": free_gb >= min_free_gb, "free_gb": round(free_gb, 1)}
 
 
-def memory_used_pct(meminfo: str = "/proc/meminfo") -> float:
-    """Share of memory in use, ``100 * (1 - MemAvailable / MemTotal)``."""
+def meminfo_kib(meminfo: str = "/proc/meminfo") -> dict:
+    """The fields of ``/proc/meminfo``, in KiB."""
     fields = {}
     with open(meminfo) as f:
         for line in f:
             name, _, rest = line.partition(":")
             fields[name] = int(rest.split()[0])
+    return fields
+
+
+def memory_used_pct(meminfo: str = "/proc/meminfo") -> float:
+    """Share of memory in use, ``100 * (1 - MemAvailable / MemTotal)``."""
+    fields = meminfo_kib(meminfo)
     return round(100.0 * (1.0 - fields["MemAvailable"] / fields["MemTotal"]), 1)
 
 

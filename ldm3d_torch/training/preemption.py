@@ -25,7 +25,11 @@ log = logging.getLogger("preemption")
 
 
 class GracefulShutdown:
-    """Latches SIGTERM (and optionally other signals) into a pollable flag."""
+    """Latches SIGTERM (and optionally other signals) into a pollable flag.
+
+    As a context manager it re-installs the previous handlers on every way
+    out of its block (return, ``SystemExit`` or any other exception), so no
+    handler of a finished run is left behind in the process."""
 
     def __init__(self, signals=(signal.SIGTERM,)):
         self._flag = threading.Event()
@@ -65,3 +69,9 @@ class GracefulShutdown:
         for sig, prev in self._prev.items():
             signal.signal(sig, prev)
         self._prev.clear()
+
+    def __enter__(self) -> "GracefulShutdown":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.restore()

@@ -17,6 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_models import ref_jit
 
 from ldm3d_torch.ckpt.from_jax import state_dict_from_jax
 from ldm3d_torch.nn import blocks as tb
@@ -69,11 +70,11 @@ def test_block_matches_jax(name):
         temb = rng.standard_normal((2, 12), dtype=np.float32)
         args += (jnp.asarray(temb),)
     jmod = make_jax()
-    params = jmod.init(jax.random.PRNGKey(1), *args)["params"]
+    params = ref_jit(jmod.init)(jax.random.PRNGKey(1), *args)["params"]
     if name == "groupnorm":  # non-trivial affine
         params = {"scale": jnp.asarray(rng.standard_normal(cin, dtype=np.float32)),
                   "bias": jnp.asarray(rng.standard_normal(cin, dtype=np.float32))}
-    ref = np.asarray(jmod.apply({"params": params}, *args))
+    ref = np.asarray(ref_jit(jmod.apply)({"params": params}, *args))
 
     tmod = make_torch()
     tmod.load_state_dict(state_dict_from_jax(jax.device_get(params), tmod))
@@ -95,8 +96,8 @@ def test_sinusoidal_time_embedding_matches_jax(dim):
 def test_timestep_embedding_matches_jax():
     t = np.array([0, 7, 999], np.int32)
     jmod = jb.TimestepEmbedding(16, 64)
-    params = jmod.init(jax.random.PRNGKey(2), jnp.asarray(t))["params"]
-    ref = np.asarray(jmod.apply({"params": params}, jnp.asarray(t)))
+    params = ref_jit(jmod.init)(jax.random.PRNGKey(2), jnp.asarray(t))["params"]
+    ref = np.asarray(ref_jit(jmod.apply)({"params": params}, jnp.asarray(t)))
     tmod = tb.TimestepEmbedding(16, 64)
     tmod.load_state_dict(state_dict_from_jax(jax.device_get(params), tmod))
     with torch.no_grad():

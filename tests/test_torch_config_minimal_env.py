@@ -19,6 +19,7 @@ from types import SimpleNamespace
 import jax
 import jax.numpy as jnp
 import torch
+from test_torch_models import ref_jit
 
 from ldm3d_torch.configs import define_instance as port_define_instance
 from ldm3d_torch.configs import preset_path as port_preset_path
@@ -59,7 +60,7 @@ def _stage2_ready_dir(path: Path, jax_side: bool) -> Path:
 
         ae = ConfigResolver(cfg).instantiate("autoencoder_def")
         key = jax.random.PRNGKey(0)
-        params = jax.jit(ae.init)({"params": key, "sample": key},
+        params = ref_jit(ae.init)({"params": key, "sample": key},
                                   jnp.zeros((1, 16, 16, 16, 1)))["params"]
         CheckpointManager(str(path / "m"), StageArtifacts.AUTOENCODER).save(
             "best", {"params": params})

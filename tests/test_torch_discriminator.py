@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 from jax import lax
+from test_torch_models import ref_jit
 from test_torch_stage1 import _fill
 
 from ldm3d_torch.ckpt import discriminator_state_dict_from_jax
@@ -57,7 +58,7 @@ def test_same_pads_are_flax_same(n, stride):
 def test_features_and_logits_match_jax(shape):
     jd, params, td = _pair(shape, seed=sum(shape))
     x = np.random.default_rng(1).uniform(0, 1, (2, *shape, 1)).astype(np.float32)
-    ref = jd.apply({"params": params}, jnp.asarray(x))
+    ref = ref_jit(jd.apply)({"params": params}, jnp.asarray(x))
     with torch.no_grad():
         out = td(torch.from_numpy(x))
     assert len(out) == len(ref) == 4
@@ -79,7 +80,7 @@ def test_d_loss_gradients_match_jax(shape):
         return jax_d_loss(jd.apply({"params": p}, jnp.asarray(fake))[-1],
                           jd.apply({"params": p}, jnp.asarray(real))[-1])
 
-    ref_loss, ref_grads = jax.value_and_grad(loss_fn)(params)
+    ref_loss, ref_grads = ref_jit(jax.value_and_grad(loss_fn))(params)
     loss = lsgan_discriminator_loss(td(torch.from_numpy(fake))[-1], td(torch.from_numpy(real))[-1])
     loss.backward()
     np.testing.assert_allclose(loss.item(), float(ref_loss), rtol=1e-5)

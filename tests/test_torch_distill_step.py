@@ -41,22 +41,24 @@ def _micro(conditional: bool):
     (callers copy the port's UNet before training it)."""
     import jax
     import jax.numpy as jnp
-    from test_torch_models import port_models
+    from test_torch_models import jax_models, port_models, ref_jit
 
     from ldm3d_tpu.configs import ConfigResolver
 
-    cfg = load_json(preset_path("config_micro_cpu.json"))
-    if not conditional:
-        cfg = copy.deepcopy(cfg)
-        cfg["diffusion_def"]["in_channels"] = cfg["latent_channels"]
+    if conditional:  # the micro models of tests/test_torch_train.py (seed 4)
+        cfg, jae, ae_params, junet, u_params = jax_models("config_micro_cpu.json", seed=4)
+        tae, tunet = port_models(cfg, ae_params, u_params)
+        return cfg, jae, ae_params, junet, u_params, tae, tunet
+    cfg = copy.deepcopy(load_json(preset_path("config_micro_cpu.json")))
+    cfg["diffusion_def"]["in_channels"] = cfg["latent_channels"]
     r = ConfigResolver(cfg)
     jae, junet = r.instantiate("autoencoder_def"), r.instantiate("diffusion_def")
     patch = cfg["diffusion_train"]["patch_size"]
     latent = [p // jae.downsample_factor for p in patch]
     key = jax.random.PRNGKey(4)
-    ae_params = jax.device_get(jax.jit(jae.init)({"params": key, "sample": key},
+    ae_params = jax.device_get(ref_jit(jae.init)({"params": key, "sample": key},
                                                  jnp.zeros((1, *patch, 1)))["params"])
-    u_params = jax.device_get(jax.jit(junet.init)(key, jnp.zeros((1, *latent, junet.in_channels)),
+    u_params = jax.device_get(ref_jit(junet.init)(key, jnp.zeros((1, *latent, junet.in_channels)),
                                                   jnp.zeros((1,), jnp.int32))["params"])
     kernel = u_params["conv_out"]["kernel"]
     u_params["conv_out"]["kernel"] = 0.05 * np.random.default_rng(4).standard_normal(
@@ -95,6 +97,7 @@ STEP_CASES = {"eps_to_eps": dict(student_prediction_type=None),
 def test_distillation_step_matches_jax(case):
     import jax
     import jax.numpy as jnp
+    from test_torch_models import ref_jit
 
     from ldm3d_torch.ckpt.from_jax import state_dict_from_jax
     from ldm3d_tpu.diffusion import DDPMScheduler as JaxDDPM
@@ -112,8 +115,8 @@ def test_distillation_step_matches_jax(case):
              for k in ("image", "label")}
     key = jax.random.PRNGKey(3)
 
-    jstep = jax_make_distillation_step(junet, jae, JaxDDPM.create(num_train_timesteps=N_TRAIN),
-                                       JaxDistillConfig(**kw))
+    jstep = ref_jit(jax_make_distillation_step(
+        junet, jae, JaxDDPM.create(num_train_timesteps=N_TRAIN), JaxDistillConfig(**kw)))
     jstate = JaxTrainState.create(junet.apply, jax.tree_util.tree_map(jnp.array, u_params),
                                   jax_make_diffusion_optimizer(lambda _: LR))
     jstate, jm = jstep(jstate, u_params, ae_params, {k: jnp.asarray(v) for k, v in batch.items()},

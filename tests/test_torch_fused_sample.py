@@ -150,7 +150,9 @@ def test_launch_counts_delta_adds_and_takes_back():
     from ldm3d_torch.ops import attention as tattn
 
     before = graphs.launch_counts()
-    delta = {"flash_attention_fwd": {"launches": 3, "route_launches": {"bf16": 2, "fp32": 1}},
+    case = ((1, 8, 2, 64), 8, "bfloat16")
+    delta = {"flash_attention_fwd": {"launches": 3, "route_launches": {"bf16": 2, "fp32": 1},
+                                     "cases": {case: 2, (case[0], 8, "float32"): 1}},
              "gn_sums": {"launches": 2, "cases": {("shape",): 2}}}
     graphs.add_counts(delta)
     after = graphs.launch_counts()
@@ -161,6 +163,7 @@ def test_launch_counts_delta_adds_and_takes_back():
     graphs.add_counts(delta, -1)
     assert tattn.flash_attention_fwd.launches == before["flash_attention_fwd"]["launches"]
     assert tgn.gn_sums.cases.get(("shape",), 0) == 0
+    assert case not in tattn.flash_attention_fwd.cases
 
 
 # --- the CLI on the tiny preset's models
@@ -194,17 +197,21 @@ def _jax_pipeline(tiny, sched, images, eps, noise, guidance, key_seed=0):
     with the key's per-step draws, ``/ scale_factor``, decode."""
     import jax
     import jax.numpy as jnp
+    from test_torch_models import ref_jit
 
     from ldm3d_tpu.diffusion import inferer as jax_inferer
 
     _, jae, ae_params, junet, u_params, _, _ = tiny
-    mu, sigma = jae.apply({"params": ae_params}, jnp.asarray(images), method="encode")
-    return np.asarray(jax_inferer.sample(
-        lambda z, t: junet.apply({"params": u_params}, z, t),
-        lambda z: jae.apply({"params": ae_params}, z, method="decode_stage_2_outputs"),
-        sched, jnp.asarray(noise), jax.random.PRNGKey(key_seed),
-        condition=mu + sigma * jnp.asarray(eps), scale_factor=SCALE_FACTOR,
-        guidance_scale=guidance))
+
+    def run(images, eps, noise):
+        mu, sigma = jae.apply({"params": ae_params}, images, method="encode")
+        return jax_inferer.sample(
+            lambda z, t: junet.apply({"params": u_params}, z, t),
+            lambda z: jae.apply({"params": ae_params}, z, method="decode_stage_2_outputs"),
+            sched, noise, jax.random.PRNGKey(key_seed), condition=mu + sigma * eps,
+            scale_factor=SCALE_FACTOR, guidance_scale=guidance)
+
+    return np.asarray(ref_jit(run)(jnp.asarray(images), jnp.asarray(eps), jnp.asarray(noise)))
 
 
 @pytest.mark.parametrize("sampler,guidance,batch", [("ddim", "1.0", 1), ("dpm3", "1.0", 1),

@@ -26,7 +26,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from test_torch_models import jax_models, port_models
+from test_torch_models import jax_models, port_models, ref_jit
 from test_torch_sample import SCALE_FACTOR, _env, _jax_sample
 
 from ldm3d_torch.ckpt import CheckpointManager, state_dict_from_jax
@@ -58,7 +58,7 @@ def tiny():
     cfg, jae, ae_params, junet, u_params = jax_models(TINY, seed=3)
     tae, tunet = port_models(cfg, ae_params, u_params)
     jd = JaxDisc(num_layers_d=3, channels=4, in_channels=1)
-    d_params = jax.device_get(jax.jit(jd.init)(jax.random.PRNGKey(2),
+    d_params = jax.device_get(ref_jit(jd.init)(jax.random.PRNGKey(2),
                                                jnp.zeros((1, 16, 16, 16, 1)))["params"])
     td = PortDisc(num_layers_d=3, channels=4, in_channels=1)
     td.load_state_dict(state_dict_from_jax(d_params, td))
@@ -97,17 +97,18 @@ def _outputs(name, tiny, port_model, params):
         latent = [p // 4 for p in cfg["diffusion_train"]["patch_size"]]
         x = rng.standard_normal((2, *latent, jmodel.in_channels), dtype=np.float32)
         t = np.array([2, 9], np.int32)
-        ref = jmodel.apply({"params": params}, jnp.asarray(x), jnp.asarray(t))
+        ref = ref_jit(jmodel.apply)({"params": params}, jnp.asarray(x), jnp.asarray(t))
         with torch.no_grad():
             out = port_model(torch.from_numpy(x), torch.from_numpy(t))
         return np.asarray(ref), out.numpy()
     x = rng.uniform(0, 1, (1, 16, 16, 16, 1)).astype(np.float32)
     if name == "autoencoder":
-        ref = jmodel.apply({"params": params}, jnp.asarray(x), method="encode")[0]
+        ref = ref_jit(lambda v, a: jmodel.apply(v, a, method="encode"))(
+            {"params": params}, jnp.asarray(x))[0]
         with torch.no_grad():
             out = port_model.encode(torch.from_numpy(x))[0]
         return np.asarray(ref), out.numpy()
-    ref = jmodel.apply({"params": params}, jnp.asarray(x))[-1]
+    ref = ref_jit(jmodel.apply)({"params": params}, jnp.asarray(x))[-1]
     with torch.no_grad():
         out = port_model(torch.from_numpy(x))[-1]
     return np.asarray(ref), out.numpy()
@@ -155,7 +156,7 @@ def test_port_export_is_the_jax_export(tiny, name, qkv_mode):
 
 def _mid_depth_pair(depth: int = 2):
     junet = JaxUNet(**MID_KW, mid_depth=depth)
-    params = jax.device_get(jax.jit(junet.init)(jax.random.PRNGKey(4), jnp.zeros((1, 4, 4, 4, 4)),
+    params = jax.device_get(ref_jit(junet.init)(jax.random.PRNGKey(4), jnp.zeros((1, 4, 4, 4, 4)),
                                                 jnp.zeros((1,), jnp.int32))["params"])
     tunet = DiffusionUNet3D(**MID_KW, mid_depth=depth)
     tunet.load_state_dict(state_dict_from_jax(params, tunet))

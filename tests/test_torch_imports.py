@@ -2,8 +2,9 @@
 
 The port (``ldm3d_torch/``) and ``chip_smoke.py`` import torch, numpy and the
 standard library: never JAX, Flax, Optax, Orbax, MLflow (the port's
-tracker writes local JSON only) or the JAX package (``ldm3d_tpu``), not
-even its numpy-only modules. And the port imports on a
+tracker writes local JSON only), psutil (the host probes read ``/proc``),
+nibabel (NIfTI goes through the port's own reader), scipy or PyYAML, or the
+JAX package (``ldm3d_tpu``), not even its numpy-only modules. And the port imports on a
 machine with no ``nvcc``, no GPU and no ``triton``: kernels are built and
 loaded only when a CUDA tensor first reaches them.
 """
@@ -17,7 +18,8 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "mlflow", "ldm3d_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "mlflow", "ldm3d_tpu", "psutil",
+             "nibabel", "scipy", "yaml")
 
 
 def _port_sources():
@@ -61,10 +63,16 @@ def test_port_imports_without_nvcc_gpu_or_triton(tmp_path):
         "import ldm3d_torch.training.distill\n"
         "import ldm3d_torch.configs.schema, ldm3d_torch.ckpt.import_torch\n"
         "import ldm3d_torch.cli.import_checkpoint, ldm3d_torch.cli.export_checkpoint\n"
+        "import ldm3d_torch.cli.prepare_data, ldm3d_torch.cli.check_system\n"
+        "import ldm3d_torch.data.native_loader, ldm3d_torch.mlops.workspace\n"
+        "import ldm3d_torch.mlops.deployment, ldm3d_torch.mlops.monitoring\n"
+        "import ldm3d_torch.mlops.pipelines\n"
         "import ldm3d_torch.ops._kernels as k\n"
-        "bad = [m for m in ('jax', 'flax', 'triton', 'ldm3d_tpu', 'psutil', 'fastapi')\n"
-        "       if m in sys.modules]\n"
+        "bad = [m for m in ('jax', 'flax', 'triton', 'ldm3d_tpu', 'psutil', 'fastapi',\n"
+        "                   'nibabel', 'scipy', 'yaml') if m in sys.modules]\n"
         "assert not bad, bad\n"
+        "import ldm3d_torch.data.native_loader as nl\n"
+        "assert nl._lib is None  # the native loader is built at first use only\n"
         "libs = (k.flash_fwd_library, k.flash_bwd_library, k.groupnorm_library,\n"
         "        k.conv3d_library)\n"
         "assert all(lib.cache_info().currsize == 0 for lib in libs)\n"

@@ -17,6 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_models import ref_jit
 from test_torch_stage1 import lpips_params
 
 from ldm3d_torch.ckpt import lpips_state_dict_from_jax
@@ -55,7 +56,7 @@ def test_maxpool_matches_jax_exactly(n):
 def test_squeezenet_stages_match_jax(pair, size):
     params, tl = pair
     x = (_images((2, size, size, 3), size) - 0.5) * 4.0
-    ref = JaxSqueeze().apply({"params": params["squeeze"]}, jnp.asarray(x))
+    ref = ref_jit(JaxSqueeze().apply)({"params": params["squeeze"]}, jnp.asarray(x))
     with torch.no_grad():
         out = tl.squeeze(torch.from_numpy(x).permute(0, 3, 1, 2))
     assert len(out) == len(ref) == 7
@@ -70,7 +71,8 @@ def test_squeezenet_stages_match_jax(pair, size):
 def test_lpips_distance_matches_jax(pair, channels):
     params, tl = pair
     x, y = _images((3, 16, 16, channels), 1), _images((3, 16, 16, channels), 2)
-    ref = np.asarray(JaxLPIPS().apply({"params": params}, jnp.asarray(x), jnp.asarray(y)))
+    ref = np.asarray(ref_jit(JaxLPIPS().apply)({"params": params}, jnp.asarray(x),
+                                                jnp.asarray(y)))
     with torch.no_grad():
         out = tl(torch.from_numpy(x), torch.from_numpy(y))
     assert out.dtype == torch.float32 and out.shape == (3,)
@@ -94,7 +96,7 @@ def test_perceptual_loss_25d_matches_jax_with_its_indices(pair):
     x, y = _images((2, 16, 12, 10, 1), 4), _images((2, 16, 12, 10, 1), 5)
     key = jax.random.PRNGKey(6)
     jl = JaxLPIPS()
-    ref = jax.jit(lambda a, b, k: J.perceptual_loss_25d(
+    ref = ref_jit(lambda a, b, k: J.perceptual_loss_25d(
         lambda u, v: jl.apply({"params": params}, u, v), a, b, k))(jnp.asarray(x),
                                                                    jnp.asarray(y), key)
     idx, rng = [], key

@@ -16,6 +16,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_models import ref_jit
 from test_torch_train import LR, SCALE, _assert_params_close, _jax_draws
 
 from ldm3d_torch.ckpt.from_jax import unet_state_dict_from_jax
@@ -56,7 +57,7 @@ def _pair(depth: int = DEPTH, seed: int = 0):
     cfg = _cfg(depth)
     junet = ConfigResolver(cfg).instantiate("diffusion_def")
     latent = [p // 4 for p in cfg["diffusion_train"]["patch_size"]]
-    params = jax.device_get(jax.jit(junet.init)(jax.random.PRNGKey(seed),
+    params = jax.device_get(ref_jit(junet.init)(jax.random.PRNGKey(seed),
                                                 jnp.zeros((1, *latent, junet.in_channels)),
                                                 jnp.zeros((1,), jnp.int32))["params"])
     kernel = params["conv_out"]["kernel"]
@@ -99,7 +100,7 @@ def test_forward_matches_jax(pair):
     rng = np.random.default_rng(2)
     x = rng.standard_normal((2, *latent, junet.in_channels), dtype=np.float32)
     t = np.array([3, 11], np.int32)
-    ref = np.asarray(jax.jit(junet.apply)({"params": params}, jnp.asarray(x), jnp.asarray(t)))
+    ref = np.asarray(ref_jit(junet.apply)({"params": params}, jnp.asarray(x), jnp.asarray(t)))
     with torch.no_grad():
         out = tunet(torch.from_numpy(x), torch.from_numpy(t)).numpy()
     np.testing.assert_allclose(out, ref, atol=ATOL, rtol=0)
@@ -113,10 +114,13 @@ def test_staged_bottleneck_matches_jax_methods(pair):
     h = rng.standard_normal((1, 2, 2, 2, c), dtype=np.float32)
     t = np.array([5], np.int32)
     v = {"params": params}
-    temb = junet.apply(v, jnp.asarray(t), method="time_embedding")
-    ref_entry = junet.apply(v, jnp.asarray(h), temb, method="mid_entry")
-    ref_stack = junet.apply(v, ref_entry, temb, method="mid_stack_apply")
-    ref_exit = junet.apply(v, ref_stack, temb, method="mid_exit")
+    temb = ref_jit(lambda v, a: junet.apply(v, a, method="time_embedding"))(v, jnp.asarray(t))
+    ref_entry = ref_jit(lambda v, a, e: junet.apply(v, a, e, method="mid_entry"))(
+        v, jnp.asarray(h), temb)
+    ref_stack = ref_jit(lambda v, a, e: junet.apply(v, a, e, method="mid_stack_apply"))(
+        v, ref_entry, temb)
+    ref_exit = ref_jit(lambda v, a, e: junet.apply(v, a, e, method="mid_exit"))(
+        v, ref_stack, temb)
     with torch.no_grad():
         ttemb = tunet.time_embed(torch.from_numpy(t))
         th = to_channels_last(torch.from_numpy(h))
@@ -128,8 +132,20 @@ def test_staged_bottleneck_matches_jax_methods(pair):
                                    atol=ATOL, rtol=0)
 
 
+def _zero_params(depth: int) -> dict:
+    """Zero params of the shapes the JAX UNet's init builds at ``depth``
+    (``jax.eval_shape``: nothing is compiled)."""
+    cfg = _cfg(depth)
+    junet = ConfigResolver(cfg).instantiate("diffusion_def")
+    latent = [p // 4 for p in cfg["diffusion_train"]["patch_size"]]
+    shapes = jax.eval_shape(junet.init, jax.random.PRNGKey(1),
+                            jnp.zeros((1, *latent, junet.in_channels)),
+                            jnp.zeros((1,), jnp.int32))["params"]
+    return jax.tree_util.tree_map(lambda a: np.zeros(a.shape, a.dtype), shapes)
+
+
 def test_bridge_refuses_a_stack_of_another_depth():
-    _, _, deeper, _ = _pair(depth=DEPTH + 1, seed=1)
+    deeper = _zero_params(DEPTH + 1)
     tunet = define_instance(SimpleNamespace(**_cfg(DEPTH)), "diffusion_def")
     with pytest.raises(ValueError, match=f"unconsumed.*mid_stack/{DEPTH}/"):
         unet_state_dict_from_jax(deeper, tunet)
@@ -151,12 +167,13 @@ def test_latents_step_matches_jax(pair, cond_dropout, gamma):
              "image_mu": rng.standard_normal(lat), "image_sigma": rng.uniform(0.05, 0.3, lat)}
     batch = {k: v.astype(np.float32) for k, v in batch.items()}
     key = jax.random.PRNGKey(7)
-    state_j, m_j = jax_latents_step(
+    state_j, m_j = ref_jit(jax_latents_step(
         junet, JaxDDPM.create(**sched_kw),
-        JaxStage2Config(cond_dropout=cond_dropout, min_snr_gamma=gamma))(
+        JaxStage2Config(cond_dropout=cond_dropout, min_snr_gamma=gamma)))(
         state_j, {k: jnp.asarray(v) for k, v in batch.items()}, jnp.float32(SCALE), key)
 
-    _, _, _, tunet = _pair()
+    tunet = define_instance(SimpleNamespace(**cfg), "diffusion_def")
+    tunet.load_state_dict(unet_state_dict_from_jax(params, tunet))
     tunet.train()
     state_t = TrainState(tunet, make_diffusion_optimizer(
         tunet.parameters(), build_lr_schedule("multistep", LR, 10, 1)))

@@ -9,6 +9,8 @@ blocks of fp32 convs), 1e-6 relative for the scheduler's fp32 tables and
 step arithmetic.
 """
 
+import copy
+import functools
 from types import SimpleNamespace
 
 import jax
@@ -36,20 +38,45 @@ ATOL = 1e-4
 # training tests ran 8x slower in the parallel suite than alone).
 torch.set_num_threads(1)
 
+# XLA's cheaper CPU codegen for the JAX reference programs of the port's
+# tests (backend optimisation level 0, LLVM's expensive passes off): a cold
+# compile of a model's init or train step takes about half the time. The
+# programs compute the same functions; an initialiser's result may differ in
+# its last bit, and both packages take the params the reference drew. Set on
+# each jit: XLA_FLAGS would also reach the JAX package's own tests, which
+# run in the same worker processes.
+REF_COMPILER_OPTIONS = {"xla_backend_optimization_level": 0,
+                        "xla_llvm_disable_expensive_passes": True}
+
+
+def ref_jit(fn, **kwargs):
+    """``jax.jit`` of a JAX reference function under REF_COMPILER_OPTIONS.
+    A function that is itself jitted (the JAX package's train steps) is
+    traced into this one program."""
+    return jax.jit(fn, compiler_options=REF_COMPILER_OPTIONS, **kwargs)
+
 
 def jax_models(preset: str, seed: int = 0):
     """Flax AE + UNet of ``preset`` with initialised params; the UNet's
     zero-init ``conv_out`` gets seeded non-zero weights so that every layer
-    reaches the output. Returns ``(cfg, ae, ae_params, unet, u_params)``."""
+    reaches the output. Returns ``(cfg, ae, ae_params, unet, u_params)``.
+    The inits run once a process for each (preset, seed); every caller gets
+    its own copy of the config and the params."""
+    cfg, ae, ae_params, unet, u_params = _jax_models(preset, seed)
+    return copy.deepcopy(cfg), ae, copy.deepcopy(ae_params), unet, copy.deepcopy(u_params)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_models(preset: str, seed: int):
     cfg = load_json(preset_path(preset))
     r = ConfigResolver(cfg)
     ae, unet = r.instantiate("autoencoder_def"), r.instantiate("diffusion_def")
     patch = cfg["diffusion_train"]["patch_size"]
     latent = [p // ae.downsample_factor for p in patch]
     key = jax.random.PRNGKey(seed)
-    ae_params = jax.jit(ae.init)({"params": key, "sample": key},
+    ae_params = ref_jit(ae.init)({"params": key, "sample": key},
                                  jnp.zeros((1, *patch, cfg["image_channels"])))["params"]
-    u_params = jax.jit(unet.init)(key, jnp.zeros((1, *latent, unet.in_channels)),
+    u_params = ref_jit(unet.init)(key, jnp.zeros((1, *latent, unet.in_channels)),
                                   jnp.zeros((1,), jnp.int32))["params"]
     u_params = jax.device_get(u_params)
     rng = np.random.default_rng(seed)
@@ -99,7 +126,7 @@ def test_unet_forward_matches_jax(preset, micro):
     rng = np.random.default_rng(2)
     x = rng.standard_normal((2, *latent, junet.in_channels), dtype=np.float32)
     t = np.array([3, 11], np.int32)
-    ref = np.asarray(jax.jit(junet.apply)({"params": u_params}, jnp.asarray(x), jnp.asarray(t)))
+    ref = np.asarray(ref_jit(junet.apply)({"params": u_params}, jnp.asarray(x), jnp.asarray(t)))
     with torch.no_grad():
         out = tunet(torch.from_numpy(x), torch.from_numpy(t)).numpy()
     assert out.shape == ref.shape
@@ -111,7 +138,7 @@ def test_autoencoder_matches_jax(micro):
     patch = cfg["diffusion_train"]["patch_size"]
     rng = np.random.default_rng(3)
     x = rng.uniform(0, 1, (2, *patch, 1)).astype(np.float32)
-    jmu, jsigma = jax.jit(lambda p, v: jae.apply({"params": p}, v, method="encode"))(
+    jmu, jsigma = ref_jit(lambda p, v: jae.apply({"params": p}, v, method="encode"))(
         ae_params, jnp.asarray(x))
     eps = rng.standard_normal(jmu.shape, dtype=np.float32)
     with torch.no_grad():
@@ -122,7 +149,7 @@ def test_autoencoder_matches_jax(micro):
     np.testing.assert_allclose(sigma.numpy(), np.asarray(jsigma), atol=ATOL, rtol=0)
     ref_z = np.asarray(jmu + jsigma * jnp.asarray(eps))
     np.testing.assert_allclose(z.numpy(), ref_z, atol=ATOL, rtol=0)
-    ref_recon = np.asarray(jax.jit(
+    ref_recon = np.asarray(ref_jit(
         lambda p, z: jae.apply({"params": p}, z, method="decode_stage_2_outputs"))(
         ae_params, jnp.asarray(ref_z)))
     assert recon.shape == x.shape

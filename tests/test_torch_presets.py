@@ -27,6 +27,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_models import ref_jit
 
 from ldm3d_torch.ckpt import CheckpointManager
 from ldm3d_torch.ckpt.from_jax import autoencoder_state_dict_from_jax, unet_state_dict_from_jax
@@ -69,9 +70,9 @@ def _pairs(cfg: dict, image, latent):
     r = ConfigResolver(cfg)
     jae, junet = r.instantiate("autoencoder_def"), r.instantiate("diffusion_def")
     key = jax.random.PRNGKey(1)
-    ae_params = jax.device_get(jax.jit(jae.init)(
+    ae_params = jax.device_get(ref_jit(jae.init)(
         {"params": key, "sample": key}, jnp.zeros((1, *image, cfg["image_channels"])))["params"])
-    u_params = jax.device_get(jax.jit(junet.init)(key, jnp.zeros((1, *latent, junet.in_channels)),
+    u_params = jax.device_get(ref_jit(junet.init)(key, jnp.zeros((1, *latent, junet.in_channels)),
                                                   jnp.zeros((1,), jnp.int32))["params"])
     u_params["conv_out"]["kernel"] = 0.05 * np.random.default_rng(1).standard_normal(
         u_params["conv_out"]["kernel"].shape).astype(np.float32)
@@ -89,13 +90,13 @@ def test_narrowed_preset_models_match_jax(name):
     (jae, ae_params, tae), (junet, u_params, tunet) = _pairs(cfg, image, latent)
     rng = np.random.default_rng(4)
     x = rng.uniform(0, 1, (1, *image, cfg["image_channels"])).astype(np.float32)
-    jmu, _ = jax.jit(lambda p, v: jae.apply({"params": p}, v, method="encode"))(
+    jmu, _ = ref_jit(lambda p, v: jae.apply({"params": p}, v, method="encode"))(
         ae_params, jnp.asarray(x))
-    jrecon = jax.jit(lambda p, v: jae.apply({"params": p}, v, method="decode_stage_2_outputs"))(
+    jrecon = ref_jit(lambda p, v: jae.apply({"params": p}, v, method="decode_stage_2_outputs"))(
         ae_params, jmu)
     z = rng.standard_normal((2, *latent, junet.in_channels), dtype=np.float32)
     t = np.array([1, 900], np.int32)
-    jeps = jax.jit(junet.apply)({"params": u_params}, jnp.asarray(z), jnp.asarray(t))
+    jeps = ref_jit(junet.apply)({"params": u_params}, jnp.asarray(z), jnp.asarray(t))
     with torch.no_grad():
         mu, _ = tae.encode(torch.from_numpy(x))
         recon = tae.decode_stage_2_outputs(torch.from_numpy(np.array(jmu)))
@@ -143,11 +144,13 @@ def _small_16g(tmp_path) -> tuple:
 
 def test_16g_trainers_refuse_one_channel_data_as_jax(tmp_path):
     cfg, cfg_path, env = _small_16g(tmp_path)
-    # JAX: params built for 2 channels, then the first 1-channel crop
+    # JAX: params of the shapes init builds for 2 channels (their values do
+    # not matter: the refusal is the shape check), then the first 1-channel crop
     jae = ConfigResolver(cfg).instantiate("autoencoder_def")
     key = jax.random.PRNGKey(0)
-    params = jax.jit(jae.init)({"params": key, "sample": key},
-                               jnp.zeros((1, 16, 16, 16, 2)))["params"]
+    shapes = jax.eval_shape(jae.init, {"params": key, "sample": key},
+                            jnp.zeros((1, 16, 16, 16, 2)))["params"]
+    params = jax.tree_util.tree_map(lambda a: jnp.zeros(a.shape, a.dtype), shapes)
     with pytest.raises(flax.errors.ScopeParamShapeError):
         jae.apply({"params": params}, jnp.zeros((1, 16, 16, 16, 1)), method="encode")
     with pytest.raises(RuntimeError, match="to have 2 channels, but got 1"):

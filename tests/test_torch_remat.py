@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
+from test_torch_models import ref_jit
 
 from ldm3d_torch.ckpt.from_jax import autoencoder_state_dict_from_jax, unet_state_dict_from_jax
 from ldm3d_torch.configs import define_instance
@@ -62,12 +63,12 @@ def params():
     out = {}
     r = ConfigResolver(_cfg())
     ae = r.instantiate("autoencoder_def")
-    out["vae"] = jax.device_get(jax.jit(ae.init)({"params": key, "sample": key},
+    out["vae"] = jax.device_get(ref_jit(ae.init)({"params": key, "sample": key},
                                                  jnp.asarray(x))["params"])
     rng = np.random.default_rng(1)
     for name, depth in (("unet", 0), ("mid", 2)):
         unet = ConfigResolver(_cfg(mid_depth=depth)).instantiate("diffusion_def")
-        p = jax.device_get(jax.jit(unet.init)(key, jnp.asarray(z), jnp.asarray(t))["params"])
+        p = jax.device_get(ref_jit(unet.init)(key, jnp.asarray(z), jnp.asarray(t))["params"])
         k = p["conv_out"]["kernel"]
         p["conv_out"]["kernel"] = 0.05 * rng.standard_normal(k.shape).astype(np.float32)
         out[name] = p
@@ -83,7 +84,7 @@ def _jax_vae(remat, params):
         recon = ae.apply({"params": p}, mu + sigma * eps, method="decode")
         return jnp.mean((recon - x) ** 2) + 1e-3 * jnp.mean(mu ** 2 + sigma ** 2), recon
 
-    (value, recon), grads = jax.jit(jax.value_and_grad(loss, has_aux=True))(params)
+    (value, recon), grads = ref_jit(jax.value_and_grad(loss, has_aux=True))(params)
     return float(value), np.asarray(recon), grads
 
 
@@ -107,7 +108,7 @@ def _jax_unet(remat, params, depth):
         out = unet.apply({"params": p}, z, t)
         return jnp.mean(out ** 2), out
 
-    (value, out), grads = jax.jit(jax.value_and_grad(loss, has_aux=True))(params)
+    (value, out), grads = ref_jit(jax.value_and_grad(loss, has_aux=True))(params)
     return float(value), np.asarray(out), grads
 
 

@@ -22,7 +22,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from test_torch_models import jax_models, port_models
+from test_torch_models import jax_models, port_models, ref_jit
 
 from ldm3d_torch.cli.common import save_two_stage
 from ldm3d_torch.cli.inference import main as port_inference
@@ -48,14 +48,17 @@ def tiny():
 
 
 def _jax_sample(jae, ae_params, junet, u_params, sched_kw, images, eps, noise, guidance):
-    """The JAX pipeline: posterior with the given eps, DDIM loop, decode."""
-    mu, sigma = jae.apply({"params": ae_params}, jnp.asarray(images), method="encode")
-    condition = mu + sigma * jnp.asarray(eps)
-    return np.asarray(jax_inferer.sample(
-        lambda z, t: junet.apply({"params": u_params}, z, t),
-        lambda z: jae.apply({"params": ae_params}, z, method="decode_stage_2_outputs"),
-        JaxDDIM.create(**sched_kw), jnp.asarray(noise), jax.random.PRNGKey(0),
-        condition=condition, scale_factor=SCALE_FACTOR, guidance_scale=guidance))
+    """The JAX pipeline: posterior with the given eps, DDIM loop, decode (one
+    program)."""
+    def run(images, eps, noise):
+        mu, sigma = jae.apply({"params": ae_params}, images, method="encode")
+        return jax_inferer.sample(
+            lambda z, t: junet.apply({"params": u_params}, z, t),
+            lambda z: jae.apply({"params": ae_params}, z, method="decode_stage_2_outputs"),
+            JaxDDIM.create(**sched_kw), noise, jax.random.PRNGKey(0),
+            condition=mu + sigma * eps, scale_factor=SCALE_FACTOR, guidance_scale=guidance)
+
+    return np.asarray(ref_jit(run)(jnp.asarray(images), jnp.asarray(eps), jnp.asarray(noise)))
 
 
 @pytest.mark.parametrize("guidance", [1.0, 2.5])

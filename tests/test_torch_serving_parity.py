@@ -17,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 from scaffolds import write_env_json
-from test_torch_models import jax_models, port_models
+from test_torch_models import jax_models, port_models, ref_jit
 
 from ldm3d_torch.cli.common import save_two_stage
 from ldm3d_torch.serving.model_server import ModelServer as PortServer
@@ -61,8 +61,8 @@ def test_run_functions_match_jax(servers, sampler, steps, guidance):
     noise = rng.standard_normal((1, *psrv._latent_shape)).astype(np.float32)
     cond = rng.standard_normal((1, *psrv._cond_shape)).astype(np.float32)
     key = jax.random.PRNGKey(9)
-    ref = np.concatenate([np.asarray(v) for v in jsrv._build_run(sampler, steps, guidance)(
-        jnp.asarray(noise), key, jnp.asarray(cond))])
+    ref = np.concatenate([np.asarray(v) for v in ref_jit(jsrv._build_run(
+        sampler, steps, guidance))(jnp.asarray(noise), key, jnp.asarray(cond))])
     draws = None
     if sampler == "ddpm":
         draws = [torch.from_numpy(np.array(jax.random.normal(k, noise.shape, jnp.float32)))

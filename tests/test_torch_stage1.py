@@ -30,7 +30,7 @@ import numpy as np
 import optax
 import pytest
 import torch
-from test_torch_models import port_models  # noqa: F401  (sets one intra-op thread)
+from test_torch_models import ref_jit
 
 from ldm3d_torch.ckpt import (
     CheckpointManager,
@@ -228,7 +228,7 @@ def test_sampling_eps_reproduces_the_jax_call(models):
     key = jax.random.PRNGKey(11)
     lat = _latent_shape(cfg, images)
 
-    @jax.jit
+    @ref_jit
     def both(params, x, k):
         recon, mu, sigma = jae.apply({"params": params}, x, rngs={"sample": k})
         eps = jae.apply({"params": params}, jnp.zeros(lat), jnp.ones(lat), method="sampling",
@@ -256,7 +256,8 @@ def test_three_steps_match_jax_across_the_warmup_boundary(models):
     sched_j, sched_t = _schedules()
     g_j = JaxTrainState.create(jae.apply, g_params, jax_make_optimizer(sched_j))
     d_j = JaxTrainState.create(jdisc.apply, d_params, jax_make_optimizer(sched_j))
-    step_j = jax_train_step(jae, jdisc, lpips_apply, JaxStage1Config(**kw))
+    step_j = ref_jit(jax_train_step(jae, jdisc, lpips_apply, JaxStage1Config(**kw)),
+                     static_argnames=("adv_active",))
     g_t = TrainState(tae, make_optimizer(tae.parameters(), sched_t))
     d_t = TrainState(tdisc, make_optimizer(tdisc.parameters(), sched_t))
     step_t = make_stage1_train_step(tae, tdisc, tl, Stage1Config(**kw))
@@ -281,8 +282,8 @@ def test_eval_step_matches_jax(models):
     tae, _, tl = port()
     jl = JaxLPIPS()
     kw = dict(kl_weight=1e-7, perceptual_weight=0.5)
-    ref_fn = jax_eval_step(jae, lambda a, b: jl.apply({"params": l_params}, a, b),
-                           JaxStage1Config(**kw))
+    ref_fn = ref_jit(jax_eval_step(jae, lambda a, b: jl.apply({"params": l_params}, a, b),
+                                   JaxStage1Config(**kw)))
     images = _images(cfg, 30)
     key = jax.random.PRNGKey(31)
     _, draws = _jax_draws(jae, g_params, key, images.shape, _latent_shape(cfg, images))

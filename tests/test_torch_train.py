@@ -29,7 +29,7 @@ import numpy as np
 import optax
 import pytest
 import torch
-from test_torch_models import jax_models, port_models
+from test_torch_models import jax_models, port_models, ref_jit
 
 from ldm3d_torch.ckpt import CheckpointManager
 from ldm3d_torch.ckpt.from_jax import state_dict_from_jax
@@ -227,7 +227,7 @@ def test_latents_step_matches_jax(micro, cond_dropout, gamma):
              "image_mu": rng.standard_normal(lat), "image_sigma": rng.uniform(0.05, 0.3, lat)}
     batch = {k: v.astype(np.float32) for k, v in batch.items()}
     key = jax.random.PRNGKey(7)
-    state_j, m_j = jax_latents_step(junet, JaxDDPM.create(**sched_kw), jcfg)(
+    state_j, m_j = ref_jit(jax_latents_step(junet, JaxDDPM.create(**sched_kw), jcfg))(
         state_j, {k: jnp.asarray(v) for k, v in batch.items()}, jnp.float32(SCALE), key)
 
     _, tunet, state_t = _port_state(cfg, ae_params, u_params)
@@ -252,7 +252,8 @@ def test_eval_step_and_scale_factor_match_jax_formulas(micro):
     images = rng.uniform(0, 1, (2, *patch, 1)).astype(np.float32)
     lat = (2, *[p // 4 for p in patch], cfg["latent_channels"])
     eps = rng.standard_normal(lat).astype(np.float32)
-    mu, sigma = jae.apply({"params": ae_params}, jnp.asarray(labels), method="encode")
+    encode = ref_jit(lambda x: jae.apply({"params": ae_params}, x, method="encode"))
+    mu, sigma = encode(jnp.asarray(labels))
     ref_sf = 1.0 / float(jnp.std(mu + sigma * jnp.asarray(eps)))
     sf = float(compute_scale_factor(tae, torch.from_numpy(labels), torch.from_numpy(eps)))
     np.testing.assert_allclose(sf, ref_sf, rtol=1e-5)
@@ -261,10 +262,10 @@ def test_eval_step_and_scale_factor_match_jax_formulas(micro):
     d = {k: jnp.asarray(v.numpy()) for k, v in vars(draws).items() if v is not None}
     sched_j = JaxDDPM.create(num_train_timesteps=16)
     z = (mu + sigma * d["eps_label"]) * jnp.float32(SCALE)
-    mu_i, sigma_i = jae.apply({"params": ae_params}, jnp.asarray(images), method="encode")
+    mu_i, sigma_i = encode(jnp.asarray(images))
     model_in = jax_inferer.noise_prediction_inputs(sched_j, z, d["noise"], d["timesteps"],
                                                    mu_i + sigma_i * d["eps_image"])
-    pred = junet.apply({"params": u_params}, model_in, d["timesteps"])
+    pred = ref_jit(junet.apply)({"params": u_params}, model_in, d["timesteps"])
     ref = float(jnp.mean((pred - d["noise"]) ** 2))
     eval_step = make_stage2_eval_step(tunet, tae, PortDDPM.create(num_train_timesteps=16),
                                       Stage2Config())

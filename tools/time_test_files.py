@@ -6,7 +6,14 @@ xdist in each, ``JAX_PLATFORMS=cpu`` as the suite's own command sets it),
 and prints one JSON line per file (seconds, exit code, the summary line)
 and a last line with their sum and the whole run's wall time.
 
-Usage, from the repository's root: python tools/time_test_files.py [--jobs 6]
+``--root DIR`` times the files of another checkout (say a fresh ``git
+archive`` copy), from that checkout's root. The suite keeps its JAX compile
+cache in ``<root>/.jax_cache_tests`` (``tests/conftest.py``); ``--cold``
+empties it first, so that every JAX program the files compile is compiled
+anew, as in a fresh checkout's first run.
+
+Usage, from the repository's root:
+    python tools/time_test_files.py [--jobs 6] [--root DIR] [--cold]
 """
 
 from __future__ import annotations
@@ -14,6 +21,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -23,11 +31,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 
 
-def _run(path: Path) -> dict:
+def _run(path: Path, root: Path) -> dict:
     env = dict(os.environ, JAX_PLATFORMS="cpu")
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-m", "pytest", "-q", "-p", "no:cacheprovider",
-                           str(path.relative_to(ROOT))], cwd=ROOT, env=env,
+                           str(path.relative_to(root))], cwd=root, env=env,
                           capture_output=True, text=True)
     lines = [ln for ln in proc.stdout.splitlines() if ln.strip()]
     return {"file": path.name, "seconds": time.perf_counter() - t0, "rc": proc.returncode,
@@ -37,17 +45,24 @@ def _run(path: Path) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--jobs", type=int, default=6)
+    ap.add_argument("--root", type=Path, default=ROOT, help="the checkout whose files to time")
+    ap.add_argument("--cold", action="store_true",
+                    help="empty <root>/.jax_cache_tests first (a cold compile cache)")
     args = ap.parse_args(argv)
-    files = sorted((ROOT / "tests").glob("test_torch_*.py"))
+    root = args.root.resolve()
+    if args.cold:
+        shutil.rmtree(root / ".jax_cache_tests", ignore_errors=True)
+    files = sorted((root / "tests").glob("test_torch_*.py"))
     t0 = time.perf_counter()
     recs = []
     with ThreadPoolExecutor(args.jobs) as pool:
-        for rec in pool.map(_run, files):
+        for rec in pool.map(lambda f: _run(f, root), files):
             print(json.dumps(rec), flush=True)
             recs.append(rec)
     print(json.dumps({"files": len(recs), "sum_seconds": sum(r["seconds"] for r in recs),
                       "max_seconds": max((r["seconds"] for r in recs), default=0.0),
                       "wall_seconds": time.perf_counter() - t0, "jobs": args.jobs,
+                      "root": str(root), "cold": args.cold,
                       "failed": [r["file"] for r in recs if r["rc"] not in (0, 5)]}))
     return 0
 
