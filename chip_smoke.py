@@ -6,7 +6,7 @@ CUDA device, ``nvcc`` and the port's sources; it exits non-zero, without a
 result line, when any of them is missing or any phase fails. ``--phases
 kernel,kernel_conv`` (any of kernel, kernel_bwd, kernel_c2, kernel_conv,
 train_ae, train_ae_fp32, stage1_card_vs_cpu, sample_fused, distill,
-distill_card_vs_cpu, evaluate, presets, follow_ups, data_tools) runs only
+distill_card_vs_cpu, evaluate, presets, follow_ups, data_tools, parallel) runs only
 those phases after device and build, and prints no result line.
 Phases, each printing JSON lines:
 
@@ -70,7 +70,7 @@ Phases, each printing JSON lines:
    bf16 batch 1; ddpm strided to 50 steps, fp32, batch 2, guidance 2.0;
    dpm3-20 bf16; ddpm over a full schedule (stride 1: the ``betas[t]``
    rows, which no strided run reaches), bf16, on a copy of the config whose
-   schedule has FULL_SCHEDULE_STEPS (250) steps, not 1,000; each held bit
+   schedule has FULL_SCHEDULE_STEPS (100) steps, not 1,000; each held bit
    for bit to its eager twin (the same argv and seed), its launches a sample
    equal to the twin's (warm-up taken off) and to those the sampler implies,
    the graphs captured once a run (however many steps), the replay loop
@@ -246,10 +246,39 @@ Phases, each printing JSON lines:
    whole script runs this phase first, right after build, so that no
    earlier phase holds blocks of the caching allocator.
 
+17. parallel: data parallelism (``ldm3d_torch.parallel``) at the full width
+   of ``config_train_32g.json``, on ranks the port's launcher starts
+   (``RankPool``, rank functions in ``tools/dp_check.py``). (a) Two
+   ranks time-share the one card over gloo with CUDA tensors (NCCL refuses
+   two ranks on one GPU): the fp32 stage-2 step (TF32 off) at 10 a rank,
+   its gradients after the ranks' mean against the one-process batch-20
+   gradients on the same draws, within PARALLEL_GRAD_TOL of their largest
+   |g|, and the gradients three faulty programs would hold (each rank its
+   own: the all-reduce skipped; rank 0's on every rank: a rank that took the
+   other's rows; the ranks' sum), formed from the same run, each above
+   PARALLEL_FAULT_FLOOR; the same for the adversarial stage-1 step at
+   1 a rank, 64^3; one fp32 ZeRO-1 step's update (params less the start)
+   against the plain data-parallel stage-2 step's from the same weights,
+   over its largest |update|, within PARALLEL_ZERO_TOL, beside a second
+   plain step's (the card's run-to-run spread) and a ZeRO-1 without its
+   gather (formed from the same run), which must read above
+   PARALLEL_ZERO_FAULT_FLOOR; ``cli.inference -g 2``, DDIM-
+   10, batch 2, fp32, on the ranks against the one-process batch-2 sample of
+   the same noise, within 1e-3; each rank's launches by route of one bf16
+   data-parallel step equal to the one-process step's at 10 (every kernel of
+   the path launched), and the mean of 3 bf16 steps timed (two ranks
+   time-sharing one card: not a multi-card figure). (b) This process alone
+   in a NCCL group (``group_of_one``): one bf16 step at batch 2 under
+   ``fully_shard`` launches what the unwrapped step
+   launches, and its full-state checkpoint loads into a one-process state
+   bit for bit.
+
 The GroupNorm kernel phase (7) runs after the serving, presets and
 data_tools paths, and replays the inputs of every main-path run (the
-discriminator's instance norms, g = C, among them); with ``--phases presets``
-or ``data_tools`` it replays that phase's.
+discriminator's instance norms, g = C, among them): it checks every input
+and times those of the sampling, training and serving paths
+(``GN_TIMED_PATHS``); with ``--phases presets`` or ``data_tools`` it replays
+and times that phase's.
 
 Precision: the kernel phases (3, 4, 9, 10) run with both ``allow_tf32``
 flags False, so that the plain versions, SDPA and cuDNN compute in full
@@ -1169,16 +1198,25 @@ def _library_gn_bwd(torch, dy, x, mean, inv) -> dict:
     return rec
 
 
-def phase_kernel_gn(torch, paths: dict) -> dict:
+# the paths whose GroupNorm inputs kernel_gn times (the kernels line reads
+# their totals); the other paths' inputs (distillation, presets, data_tools)
+# are checked in both dtypes but not timed: a cut of that phase's depth to
+# keep the script inside its time limit
+GN_TIMED_PATHS = ("sampling", "training", "training_fp32", "training_ae", "training_ae_fp32",
+                  "serving")
+
+
+def phase_kernel_gn(torch, paths: dict, timed_paths=GN_TIMED_PATHS) -> dict:
     """GroupNorm sums kernels against their plain versions at every input the
     main paths gave them. ``paths`` maps a path's name to the wrappers'
     ``cases`` from its run: {kernel: {(shape, dtype, x strides[, dy
     strides]): launches}}. Each input is rebuilt with its strides, checked in
-    bf16 and fp32 (B4 and B5 each giving the same bits on a second run) and
-    timed in its own dtype, B5 beside its library yardstick
-    (:func:`_library_gn_bwd`) and the replaced kernels' recorded time
-    (EARLIER_GN_BWD_SUMS); returns
-    each path's totals over its launches and the largest errors."""
+    bf16 and fp32 (B4 and B5 each giving the same bits on a second run) and,
+    when a path of ``timed_paths`` launched it, timed in its own dtype, B5
+    beside its library yardstick (:func:`_library_gn_bwd`) and the replaced
+    kernels' recorded time (EARLIER_GN_BWD_SUMS); returns the totals over its
+    launches of each path whose every input was timed, and the largest
+    errors."""
     from ldm3d_torch.ops import groupnorm as G
 
     gen = torch.Generator(device="cuda").manual_seed(4)
@@ -1191,6 +1229,7 @@ def phase_kernel_gn(torch, paths: dict) -> dict:
             b, c = shape[:2]
             v = math.prod(shape[2:])
             row: dict = {"max_abs_err": {}, "max_err_over_tol": {}}
+            timed = any(paths[p][kernel].get(key) for p in timed_paths if p in paths)
             for check_dtype in (dtype, *({"bfloat16", "float32"} - {dtype})):
                 dt = getattr(torch, check_dtype)
                 x = _strided_randn(torch, shape, x_strides, dt, gen, 0.5, 0.3)
@@ -1204,7 +1243,7 @@ def phase_kernel_gn(torch, paths: dict) -> dict:
                 row["max_abs_err"][check_dtype] = err
                 row["max_err_over_tol"][check_dtype] = worst
                 errs[kernel] = max(errs[kernel], err)
-                if check_dtype == dtype:
+                if check_dtype == dtype and timed:
                     isz = x.element_size()
                     if kernel == "gn_sums":
                         run = lambda: G.gn_sums(x)  # noqa: E731
@@ -1239,6 +1278,11 @@ def phase_kernel_gn(torch, paths: dict) -> dict:
             if not cases:
                 continue
             rows = [(n, measured[(kernel, key)]) for key, n in cases.items()]
+            if not all("ms" in r for _, r in rows):  # not timed: its launches only
+                emit({"phase": "kernel_gn_path", "path": path, "kernel": kernel,
+                      "launches": sum(cases.values()), "distinct_inputs": len(cases),
+                      "timed": False})
+                continue
             tot = {k: sum(n * r[k] for n, r in rows)
                    for k in ("ms", "host_ms", "plain_ms", "bound_ms", "var_mean_ms", "library_ms",
                              "library_ncdhw_ms")
@@ -1257,6 +1301,11 @@ def phase_kernel_gn(torch, paths: dict) -> dict:
                   **({"dy_layouts": _layout_tally(torch, cases, 3)}
                      if kernel == "gn_bwd_sums" else {})})
     return {"totals": totals, "max_abs_err": errs}
+
+
+def _kernel_gn_all(torch, paths: dict) -> dict:
+    """kernel_gn over ``paths``, every input timed (a phase run alone)."""
+    return phase_kernel_gn(torch, paths, timed_paths=tuple(paths))
 
 
 def _host_us(fn, calls: int = 200, reps: int = 5) -> float:
@@ -1539,11 +1588,12 @@ def phase_main_path(torch, ns, counts, workdir: Path, card: str, smi_line: str) 
 FUSED_RUNS = {"a_ddim50_bf16": ("ddim", DDIM_STEPS, True, 1, 1.0),
               "b_ddpm50_fp32_b2_cfg": ("ddpm", 50, False, 2, 2.0),
               "c_dpm3_20_bf16": ("dpm3", 20, True, 1, 1.0),
-              "d_ddpm250_bf16": ("ddpm", None, True, 1, 1.0)}
+              "d_ddpm100_bf16": ("ddpm", None, True, 1, 1.0)}
 # the full-schedule run's schedule: the config's NoiseScheduler cut from 1,000
 # steps to these (its eager twin took 48.6 s of the script's time limit at
-# 1,000); the models and the volume stay the flagship's
-FULL_SCHEDULE_STEPS = 250
+# 1,000; 250 until the parallel phase needed the time); the models and the
+# volume stay the flagship's
+FULL_SCHEDULE_STEPS = 100
 # the profiled fused sample: DDIM-10, as the eager main path's profile
 PROFILE_FUSED_STEPS = 10
 
@@ -2983,12 +3033,19 @@ def phase_evaluate(torch, ns, workdir: Path, card: str, smi_line: str,
 # has no perceptual term (LPIPS takes one or three channels). pp's VAE is
 # the flagship's, so it runs no stage-1 steps. stable's import derives the
 # latent scale factor on the card (--derive-scale-factor) instead of taking it.
+# "cli": the stage-2 and stage-1 runs go through the CLIs; "stage2_cli": False
+# runs the stage-2 steps through the step function instead (multigpu's and
+# pp's CLI runs wrote 10.7 and 18.6 GB checkpoints, about 40 s of the script's
+# time limit; the CLI's stage-2 path runs at full width in phase 6 and here on
+# stable)
 PRESETS = {"config_train_16g.json": {"qkv": "split", "cli": False, "stage1": True,
                                      "samples": 1},
-           "config_train_multigpu.json": {"qkv": "fused", "cli": True, "stage1": True},
+           "config_train_multigpu.json": {"qkv": "fused", "cli": True, "stage1": True,
+                                          "stage2_cli": False},
            "config_train_stable.json": {"qkv": "split", "cli": True, "stage1": True,
                                         "derive": True},
-           "config_train_pp.json": {"qkv": "fused", "cli": True, "stage1": False}}
+           "config_train_pp.json": {"qkv": "fused", "cli": True, "stage1": False,
+                                    "stage2_cli": False}}
 PRESET_SAMPLE_STEPS = 10
 # the first a warm-up: the figures are the second's; 16g samples once (its
 # first sample is timed): each of its 2.84 M-voxel two-channel volumes takes
@@ -3239,9 +3296,11 @@ def _timed_steps(torch, step) -> list:
 
 
 def _preset_train_steps(torch, name: str, ns, counts, widths, rt: dict) -> dict:
-    """16g's stage-2 steps through ``make_stage2_train_step`` (unconditional,
-    as its UNet is) on two-channel volumes at the preset's batch and patch,
-    over the imported VAE."""
+    """``PRESET_TRAIN_STEPS`` bf16 stage-2 steps through
+    ``make_stage2_train_step`` on random volumes of the preset's image
+    channels at its batch and patch, over the imported VAE: conditional when
+    the UNet takes the condition's channels (16g's is unconditional, on
+    two-channel volumes, which the CLI's one-channel data does not give)."""
     from ldm3d_torch.cli.train_diffusion import load_frozen_autoencoder
     from ldm3d_torch.configs import define_instance
     from ldm3d_torch.diffusion import DDPMScheduler
@@ -3261,8 +3320,9 @@ def _preset_train_steps(torch, name: str, ns, counts, widths, rt: dict) -> dict:
     state = TrainState(unet, make_diffusion_optimizer(unet.parameters(),
                                                       lambda count: ns.diffusion_train["lr"]))
     sched = TrainContext(ns).scheduler_config()
+    conditional = unet.in_channels > ae.latent_channels
     step = make_stage2_train_step(unet, ae, DDPMScheduler.create(**sched),
-                                  Stage2Config(conditional=False))
+                                  Stage2Config(conditional=conditional))
     b, patch = ns.diffusion_train["batch_size"], ns.diffusion_train["patch_size"]
     batch = {k: torch.rand((b, *patch, ns.image_channels), generator=gen, device="cuda")
              for k in ("image", "label")}
@@ -3273,7 +3333,7 @@ def _preset_train_steps(torch, name: str, ns, counts, widths, rt: dict) -> dict:
     steps = len(runs)
     losses = [float(m["diffusion_loss"]) for _, m in runs]
     check(all(math.isfinite(x) for x in losses), f"{name}: non-finite stage-2 losses {losses}")
-    weights = {"encoder": steps, "unet": steps}
+    weights = {"encoder": (2 if conditional else 1) * steps, "unet": steps}
     expected_gn = {"gn_sums": sum(counts[p]["gn"] * w for p, w in weights.items()),
                    "gn_bwd_sums": steps * counts["unet"]["gn"]}
     rec = _check_launches(torch, name, "stage-2 steps",
@@ -3281,8 +3341,10 @@ def _preset_train_steps(torch, name: str, ns, counts, widths, rt: dict) -> dict:
     ms = [t for t, _ in runs]
     del state, unet, ae, batch
     torch.cuda.empty_cache()
-    return {"path": "training.make_stage2_train_step (unconditional; the CLI refuses the "
-                    "preset's 2-channel VAE on 1-channel data, as the JAX CLI does)",
+    return {"path": "training.make_stage2_train_step (" + (
+                "conditional" if conditional else "unconditional; the CLI refuses the "
+                "preset's 2-channel VAE on 1-channel data, as the JAX CLI does") + ")",
+            "conditional": conditional,
             "batch": b, "patch": patch, "image_channels": ns.image_channels, "steps": steps,
             "train_step_ms": ms, "median_step_ms_after_first": statistics.median(ms[1:]),
             "diffusion_loss": losses, "peak_device_memory_gib": peak_gib, **rec,
@@ -3394,7 +3456,8 @@ def phase_presets(torch, workdir: Path, card: str, smi_line: str) -> dict:
         n = opts.get("samples", PRESET_SAMPLES)
         for what, run in (("sample", lambda: _preset_sample(torch, name, ns, counts, widths, rt,
                                                             n)),
-                          ("stage2", lambda: (_preset_train_cli if opts["cli"] else
+                          ("stage2", lambda: (_preset_train_cli if opts.get("stage2_cli",
+                                                                          opts["cli"]) else
                                               _preset_train_steps)(torch, name, ns, counts,
                                                                    widths, rt)),
                           *((("stage1", lambda: _preset_stage1(torch, name, ns, counts, widths,
@@ -4534,7 +4597,8 @@ def phase_data_tools(torch, F, ns, counts, workdir: Path, card: str, smi_line: s
 def _kernel_summary(fwd: dict, bwd: dict, gn: dict, sample_launches: dict,
                     train: dict, train_fp32: dict, serve: dict, conv: dict,
                     train_ae: dict, train_ae_fp32: dict, distill: dict,
-                    presets: dict, follow_ups: dict, data_tools: dict) -> list:
+                    presets: dict, follow_ups: dict, data_tools: dict,
+                    parallel: dict) -> list:
     """The kernels line: each kernel's ms, plain_ms, bound_ms and library_ms
     are summed over the ``launches`` it counts (one flagship sample for
     flash_fwd, the bf16 training main path's run for the other four; the
@@ -4554,7 +4618,9 @@ def _kernel_summary(fwd: dict, bwd: dict, gn: dict, sample_launches: dict,
     ``data_tools_launches`` the data_tools phase's runs' (the calibration
     steps, the card's stage-1 recipe, every attention launch at
     DATA_ATTN_SHAPE, the small card's recipe and the pipeline's run), and the
-    attention rows' ``data_tools_*`` one call at DATA_ATTN_SHAPE, bf16."""
+    attention rows' ``data_tools_*`` one call at DATA_ATTN_SHAPE, bf16;
+    ``parallel_launches`` the parallel phase's bf16 data-parallel run (both
+    ranks' warm-up and timed steps)."""
     def per(results, weights, key, by=None, dtype="bfloat16"):
         return sum(n * results[(shape, dtype)][key] for shape, n in weights.items()
                    if by is None or results[(shape, dtype)].get("bound_by", by) == by)
@@ -4788,6 +4854,7 @@ def _kernel_summary(fwd: dict, bwd: dict, gn: dict, sample_launches: dict,
         row["data_tools_launches"] = {run.removesuffix("_launches"): r[key]
                                       for run, r in data_tools.items()
                                       if run.endswith("_launches")}
+        row["parallel_launches"] = parallel["launches"][key]
     shape = {"data_tools_shape": list(DATA_ATTN_SHAPE)}
     fwd_dt, bwd_dt = data_tools["fwd"], data_tools["bwd"]
     for row in rows:
@@ -4805,10 +4872,149 @@ def _kernel_summary(fwd: dict, bwd: dict, gn: dict, sample_launches: dict,
     return rows
 
 
+# --- phase 17: data parallelism --------------------------------------------------
+
+PARALLEL_PRESET = "config_train_32g.json"
+# the gradients of N ranks against one process on the same global batch: the
+# limit --grad-accum's check uses (PERF.md section 2); a faulty program's
+# gradients must read at least 100 times it
+PARALLEL_GRAD_TOL = 5e-5
+PARALLEL_FAULT_FLOOR = 100 * PARALLEL_GRAD_TOL
+PARALLEL_SAMPLE_TOL = 1e-3  # the batch-independence limit of a sample (fp32)
+# one step's updates, over the plain step's largest |update| (about lr): the
+# limit sits between the sound readings and that of a ZeRO-1 whose ranks
+# never rejoin their slices (PERF.md section 2)
+PARALLEL_ZERO_TOL = 1e-2
+PARALLEL_ZERO_FAULT_FLOOR = 0.5
+PARALLEL_TIMED_STEPS = 3
+PATH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "gn_sums", "gn_bwd_sums")
+
+
+def phase_parallel(torch, ns, workdir: Path, card: str, smi_line: str) -> dict:
+    """17. Data parallelism (see the module docstring); one line a part, then
+    the phase's line. Returns the launches of the bf16 data-parallel run
+    (both ranks' warm-up and timed steps)."""
+    from ldm3d_torch.cli.inference import main as infer_main
+    from ldm3d_torch.parallel.launch import RankPool, group_of_one
+    sys.path.append(str(ROOT / "tools"))
+    import dp_check as D
+    from ldm3d_torch.utils.nifti import read_nifti
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    label = ("two ranks time-sharing one card over gloo (not a multi-card figure)")
+    out: dict = {}
+    zero = None
+
+    def part(name, record):
+        out[name] = record
+        emit({"phase": f"parallel_{name}", "card": card, "nvidia_smi": smi_line, **record})
+
+    with RankPool(2, devices=["cuda:0", "cuda:0"], backend="gloo", timeout_s=600) as pool:
+        t = time.perf_counter()
+        for stage, batch in ((2, TRAIN_BATCH), (1, 2)):
+            res = pool.run(D.grads_check, PARALLEL_PRESET, stage, batch, zero=stage == 2)
+            worst = {run: max(r[run] for r in res) for run in res[0] if run != "seconds"}
+            if stage == 2:
+                zero = {k: worst.pop(k) for k in ("held_share", "repeat", "zero",
+                                                  "zero_no_gather")}
+            part(f"stage{stage}_grads", {
+                "global_batch": batch, "per_rank_batch": batch // 2, "dtype": "float32",
+                "grad_err_over_max_g": worst, "tol": PARALLEL_GRAD_TOL,
+                "fault_floor": PARALLEL_FAULT_FLOOR, "seconds": time.perf_counter() - t,
+                "rank0_seconds": res[0]["seconds"],
+                **({"zero_update_err_over_max_update": zero, "zero_tol": PARALLEL_ZERO_TOL,
+                    "zero_fault_floor": PARALLEL_ZERO_FAULT_FLOOR} if stage == 2 else {})})
+            t = time.perf_counter()
+
+        t = time.perf_counter()
+        model_dir, _ = _flagship_checkpoints(torch, ns, workdir)
+        env = _write_env(model_dir, synthetic_num=4, val_fraction=0.5)
+        argv = ["-c", str(ROOT / "ldm3d_torch/configs/presets" / PARALLEL_PRESET), "-e",
+                str(env), "--batch", "2", "--sampler", "ddim", "--steps", "10"]
+        two = pool.run(D.cli, "inference", argv + ["-g", "2"])[0]
+        gc.collect()
+        torch.cuda.empty_cache()
+        one = infer_main(argv)
+        sample_err = max(float(abs(read_nifti(a)[0] - read_nifti(b)[0]).max())
+                         for a, b in zip(sorted(two), sorted(one)))
+        shutil.rmtree(model_dir)
+        part("sampling", {"sampler": "ddim", "steps": 10, "global_batch": 2, "dtype": "float32",
+                          "volumes": len(two), "max_abs_err": sample_err,
+                          "tol": PARALLEL_SAMPLE_TOL, "seconds": time.perf_counter() - t})
+
+        t = time.perf_counter()
+        timed = pool.run(D.timed_steps, PARALLEL_PRESET, TRAIN_BATCH, PARALLEL_TIMED_STEPS)
+        per_rank = [_counts_by_key(r["step_counts"]) for r in timed]
+        one_step = _counts_by_key(timed[0]["one_process_counts"])
+        run_counts = {k: sum(_counts_by_key(r["step_counts"])[k]
+                             + _counts_by_key(r["timed_counts"])[k] for r in timed)
+                      for k in one_step}
+        part("bf16_steps", {
+            "global_batch": TRAIN_BATCH, "per_rank_batch": TRAIN_BATCH // 2, "dtype": "bfloat16",
+            "steps_timed": PARALLEL_TIMED_STEPS,
+            "ms_per_step": [r["ms_per_step"] for r in timed], "timing_is": label,
+            "launches_per_rank_step": per_rank, "one_process_launches_per_step": one_step,
+            "run_launches": run_counts, "peak_gib_per_rank": [r["peak_gib"] for r in timed],
+            "seconds": time.perf_counter() - t})
+
+    t = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    with group_of_one("nccl"):  # this process alone, over NCCL
+        fsdp = D.fsdp_world1(PARALLEL_PRESET, 2, str(workdir / "fsdp1"))
+    shutil.rmtree(workdir / "fsdp1", ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    fsdp_plain, fsdp_sharded = (_counts_by_key(fsdp[k]) for k in ("plain_counts", "fsdp_counts"))
+    part("fsdp_world1", {"backend": "nccl", "batch": 2, "dtype": "bfloat16",
+                         "launches_unwrapped": fsdp_plain, "launches_fully_shard": fsdp_sharded,
+                         "sharded_params": fsdp["sharded_params"], "loss": fsdp["loss"],
+                         "checkpoint_bit_equal": fsdp["checkpoint_bit_equal"],
+                         "parts_seconds": fsdp["seconds"], "seconds": time.perf_counter() - t})
+
+    # the gates, read once every part has printed
+    for stage in (2, 1):
+        errs = out[f"stage{stage}_grads"]["grad_err_over_max_g"]
+        check(errs["ddp"] <= PARALLEL_GRAD_TOL,
+              f"stage {stage}: 2 ranks' gradients {errs['ddp']:.3g} of max |g| from one "
+              f"process's (limit {PARALLEL_GRAD_TOL})")
+        for fault in D.FAULTS:
+            check(errs[fault] >= PARALLEL_FAULT_FLOOR,
+                  f"stage {stage}: the fault {fault} reads {errs[fault]:.3g}, under "
+                  f"{PARALLEL_FAULT_FLOOR}: the check cannot see it")
+    check(zero is not None and zero["zero"] <= PARALLEL_ZERO_TOL,
+          f"ZeRO-1's update {zero and zero['zero']} of max |update| from DDP's (limit "
+          f"{PARALLEL_ZERO_TOL})")
+    check(zero is not None and zero["zero_no_gather"] >= PARALLEL_ZERO_FAULT_FLOOR,
+          f"a ZeRO-1 without its gather reads {zero and zero['zero_no_gather']}, under "
+          f"{PARALLEL_ZERO_FAULT_FLOOR}: the check cannot see it")
+    check(len(two) == 2 and sample_err <= PARALLEL_SAMPLE_TOL,
+          f"DP sampling: {len(two)} volumes written, {sample_err:.3g} from one process's")
+    for r, counts in enumerate(per_rank):
+        check(counts == one_step, f"rank {r}'s launches {counts} differ from the one-process "
+                                  f"step's {one_step}")
+    for name in PATH_KERNELS:
+        check(run_counts[name] > 0, f"{name} was not launched on the data-parallel path")
+    check(fsdp_plain == fsdp_sharded, f"FSDP launches {fsdp_sharded} differ from the "
+                                      f"unwrapped step's {fsdp_plain}")
+    check(fsdp["checkpoint_bit_equal"] and fsdp["sharded_params"] > 0,
+          "FSDP's full-state checkpoint did not load into one process bit for bit")
+    emit({"phase": "parallel", "card": card, "nvidia_smi": smi_line,
+          "seconds": time.perf_counter() - t0, "timing_is": label,
+          **{name: {k: v for k, v in r.items() if k in ("seconds", "grad_err_over_max_g",
+                                                         "zero_update_err_over_max_update",
+                                                         "max_abs_err",
+                                                         "ms_per_step", "checkpoint_bit_equal")}
+             for name, r in out.items()}})
+    return {"launches": run_counts}
+
+
 # phases that ``--phases`` runs alone, after device and build
 ALONE_PHASES = ("kernel", "kernel_bwd", "kernel_c2", "kernel_conv", "train_ae", "train_ae_fp32",
                 "stage1_card_vs_cpu", "sample_fused", "distill", "distill_card_vs_cpu",
-                "evaluate", "presets", "follow_ups", "data_tools")
+                "evaluate", "presets", "follow_ups", "data_tools", "parallel")
 
 
 def main(argv=None) -> int:
@@ -4857,12 +5063,14 @@ def main(argv=None) -> int:
                    "distill_card_vs_cpu": lambda: phase_distill_card_vs_cpu(torch),
                    "evaluate": lambda: phase_evaluate(torch, ns, Path(workdir), card,
                                                       smi_line),
-                   "presets": lambda: phase_kernel_gn(torch, phase_presets(
+                   "presets": lambda: _kernel_gn_all(torch, phase_presets(
                        torch, Path(workdir), card, smi_line)["gn_paths"]),
                    "follow_ups": lambda: phase_follow_ups(torch, ns, counts, Path(workdir),
                                                           card, smi_line),
-                   "data_tools": lambda: phase_kernel_gn(torch, phase_data_tools(
-                       torch, F, ns, counts, Path(workdir), card, smi_line)["gn_paths"])}
+                   "data_tools": lambda: _kernel_gn_all(torch, phase_data_tools(
+                       torch, F, ns, counts, Path(workdir), card, smi_line)["gn_paths"]),
+                   "parallel": lambda: phase_parallel(torch, ns, Path(workdir), card,
+                                                      smi_line)}
             for name in phases:
                 run[name]()
         emit({"phase": "done", "phases": phases})
@@ -4901,6 +5109,7 @@ def main(argv=None) -> int:
         phase_evaluate(torch, ns, Path(workdir), card, smi_line, model_dir=distill["model_dir"])
         presets = phase_presets(torch, Path(workdir), card, smi_line)
         follow_ups = phase_follow_ups(torch, ns, counts, Path(workdir), card, smi_line)
+        parallel = phase_parallel(torch, ns, Path(workdir), card, smi_line)
     gn = phase_kernel_gn(torch, {"sampling": sample_gn, "training": train.pop("gn_cases"),
                                  **{f"distilling_{run}": r.pop("gn_cases")
                                     for run, r in distill["runs"].items()},
@@ -4919,7 +5128,8 @@ def main(argv=None) -> int:
     emit({"phase": "done"})
     emit({"kernels": _kernel_summary(fwd, bwd, gn, sample_launches, train, train_fp32, serve,
                                      conv, train_ae, train_ae_fp32, distill,
-                                     presets["launches"], follow_ups, data_tools)})
+                                     presets["launches"], follow_ups, data_tools,
+                                     parallel)})
     print(smi_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": card,
                                  "count": torch.cuda.device_count()}})

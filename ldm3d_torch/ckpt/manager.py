@@ -13,8 +13,14 @@ Saves are crash-atomic: each file is written to ``<file>.new`` and swapped
 into place with ``os.replace``, so a kill at any instant leaves the previous
 complete checkpoint or the new one, never a partial file; a leftover
 ``.new`` from a killed save is removed when the manager is constructed.
-The JAX package's orbax checkpoints are not read here (ROADMAP.md queue A,
-'Checkpoints').
+
+Under data parallelism rank 0 alone touches the files (the clean-up, every
+write) and the other ranks wait at a barrier, as the JAX manager's lead
+process does; callers gather the state on every rank first
+(:meth:`ldm3d_torch.training.TrainState.state_dict` is the one-process
+layout at any world size), so a checkpoint written at any world size, under
+plain data parallelism, ZeRO-1 or FSDP, loads at any other. The JAX
+package's orbax checkpoints are converted by ``tools/jax_to_torch_ckpt.py``.
 """
 
 from __future__ import annotations
@@ -24,8 +30,15 @@ import os
 from typing import Any, Optional
 
 import torch
+import torch.distributed as dist
 
 __all__ = ["CheckpointManager"]
+
+
+def _ranks() -> tuple[int, int]:
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
 
 
 class CheckpointManager:
@@ -34,11 +47,19 @@ class CheckpointManager:
     def __init__(self, model_dir: str, name: str):
         self.root = os.path.abspath(model_dir)
         self.name = name
-        os.makedirs(self.root, exist_ok=True)
-        prefix = f"{name}_"
-        for entry in os.listdir(self.root):
-            if entry.startswith(prefix) and entry.endswith(".new"):
-                os.remove(os.path.join(self.root, entry))
+        self._lead = _ranks()[0] == 0
+        if self._lead:
+            os.makedirs(self.root, exist_ok=True)
+            prefix = f"{name}_"
+            for entry in os.listdir(self.root):
+                if entry.startswith(prefix) and entry.endswith(".new"):
+                    os.remove(os.path.join(self.root, entry))
+        self._sync()
+
+    def _sync(self) -> None:
+        """Every rank waits here for rank 0's file work (no-op with one)."""
+        if _ranks()[1] > 1:
+            dist.barrier()
 
     def path(self, role: str) -> str:
         return os.path.join(self.root, f"{self.name}_{role}.pt")
@@ -51,14 +72,17 @@ class CheckpointManager:
 
     def save(self, role: str, state: dict, meta: Optional[dict] = None) -> None:
         """Write ``state`` (a dict of tensors, numbers, nested dicts) and
-        ``meta`` as role ``role``, atomically."""
-        final = self.path(role)
-        torch.save({**state, "meta": dict(meta or {})}, final + ".new")
-        os.replace(final + ".new", final)
-        tmp = self._meta_path(role) + ".new"
-        with open(tmp, "w") as f:
-            json.dump(dict(meta or {}), f)
-        os.replace(tmp, self._meta_path(role))
+        ``meta`` as role ``role``, atomically: rank 0 writes, every rank
+        returns once the file is in place."""
+        if self._lead:
+            final = self.path(role)
+            torch.save({**state, "meta": dict(meta or {})}, final + ".new")
+            os.replace(final + ".new", final)
+            tmp = self._meta_path(role) + ".new"
+            with open(tmp, "w") as f:
+                json.dump(dict(meta or {}), f)
+            os.replace(tmp, self._meta_path(role))
+        self._sync()
 
     def save_best_and_last(self, state: dict, is_best: bool, meta: Optional[dict] = None) -> None:
         """``last`` = the whole train state; ``best`` = its params only, under

@@ -144,8 +144,9 @@ def recommend_settings(dev: dict, host: dict) -> dict:
                            "on an H100 80GB HBM3 at 700 W (chip_smoke.py data_tools; "
                            "PERF.md section 5)"),
         "data_axis": n,
-        "expected_scaling": ("1x: training over several cards is not ported yet "
-                             "(ROADMAP.md queue A, item 11); one card trains"),
+        "expected_scaling": (f"-g {n}: {n} data-parallel ranks, one a GPU over NCCL, the "
+                             "gradients all-reduced after the backward (not overlapped); "
+                             "the scaling is not measured (one card)"),
         "notes": [
             f"{dev['device_kind']} x{n}, ~{hbm_gb:.0f} GB memory/card",
             f"stage 1: batch {batch} @{patch[0]}^3 with "

@@ -24,9 +24,15 @@ Checkpoints: the ``best`` roles of :class:`ldm3d_torch.ckpt.CheckpointManager`,
 ``{"state_dict": ..., "meta": {...}}``; the latent ``scale_factor`` is in the
 diffusion checkpoint's meta. The progressively-distilled student
 (``cli.distill``) is the diffusion model's ``distilled`` role, its sampling
-grid in the meta; :func:`load_distilled` is the one reader of that meta. The training CLI writes them; reading the JAX
-package's orbax checkpoints is not ported yet (ROADMAP.md queue A,
-'Checkpoints').
+grid in the meta; :func:`load_distilled` is the one reader of that meta. The training CLIs write them;
+``tools/jax_to_torch_ckpt.py`` converts the JAX package's orbax checkpoints.
+
+Data parallelism: ``-g N`` (N > 1; ``-g 0`` = every visible device) starts
+N ranks on this machine (:func:`launch_data_parallel`), one per GPU over
+NCCL, or with ``--device cpu`` N processes over gloo; ``--multihost`` (or
+any ``torchrun`` launch) joins the process group ``torchrun`` set up, one
+process per GPU. Each rank runs the same CLI on its share of the global
+batch (:func:`global_batch_size`).
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ import argparse
 import contextlib
 import functools
 import logging
+import os
 import sys
 import time
 
@@ -45,7 +52,8 @@ from ldm3d_torch.configs import define_instance, preset_path
 from ldm3d_torch.utils import merge_configs_onto_args
 
 __all__ = ["SAMPLERS", "TIMESTEP_SPACINGS", "UNPORTED", "build_parser", "reject_unported",
-           "setup", "cli_main", "enable_debug_nans", "disable_debug_nans", "track_run",
+           "launch_data_parallel", "global_batch_size", "shard_train_state", "setup",
+           "cli_main", "enable_debug_nans", "disable_debug_nans", "track_run",
            "resolve_device", "pin_fp32_precision", "tf32_flags",
            "model_dtype", "env_seed", "save_two_stage", "load_two_stage",
            "load_distilled_meta", "load_distilled",
@@ -71,7 +79,9 @@ def build_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("-c", "--config-file", default=preset_path("config_train_32g.json"),
                    help="config json file that stores hyper-parameters")
     p.add_argument("-g", "--gpus", default=0, type=int,
-                   help="number of cards: 0 or 1 run on the one card; more are not ported")
+                   help="data-parallel ranks (0 = every visible GPU, 1 with --device cpu): "
+                        "N > 1 starts one process per GPU over NCCL, or N CPU processes over "
+                        "gloo with --device cpu")
     p.add_argument("--amp", action="store_true", help="bf16 compute (parameters stay fp32)")
     p.add_argument("--compile", action="store_true",
                    help="accepted for reference parity; the port runs eager PyTorch and its own "
@@ -107,10 +117,16 @@ def build_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--spatial", type=int, default=1, help="not ported (must be 1)")
     p.add_argument("--ema-decay", type=float, default=0.0,
                    help="keep an EMA of the UNet params (e.g. 0.9999), saved as 'ema' (training)")
-    p.add_argument("--multihost", action="store_true", help="not ported")
+    p.add_argument("--multihost", action="store_true",
+                   help="join the process group torchrun set up (RANK, WORLD_SIZE, MASTER_ADDR, "
+                        "MASTER_PORT, LOCAL_RANK): one process per GPU, across machines")
     p.add_argument("--tensor", type=int, default=1, help="not ported (must be 1)")
-    p.add_argument("--zero", action="store_true", help="not ported")
-    p.add_argument("--fsdp", action="store_true", help="not ported")
+    p.add_argument("--zero", action="store_true",
+                   help="training: ZeRO-1, Adam's moments sharded over the data-parallel ranks "
+                        "(with more than one rank)")
+    p.add_argument("--fsdp", action="store_true",
+                   help="training: FSDP (fully_shard), parameters, moments and EMA sharded over "
+                        "the data-parallel ranks (with more than one rank); supersedes --zero")
     p.add_argument("--pipeline", type=int, default=1, help="not ported (must be 1)")
     p.add_argument("--pipeline-microbatches", type=int, default=0,
                    help="not ported (must be 0)")
@@ -124,21 +140,21 @@ def build_parser(description: str) -> argparse.ArgumentParser:
 _PARALLEL = "'Parallelism'"
 _PIPELINE = "'UNet mid_depth stack, then pipeline parallelism'"
 UNPORTED = (
-    ("gpus", (0, 1), _PARALLEL),
-    ("multihost", (False,), _PARALLEL),
     ("spatial", (1,), _PARALLEL),
     ("tensor", (1,), _PARALLEL),
-    ("fsdp", (False,), _PARALLEL),
-    ("zero", (False,), _PARALLEL),
     ("pipeline", (1,), _PIPELINE),
     ("pipeline_microbatches", (0,), _PIPELINE),
 )
+# CLIs without a data-parallel path (evaluation, the checkpoint tools) run on
+# one device: for them -g above 1 and --multihost are unported too
+_SINGLE_DEVICE = (("gpus", (0, 1), _PARALLEL), ("multihost", (False,), _PARALLEL))
 
 
-def reject_unported(args) -> None:
+def reject_unported(args, data_parallel: bool = True) -> None:
     """Raise ``NotImplementedError`` naming its ROADMAP item for the first
-    flag set to a value whose path is not ported."""
-    for attr, ported, item in UNPORTED:
+    flag set to a value whose path is not ported (``data_parallel=False``:
+    also ``-g`` above 1 and ``--multihost``)."""
+    for attr, ported, item in UNPORTED + (() if data_parallel else _SINGLE_DEVICE):
         value = getattr(args, attr)
         if value not in ported:
             flag = "--" + attr.replace("_", "-")
@@ -146,11 +162,97 @@ def reject_unported(args) -> None:
                                       f"{item}")
 
 
+def _requested_ranks(args) -> int:
+    """``-g`` as a rank count: 0 is every visible GPU (one process on the
+    CPU); more GPUs than are visible raise JAX's ``ValueError``."""
+    if torch.device(args.device).type != "cuda":
+        return max(1, args.gpus)
+    visible = torch.cuda.device_count()
+    n = args.gpus if args.gpus > 0 else max(1, visible)
+    if n > visible and n > 1:
+        raise ValueError(f"requested {n} devices, only {visible} visible")
+    return n
+
+
+def launch_data_parallel(args, main, argv, timings: dict | None = None) -> tuple[bool, object]:
+    """Start ``-g N``'s ranks when this process is not one already.
+
+    Returns ``(False, None)`` when this process runs the CLI itself: one
+    rank, a rank of a launch (the process group is up), or a ``torchrun``
+    process with ``--multihost`` (the process group is initialised here;
+    torchrun's environment without ``--multihost`` raises). Otherwise starts
+    N ranks, each running ``main(argv)``
+    (NCCL with one GPU a rank; gloo and N CPU processes with ``--device
+    cpu``), waits for them, and returns
+    ``(True, rank 0's result)``, rank 0's ``timings`` copied into
+    ``timings``. A rank's error is raised here, every rank killed."""
+    from ldm3d_torch.parallel import mesh, multihost
+
+    if torch.distributed.is_available() and torch.distributed.is_initialized():
+        n = mesh.world()
+        if args.gpus not in (0, n):
+            raise ValueError(f"-g {args.gpus} in a process group of {n} ranks")
+        return False, None
+    device_type = torch.device(args.device).type
+    if args.multihost:
+        _, n = multihost.init_multihost(device_type)
+        if args.gpus not in (0, n):
+            raise ValueError(f"-g {args.gpus} under torchrun's {n} ranks")
+        return False, None
+    if multihost.torchrun_env():
+        raise RuntimeError("torchrun's environment (RANK, WORLD_SIZE, MASTER_ADDR, "
+                           "MASTER_PORT) is set but --multihost is not: pass --multihost to "
+                           "join its process group, or unset those variables")
+    n = _requested_ranks(args)
+    if n <= 1:
+        return False, None
+    from ldm3d_torch.parallel.launch import launch, run_cli
+
+    devices = [f"cuda:{r}" for r in range(n)] if device_type == "cuda" else ["cpu"] * n
+    threads = None if device_type == "cuda" else max(1, (os.cpu_count() or 1) // n)
+    log.info("data parallel: starting %d ranks on %s", n, ", ".join(devices))
+    results = launch(run_cli, n, main, list(argv) if argv is not None else sys.argv[1:],
+                     timings is not None, devices=devices, timeout_s=None, threads=threads)
+    out, rank0_timings = results[0]
+    if timings is not None:
+        timings.update(rank0_timings)
+    return True, out
+
+
+def global_batch_size(per_device_batch: int, world: int) -> int:
+    """The configured ``batch_size`` is per replica (reference: one process
+    per GPU); the global batch over ``world`` ranks is ``per_device *
+    world`` (``ldm3d_tpu/cli/common.py:213``)."""
+    return per_device_batch * world
+
+
+def shard_train_state(state, args, dp) -> None:
+    """``--fsdp`` (which supersedes ``--zero``) or ``--zero`` over the ranks,
+    in place; nothing with one rank, as in JAX."""
+    if dp is None:
+        return
+    if args.fsdp:
+        from ldm3d_torch.parallel.fsdp import shard_train_state_fsdp
+
+        if args.zero:
+            log.info("--zero is redundant under --fsdp (moments are FSDP-sharded)")
+        shard_train_state_fsdp(state, dp)
+        log.info("FSDP: params + optimizer state sharded over %d ranks", dp.world)
+    elif args.zero:
+        from ldm3d_torch.parallel.zero import shard_train_state_zero
+
+        shard_train_state_zero(state, dp)
+        log.info("ZeRO-1: optimizer state sharded over %d ranks", dp.world)
+
+
 def setup(args) -> tuple:
     """Merge the config files onto ``args``, pin the fp32 precision, enter
-    the ``--debug-nans`` mode when asked, and resolve the device."""
+    the ``--debug-nans`` mode when asked, and resolve the device (under data
+    parallelism, this rank's GPU). Ranks other than 0 log warnings only."""
+    from ldm3d_torch.parallel import mesh
+
     logging.basicConfig(
-        stream=sys.stdout, level=logging.INFO,
+        stream=sys.stdout, level=logging.INFO if mesh.rank() == 0 else logging.WARNING,
         format="[%(asctime)s.%(msecs)03d][%(levelname)5s](%(name)s) - %(message)s",
         datefmt="%Y-%m-%d %H:%M:%S")
     if getattr(args, "debug_nans", False):
@@ -158,7 +260,10 @@ def setup(args) -> tuple:
         log.info("debug mode: NaN checks on every module output and in the backward")
     merge_configs_onto_args(args, args.environment_file, args.config_file)
     pin_fp32_precision()
-    return args, resolve_device(args.device)
+    device = resolve_device(args.device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return args, device
 
 
 # what enable_debug_nans installed: the anomaly-mode switch, the hook handle
@@ -219,8 +324,12 @@ def track_run(args, stage: str, final_metrics: dict) -> None:
     from ldm3d_torch.mlops.tracking import ExperimentTracker, log_training_run
 
     tracker = ExperimentTracker(args.experiment)
+    from ldm3d_torch.parallel import mesh
+
+    if mesh.rank() != 0:
+        return
     config = {"stage": stage, "config_file": args.config_file, "amp": bool(args.amp),
-              "devices": 1}
+              "devices": mesh.world()}
     section = getattr(args, f"{stage}_train", None)
     if isinstance(section, dict):
         config.update({f"{stage}_{k}": v for k, v in section.items()})

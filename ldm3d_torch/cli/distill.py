@@ -16,10 +16,16 @@ round only. The final student is saved as the diffusion model's
 
 The losses stay on the device until a round ends (no host sync a step).
 
+Data parallelism (``-g N``, ``--multihost``): each rank distils on its
+share of the global batch with the global batch's draws (its rows kept) and
+the gradients averaged over the ranks; the LR is the configured one at any
+world size, as in JAX. The round's losses are the ranks' means. Rank 0
+writes the ``distilled`` checkpoint.
+
 Usage: python -m ldm3d_torch.cli.distill -c CONFIG -e ENV [--teacher-steps 64]
        [--rounds 3] [--steps-per-round 2000] [--lr LR] [--student-prediction P]
        [--unconditional] [--guidance-distill W] [--use-ema] [--amp]
-       [--device cuda|cpu]
+       [--device cuda|cpu] [-g N] [--multihost]
 ``--pipeline``, ``--spatial`` and ``--tensor`` raise the JAX CLI's
 ``ValueError``; every other flag of the JAX parser whose path is not ported
 raises ``NotImplementedError`` naming its ROADMAP item
@@ -40,6 +46,8 @@ from ldm3d_torch.cli.common import (
     build_parser,
     cli_main,
     env_seed,
+    global_batch_size,
+    launch_data_parallel,
     load_two_stage,
     model_dtype,
     reject_unported,
@@ -49,6 +57,7 @@ from ldm3d_torch.cli.common import (
 from ldm3d_torch.cli.train_diffusion import _to_device
 from ldm3d_torch.data import prepare_dataloader
 from ldm3d_torch.diffusion import DDPMScheduler
+from ldm3d_torch.parallel import DataParallel, mesh
 from ldm3d_torch.training import (
     DistillConfig,
     TrainState,
@@ -114,7 +123,11 @@ def main(argv=None, timings: dict | None = None) -> float:
     args = build_parser_distill().parse_args(argv)
     _check_args(args)
     reject_unported(args)
+    launched, out = launch_data_parallel(args, main, argv, timings)
+    if launched:
+        return out
     args, device = setup(args)
+    dp = DataParallel.current()
     dt = model_dtype(args)
     train_cfg = args.diffusion_train
     if timings is None:
@@ -125,7 +138,8 @@ def main(argv=None, timings: dict | None = None) -> float:
     # data: the stage-2 pairs and crops (the conditions must match training)
     size_divisible = 2 ** (len(args.autoencoder_def["channels"])
                            + len(args.diffusion_def["channels"]) - 2)
-    train_loader, _ = prepare_dataloader(args, train_cfg["batch_size"], train_cfg["patch_size"],
+    batch_size = global_batch_size(train_cfg["batch_size"], mesh.world())
+    train_loader, _ = prepare_dataloader(args, batch_size, train_cfg["patch_size"],
                                          randcrop=False, size_divisible=size_divisible)
 
     # the frozen VAE, the teacher UNet and its scale factor
@@ -156,10 +170,10 @@ def main(argv=None, timings: dict | None = None) -> float:
         cfg = DistillConfig(teacher_steps=n_teacher, conditional=not args.unconditional,
                             student_prediction_type=args.student_prediction,
                             guidance_scale=args.guidance_distill if r == 0 else 1.0)
-        step = make_distillation_step(unet, ae, teacher_sched, cfg)
+        step = make_distillation_step(unet, ae, teacher_sched, cfg, dp=dp)
         student = copy.deepcopy(teacher).requires_grad_(True).train()
         state = TrainState(student, make_diffusion_optimizer(student.parameters(),
-                                                             lambda _count: lr))
+                                                             lambda _count: lr, dp=dp))
         t0, seen, epoch = time.time(), 0, 0
         losses, norms, spans = [], [], []
         while seen < args.steps_per_round:
@@ -180,6 +194,8 @@ def main(argv=None, timings: dict | None = None) -> float:
                 raise RuntimeError("train loader yielded no batches this epoch — dataset "
                                    "smaller than the global batch? (would loop forever)")
             epoch += 1
+        if dp is not None and losses:  # the global batch's losses (one all-reduce a round)
+            losses = list(dp.mean(torch.stack(losses)))
         losses = [float(x) for x in losses]
         timings["step_ms"].append([s.ms() for s in spans])
         timings["distill_loss"].append(losses)

@@ -91,7 +91,7 @@ def main(argv=None, timings: dict | None = None):
     ``cli.inference.main``) and ``encode_ms``, and once ``metrics_ms``, the
     host ms of :func:`evaluate_pairs` to its result."""
     args = build_parser_evaluate().parse_args(argv)
-    reject_unported(args)
+    reject_unported(args, data_parallel=False)
     args, device = setup(args)
     dt = model_dtype(args)
     if timings is None:

@@ -66,7 +66,7 @@ def main(argv=None):
     args = parser.parse_args(argv)
     if not (args.autoencoder or args.diffusion):
         parser.error("nothing to export: pass --autoencoder and/or --diffusion")
-    reject_unported(args)
+    reject_unported(args, data_parallel=False)
     args, _ = setup(args)
     qkv_mode = "fused" if args.fused_qkv else "split"
 

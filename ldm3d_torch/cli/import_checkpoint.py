@@ -104,7 +104,7 @@ def main(argv=None):
     parser.add_argument("--dump", action="store_true",
                         help="print both manifests (debugging mismatches)")
     args = parser.parse_args(argv)
-    reject_unported(args)
+    reject_unported(args, data_parallel=False)
     args, device = setup(args)
 
     if not (args.autoencoder or args.discriminator or args.diffusion):

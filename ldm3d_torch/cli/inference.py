@@ -25,6 +25,13 @@ diffusion model's ``distilled`` checkpoint, in place of ``--sampler`` and
 ``--steps``; it refuses ``--use-ema``, and ``--guidance`` (the student bakes
 its guidance in) before any weights load.
 
+Data-parallel sampling (``-g N``, ``--multihost``; ``ldm3d_tpu/cli/inference.py:60-121``):
+``--batch`` is the global batch; every rank draws the global batch's noise
+(and its posterior noise and step noises) and keeps its rows, denoises and
+decodes them, and rank 0 gathers every rank's volumes and writes them all.
+A ``--batch`` the world does not divide is sampled whole on every rank (JAX
+then samples on one chip) and still written once.
+
 An unconditional UNet (``in_channels == latent_channels``) skips step 1.
 Noise, the ancestral noise of ddpm included, is drawn on the CPU from
 ``torch.Generator().manual_seed(seed)`` and moved to the device, so a seed
@@ -33,7 +40,7 @@ gives the same noise on every device.
 Usage: python -m ldm3d_torch.cli.inference -c CONFIG -e ENV [-n NUM]
        [--sampler ddpm|ddim|dpm|dpm3] [--steps N] [--timestep-spacing S]
        [--batch B] [--guidance W] [--use-ema] [--decode-chunk N|auto] [--amp]
-       [--use-distilled] [--fused-decode] [--device cuda|cpu] [-g 0|1] [--compile]
+       [--use-distilled] [--fused-decode] [--device cuda|cpu] [-g N] [--multihost] [--compile]
 It takes every flag of the JAX parser, as the JAX CLI does; the training
 options among them are read by the trainer only, and the flags whose paths
 are not ported raise ``NotImplementedError`` naming their ROADMAP item
@@ -56,6 +63,7 @@ from ldm3d_torch.cli.common import (
     build_parser,
     cli_main,
     env_seed,
+    launch_data_parallel,
     load_distilled,
     load_distilled_meta,
     load_two_stage,
@@ -67,6 +75,7 @@ from ldm3d_torch.cli.common import (
 )
 from ldm3d_torch.data import val_condition_volumes
 from ldm3d_torch.diffusion import inferer
+from ldm3d_torch.parallel import dp_sample_placer, global_batch, mesh
 from ldm3d_torch.utils import TrainContext
 from ldm3d_torch.utils.nifti import write_nifti
 
@@ -87,7 +96,7 @@ def _sync(device: torch.device) -> float:
 
 def build_sampler(args, ae, unet, scheduler, scale_factor: float, latent_batch_shape,
                   dtype: torch.dtype, device: torch.device, condition_shape=None,
-                  timings: dict | None = None):
+                  timings: dict | None = None, place=None, n_shards: int = 1):
     """The sampler of ``args``: the counterpart of the JAX CLI's
     ``build_sampler_fn``, shared by this CLI and ``cli.evaluate``.
 
@@ -100,8 +109,21 @@ def build_sampler(args, ae, unet, scheduler, scale_factor: float, latent_batch_s
     the card (``timings`` receives ``capture_ms``, ``capture_graphs`` and
     ``warmup_launches``); else eagerly, decoding in chunks of
     ``args.decode_chunk`` volumes. ``args`` without those attributes (the
-    evaluate CLI's) samples eagerly and decodes whole batches."""
+    evaluate CLI's) samples eagerly and decodes whole batches.
+
+    Data-parallel sampling: ``latent_batch_shape`` is this rank's, ``place``
+    takes this rank's rows of a global batch of ``n_shards`` ranks' rows
+    (:func:`ldm3d_torch.parallel.dp_sample_placer`); a noisy sampler's step
+    noises are then drawn for the global batch and placed."""
     batch = latent_batch_shape[0]
+    global_shape = (batch * n_shards, *latent_batch_shape[1:])
+    per_rank_noise = place is not None and getattr(scheduler, "draws_noise", False)
+    place = place or (lambda x: x)
+
+    def step_noises(generator):
+        return [place(torch.randn(global_shape, generator=generator))
+                for _ in scheduler.timesteps]
+
     chunk = resolve_decode_chunk(getattr(args, "decode_chunk", 0) or 0, log, device)
     fused = None
     if getattr(args, "fused_decode", False):
@@ -124,14 +146,15 @@ def build_sampler(args, ae, unet, scheduler, scale_factor: float, latent_batch_s
         t0 = _sync(device)
         if fused is not None:
             # the eager loop's draws, in its order: one a step where it draws
-            step_noises = ([torch.randn(latent_batch_shape, generator=generator)
-                            for _ in scheduler.timesteps] if fused.draws_noise else None)
-            vols = fused.sample(noise, condition, step_noises)
+            vols = fused.sample(noise, condition,
+                                step_noises(generator) if fused.draws_noise else None)
             t2 = _sync(device)
             ms = dict(fused.last_ms)
         else:
             latents = inferer.sample_latents(unet, scheduler, noise, condition,
-                                             guidance_scale=args.guidance, generator=generator)
+                                             guidance_scale=args.guidance, generator=generator,
+                                             step_noises=step_noises(generator)
+                                             if per_rank_noise else None)
             t1 = _sync(device)
             latents = latents / torch.tensor(scale_factor, dtype=latents.dtype)
             with torch.no_grad():
@@ -188,7 +211,15 @@ def main(argv=None, timings: dict | None = None) -> list[str]:
                              "CUDA graphs (one step graph replayed a step, one decode graph)")
     args = parser.parse_args(argv)
     reject_unported(args)
+    launched, out = launch_data_parallel(args, main, argv, timings)
+    if launched:
+        return out
     args, device = setup(args)
+    place, n_shards = dp_sample_placer(args.batch)
+    if n_shards == 1 and mesh.world() > 1:
+        log.warning("--batch %d not divisible by %d data-parallel ranks; every rank samples "
+                    "the whole batch (pick --batch as a multiple to split it)", args.batch,
+                    mesh.world())
     dt = model_dtype(args)
     if timings is None:
         timings = {}
@@ -211,11 +242,12 @@ def main(argv=None, timings: dict | None = None) -> list[str]:
     gen = torch.Generator().manual_seed(env_seed(args))
     patch_size = args.diffusion_train["patch_size"]
     latent_batch_shape = (args.batch, *latent_shape, ae.latent_channels)
+    local_shape = (args.batch // n_shards, *latent_batch_shape[1:])
 
     condition = None
     if unet.in_channels > ae.latent_channels:
-        images = np.clip(val_condition_volumes(args, args.batch, patch_size), 0, 1)
-        eps = torch.randn(latent_batch_shape, generator=gen)
+        images = place(np.clip(val_condition_volumes(args, args.batch, patch_size), 0, 1))
+        eps = place(torch.randn(latent_batch_shape, generator=gen))
         t0 = _sync(device)
         with torch.no_grad():
             condition = ae.encode_stage_2_inputs(
@@ -223,16 +255,23 @@ def main(argv=None, timings: dict | None = None) -> list[str]:
         timings["encode_ms"].append((_sync(device) - t0) * 1e3)
         log.info("conditional sampling (concat) with condition shape %s", tuple(condition.shape))
 
-    run = build_sampler(args, ae, unet, scheduler, scale_factor, latent_batch_shape, dt, device,
+    run = build_sampler(args, ae, unet, scheduler, scale_factor, local_shape, dt, device,
                         condition_shape=None if condition is None else tuple(condition.shape),
-                        timings=timings)
-    os.makedirs(args.output_dir, exist_ok=True)
+                        timings=timings, place=place if n_shards > 1 else None,
+                        n_shards=n_shards)
+    lead = mesh.rank() == 0
+    if lead:
+        os.makedirs(args.output_dir, exist_ok=True)
     written: list[str] = []
     for i in range(args.num):
-        noise = torch.randn(latent_batch_shape, generator=gen).to(device, dt)
+        noise = place(torch.randn(latent_batch_shape, generator=gen)).to(device, dt)
         out, ms = run(noise, condition, gen)
         for key, value in ms.items():
             timings[key].append(value)
+        if n_shards > 1:  # every rank's volumes to rank 0, in rank order
+            out = global_batch(out)
+        if not lead:
+            continue
         vols = out.float().cpu().numpy()
         log.info("sample %d: %s in %.2fs (%s, %d steps%s)", i, vols.shape, ms["sample_ms"] / 1e3,
                  sampler_name, len(scheduler.timesteps), ", fused" if args.fused_decode else "")

@@ -22,7 +22,16 @@ environment's ``seed``, gives every draw (posterior noise, LPIPS slices);
 the models' initial weights come from another generator with the same seed.
 LPIPS takes the port's fixed-seed initialisation, or the port's LPIPS
 state_dict saved with ``torch.save`` at the environment key
-``lpips_weights``.
+``lpips_weights`` (``tools/jax_to_torch_ckpt.py --lpips`` converts the JAX
+package's flax msgpack into one).
+
+Data parallelism (``-g N``, ``--multihost``): each rank trains on its share
+of the global batch (``batch_size`` per rank), with the global batch's
+posterior noise, its own rows kept, and both models' gradients averaged
+over the ranks; the LR is ``scale_lr_for_world(lr, world)``, as the JAX
+trainer's; the validation loss is the ranks' mean. ``--zero`` and
+``--fsdp`` shard both models' optimizer state (and, under FSDP, their
+parameters) with more than one rank. Rank 0 writes the checkpoints.
 
 ``--remat full|convs`` checkpoints the VAE's level ResBlocks; ``--grad-accum
 k`` applies one update of each model per k batches on their mean gradients.
@@ -33,7 +42,8 @@ epoch. ``--profile`` traces steps 2-4 (:class:`StepProfiler`) into
 ``./profiler_logs``; ``--track`` records the finished run.
 
 Usage: python -m ldm3d_torch.cli.train_autoencoder -c CONFIG -e ENV [--amp]
-       [--device cuda|cpu] [--max-epochs N] [--no-images] [-g 0|1] [--compile]
+       [--device cuda|cpu] [--max-epochs N] [--no-images] [-g N] [--multihost]
+       [--zero] [--fsdp] [--compile]
        [--remat [full|convs]] [--grad-accum K] [--profile] [--track]
        [--experiment NAME] [--debug-nans]
 Every other flag of the JAX parser parses and raises ``NotImplementedError``
@@ -55,15 +65,19 @@ from ldm3d_torch.cli.common import (
     build_parser,
     cli_main,
     env_seed,
+    global_batch_size,
+    launch_data_parallel,
     model_dtype,
     reject_unported,
     setup,
+    shard_train_state,
     track_run,
 )
 from ldm3d_torch.configs import define_instance
 from ldm3d_torch.data import prepare_dataloader
 from ldm3d_torch.nn import LPIPS, PatchDiscriminator3D, init_lpips_, init_weights_
 from ldm3d_torch.obs import MetricsWriter, StepProfiler, visualize_one_slice_in_3d_image
+from ldm3d_torch.parallel import DataParallel, mesh
 from ldm3d_torch.training import (
     GracefulShutdown,
     Stage1Config,
@@ -72,6 +86,7 @@ from ldm3d_torch.training import (
     make_optimizer,
     make_stage1_eval_step,
     make_stage1_train_step,
+    scale_lr_for_world,
 )
 
 log = logging.getLogger("train_autoencoder")
@@ -102,9 +117,10 @@ def build_lpips(args, dtype: torch.dtype, device: torch.device) -> LPIPS:
                                     "features deliberately")
         if path.endswith(".msgpack"):
             raise NotImplementedError(f"lpips_weights {path!r} is a flax msgpack, which the port "
-                                      "cannot read: ROADMAP.md queue A, item 10 ('Checkpoints "
-                                      "and configs'); save the port's LPIPS state_dict with "
-                                      "torch.save instead")
+                                      "does not read (it needs flax): convert it once with "
+                                      "python tools/jax_to_torch_ckpt.py --lpips "
+                                      f"{path} --lpips-out <file>.pt and point lpips_weights "
+                                      "at the .pt")
         state = torch.load(path, map_location="cpu", weights_only=True)
         lpips.load_state_dict(state.get("state_dict", state))
         log.info("loaded LPIPS weights from %s", path)
@@ -143,7 +159,12 @@ def main(argv=None, timings: dict | None = None) -> float:
     args = build_parser("VAE-GAN training, stage 1 (PyTorch port)").parse_args(argv)
     _pipeline_refused(args)
     reject_unported(args)
+    launched, out = launch_data_parallel(args, main, argv, timings)
+    if launched:
+        return out
     args, device = setup(args)
+    dp = DataParallel.current()
+    world = mesh.world()
     dt = model_dtype(args)
     train_cfg = args.autoencoder_train
     if timings is None:
@@ -153,11 +174,12 @@ def main(argv=None, timings: dict | None = None) -> float:
 
     # data ---------------------------------------------------------------------
     size_divisible = 2 ** (len(args.autoencoder_def["channels"]) - 1)
-    train_loader, val_loader = prepare_dataloader(args, train_cfg["batch_size"],
+    batch_size = global_batch_size(train_cfg["batch_size"], world)
+    train_loader, val_loader = prepare_dataloader(args, batch_size,
                                                   train_cfg["patch_size"], randcrop=True,
                                                   size_divisible=size_divisible)
     steps_per_epoch = max(1, train_loader.steps_per_epoch())
-    log.info("batch %d, %d steps/epoch", train_cfg["batch_size"], steps_per_epoch)
+    log.info("global batch %d, %d steps/epoch", batch_size, steps_per_epoch)
     lpips = build_lpips(args, dt, device) if train_cfg.get("perceptual_weight", 0) else None
 
     # models, schedule, optimizers ----------------------------------------------
@@ -172,7 +194,8 @@ def main(argv=None, timings: dict | None = None) -> float:
         ae.remat = args.remat
     max_epochs = args.max_epochs or train_cfg["max_epochs"]
     val_interval = train_cfg["val_interval"]
-    schedule = build_lr_schedule(train_cfg.get("lr_scheduler"), train_cfg["lr"], max_epochs,
+    schedule = build_lr_schedule(train_cfg.get("lr_scheduler"),
+                                 scale_lr_for_world(train_cfg["lr"], world), max_epochs,
                                  steps_per_epoch)
     s1cfg = Stage1Config(
         recon_loss=train_cfg.get("recon_loss", "l1"),
@@ -182,9 +205,9 @@ def main(argv=None, timings: dict | None = None) -> float:
         warmup_epochs=train_cfg.get("warmup_epochs", 5),
     )
     g_state = TrainState(ae, make_optimizer(ae.parameters(), schedule, s1cfg.grad_clip,
-                                            grad_accum=args.grad_accum))
+                                            grad_accum=args.grad_accum, dp=dp))
     d_state = TrainState(disc, make_optimizer(disc.parameters(), schedule, s1cfg.grad_clip,
-                                              grad_accum=args.grad_accum))
+                                              grad_accum=args.grad_accum, dp=dp))
 
     # checkpoints: G and D resume from one 'last' file -----------------------------
     g_ckpt = CheckpointManager(args.model_dir, "autoencoder")
@@ -195,7 +218,8 @@ def main(argv=None, timings: dict | None = None) -> float:
         if ok:
             g_state.load_state_dict(restored["g"])
             d_state.load_state_dict(restored["d"])
-            gen.set_state(restored["generator"].cpu())
+            if "generator" in restored:  # a converted JAX state carries none
+                gen.set_state(restored["generator"].cpu())
             meta = restored["meta"]
             start_epoch = int(meta.get("epoch", -1)) + 1
             log.info("resumed autoencoder from epoch %d", start_epoch)
@@ -204,10 +228,13 @@ def main(argv=None, timings: dict | None = None) -> float:
     # as the reference, a resumed run starts both afresh: its first validation
     # writes 'best', and its _iter scalars count from step 1 again
     best_val, total_step = float("inf"), 0
+    shard_train_state(g_state, args, dp)
+    shard_train_state(d_state, args, dp)
 
-    train_step = make_stage1_train_step(ae, disc, lpips, s1cfg)
-    eval_step = make_stage1_eval_step(ae, lpips, s1cfg)
-    writer = MetricsWriter(os.path.join(args.tfevent_path, "autoencoder"))
+    train_step = make_stage1_train_step(ae, disc, lpips, s1cfg, dp=dp)
+    eval_step = make_stage1_eval_step(ae, lpips, s1cfg, dp=dp)
+    writer = MetricsWriter(os.path.join(args.tfevent_path, "autoencoder"),
+                           enabled=mesh.rank() == 0)
     profiler = StepProfiler("./profiler_logs", enabled=args.profile)
     # SIGTERM -> resumable 'last', exit 75; the previous handler is back on
     # every way out of the block
@@ -224,6 +251,9 @@ def main(argv=None, timings: dict | None = None) -> float:
                 images = torch.from_numpy(np.ascontiguousarray(batch["image"])).to(device)
                 t_step = _sync(device)
                 metrics = train_step(g_state, d_state, images, adv_active, gen)
+                if dp is not None:  # the global batch's metrics, as one process logs them
+                    means = dp.mean(torch.stack([metrics[k].float() for k in _METRICS]))
+                    metrics = dict(zip(_METRICS, means))
                 metrics = {k: float(v) for k, v in metrics.items()}
                 timings["train_step_ms"].append((_sync(device) - t_step) * 1e3)
                 timings["adv_active"].append(adv_active)
@@ -277,6 +307,8 @@ def main(argv=None, timings: dict | None = None) -> float:
             if not val_losses:
                 continue
             val_loss = float(np.mean(val_losses))
+            if dp is not None:  # every rank compares the same number
+                val_loss = dp.mean_of(val_loss, device)
             timings["val_loss"].append(val_loss)
             log.info("Epoch %d val_recon_loss: %.4f", epoch, val_loss)
             writer.add_scalar("val_recon_loss", val_loss, epoch)
@@ -285,8 +317,8 @@ def main(argv=None, timings: dict | None = None) -> float:
             meta = {"epoch": epoch, "val_loss": val_loss, "best_val": best_val}
             g_ckpt.save("last", _gan_last(g_state, d_state, gen), meta)
             if is_best:
-                g_ckpt.save("best", {"state_dict": ae.state_dict()}, meta)
-                d_ckpt.save("best", {"state_dict": disc.state_dict()}, meta)
+                g_ckpt.save("best", {"state_dict": g_state.model_state_dict()}, meta)
+                d_ckpt.save("best", {"state_dict": d_state.model_state_dict()}, meta)
                 log.info("Got best val recon loss; saved best checkpoints to %s", args.model_dir)
             if not args.no_images and epoch % (val_interval * 5) == 0:
                 img0 = images[0, ..., 0].float().cpu().numpy()

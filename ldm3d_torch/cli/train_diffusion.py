@@ -12,6 +12,16 @@ one volume conditionally with the DDPM scheduler for TensorBoard. A resume
 reference, restarts the best validation loss at inf and the TensorBoard step
 count at 0, so its first validation rewrites ``best``.
 
+Data parallelism (``-g N``, ``--multihost``): each rank loads its share of
+the global batch (``batch_size`` per rank, as the JAX trainer's per-device
+batch), draws the global batch's noise and keeps its rows, and averages the
+gradients over the ranks before the clip; the ``scale_factor`` is the
+global batch's std (Σ, Σ² and n all-reduced) and the validation loss the
+ranks' mean, so every rank takes the same branch. ``--zero`` shards Adam's
+moments (ZeRO-1), ``--fsdp`` the parameters, moments and EMA
+(``fully_shard``); both act only with more than one rank, as in JAX. Rank 0
+writes the checkpoints (the one-process layout) and TensorBoard.
+
 ``--remat full|convs`` checkpoints the UNet's ResBlocks (and ``mid_stack``);
 ``--grad-accum k`` applies one update per k batches on their mean gradient,
 the EMA decaying once per update. SIGTERM (:class:`GracefulShutdown`, polled
@@ -29,8 +39,8 @@ generator with the same seed.
 Usage: python -m ldm3d_torch.cli.train_diffusion -c CONFIG -e ENV [--amp]
        [--device cuda|cpu] [--max-epochs N] [--cache-latents] [--ema-decay D]
        [--min-snr-gamma G] [--cond-dropout P] [--unconditional] [--no-images]
-       [-g 0|1] [--compile] [--remat [full|convs]] [--grad-accum K] [--track]
-       [--experiment NAME] [--debug-nans] [--profile]
+       [-g N] [--multihost] [--zero] [--fsdp] [--compile] [--remat [full|convs]]
+       [--grad-accum K] [--track] [--experiment NAME] [--debug-nans] [--profile]
 Every other flag of the JAX parser parses and raises ``NotImplementedError``
 naming its ROADMAP item (``ldm3d_torch.cli.common.UNPORTED``).
 """
@@ -49,9 +59,12 @@ from ldm3d_torch.cli.common import (
     build_parser,
     cli_main,
     env_seed,
+    global_batch_size,
+    launch_data_parallel,
     model_dtype,
     reject_unported,
     setup,
+    shard_train_state,
     track_run,
 )
 from ldm3d_torch.configs import define_instance
@@ -59,6 +72,7 @@ from ldm3d_torch.data import LatentCache, prepare_dataloader
 from ldm3d_torch.diffusion import DDPMScheduler, inferer
 from ldm3d_torch.nn import init_weights_
 from ldm3d_torch.obs import MetricsWriter, visualize_one_slice_in_3d_image
+from ldm3d_torch.parallel import DataParallel, mesh
 from ldm3d_torch.training import (
     GracefulShutdown,
     Stage2Config,
@@ -123,7 +137,11 @@ def main(argv=None, timings: dict | None = None) -> float:
     batch count of each validation pass; and ``scale_factor``."""
     args = build_parser_train().parse_args(argv)
     reject_unported(args)
+    launched, out = launch_data_parallel(args, main, argv, timings)
+    if launched:
+        return out
     args, device = setup(args)
+    dp = DataParallel.current()
     dt = model_dtype(args)
     train_cfg = args.diffusion_train
     patch_size = train_cfg["patch_size"]
@@ -135,21 +153,23 @@ def main(argv=None, timings: dict | None = None) -> float:
     # data -------------------------------------------------------------------
     size_divisible = 2 ** (len(args.autoencoder_def["channels"])
                            + len(args.diffusion_def["channels"]) - 2)
-    batch_size = train_cfg["batch_size"]
+    batch_size = global_batch_size(train_cfg["batch_size"], mesh.world())
     train_loader, val_loader = prepare_dataloader(args, batch_size, patch_size, randcrop=False,
                                                   size_divisible=size_divisible)
     steps_per_epoch = max(1, train_loader.steps_per_epoch())
     seed = env_seed(args)
     gen = torch.Generator(device=device).manual_seed(seed)
 
-    # frozen stage-1 VAE and the latent scale factor from the first batch -----
+    # frozen stage-1 VAE and the latent scale factor from the first (global) batch
     ae = load_frozen_autoencoder(args, device, dt)
     first = next(iter(train_loader.epoch(0)))
     labels0 = torch.clamp(torch.from_numpy(first["label"]).to(device), 0, 1)
     f = ae.downsample_factor
-    latent_shape = (labels0.shape[0], *[s // f for s in labels0.shape[1:4]], ae.latent_channels)
+    latent_shape = (batch_size, *[s // f for s in labels0.shape[1:4]], ae.latent_channels)
     eps0 = torch.randn(latent_shape, generator=gen, device=device)
-    scale_factor = float(compute_scale_factor(ae, labels0, eps0))
+    if dp is not None:
+        eps0 = dp.shard(eps0)
+    scale_factor = float(compute_scale_factor(ae, labels0, eps0, dp))
     timings["scale_factor"] = scale_factor
     log.info("scale_factor = %.6f", scale_factor)
 
@@ -173,7 +193,7 @@ def main(argv=None, timings: dict | None = None) -> float:
     s2cfg = Stage2Config(conditional=not args.unconditional, cond_dropout=args.cond_dropout,
                          min_snr_gamma=args.min_snr_gamma)
     state = TrainState(unet, make_diffusion_optimizer(unet.parameters(), schedule,
-                                                      grad_accum=args.grad_accum),
+                                                      grad_accum=args.grad_accum, dp=dp),
                        ema_decay=args.ema_decay, ema_every=args.grad_accum)
 
     u_ckpt = CheckpointManager(args.model_dir, "diffusion")
@@ -190,16 +210,18 @@ def main(argv=None, timings: dict | None = None) -> float:
     # as the reference, a resumed run starts both afresh: its first validation
     # writes 'best', and its _iter scalars count from step 1 again
     best_val, total_step = float("inf"), 0
+    shard_train_state(state, args, dp)
 
-    eval_step = make_stage2_eval_step(unet, ae, scheduler, s2cfg)
+    eval_step = make_stage2_eval_step(unet, ae, scheduler, s2cfg, dp=dp)
     if args.cache_latents:
         cache = LatentCache.build(ae, train_loader.dataset, batch_size, device,
                                   conditional=s2cfg.conditional, seed=seed)
-        train_step = make_stage2_train_step_latents(unet, scheduler, s2cfg)
+        train_step = make_stage2_train_step_latents(unet, scheduler, s2cfg, dp=dp)
     else:
-        train_step = make_stage2_train_step(unet, ae, scheduler, s2cfg)
+        train_step = make_stage2_train_step(unet, ae, scheduler, s2cfg, dp=dp)
 
-    writer = MetricsWriter(os.path.join(args.tfevent_path, "diffusion"))
+    writer = MetricsWriter(os.path.join(args.tfevent_path, "diffusion"),
+                           enabled=mesh.rank() == 0)
     if not args.no_images:
         for axis in range(3):
             writer.add_image(f"train_img_{axis}",
@@ -222,6 +244,8 @@ def main(argv=None, timings: dict | None = None) -> float:
                     batch = {"image": batch["image"], "label": batch["label"]}
                 t_step = _sync(device)
                 metrics = train_step(state, _to_device(batch, device), scale_factor, gen)
+                if dp is not None:  # the global batch's loss, as one process logs it
+                    metrics["diffusion_loss"] = dp.mean(metrics["diffusion_loss"])
                 loss = float(metrics["diffusion_loss"])
                 timings["train_step_ms"].append((_sync(device) - t_step) * 1e3)
                 losses.append(loss)
@@ -255,6 +279,8 @@ def main(argv=None, timings: dict | None = None) -> float:
             timings["val_batches"].append(len(val_losses))
             if val_losses:
                 val_loss = float(np.mean(val_losses))
+                if dp is not None:  # every rank compares the same number
+                    val_loss = dp.mean_of(val_loss, device)
                 writer.add_scalar("val_diffusion_loss", val_loss, epoch)
                 log.info("Epoch %d val_diffusion_loss: %.5f", epoch, val_loss)
                 is_best = val_loss < best_val
@@ -263,7 +289,7 @@ def main(argv=None, timings: dict | None = None) -> float:
                 u_ckpt.save_best_and_last(state.state_dict(), is_best, meta)
                 if is_best:
                     if state.ema_params is not None:
-                        u_ckpt.save("ema", {"state_dict": state.ema_params}, meta)
+                        u_ckpt.save("ema", {"state_dict": state.ema_state_dict()}, meta)
                     log.info("Got best val noise pred loss; saved to %s", u_ckpt.root)
 
             # periodic conditional sampling (reference train_diffusion.py:308-333)

@@ -1,7 +1,9 @@
 """Latent caching for stage-2 training: encode the dataset once, train in
 latent space.
 
-The port of ``ldm3d_tpu/data/latent_cache.py`` for one process. Stage 2 uses
+The port of ``ldm3d_tpu/data/latent_cache.py``. Under data parallelism
+each rank caches its contiguous ``1 / world`` of the dataset (the loader's
+split) and yields ``batch / world`` samples a step. Stage 2 uses
 center crops, so each sample's posterior is the same every epoch: the cache
 holds every sample's posterior ``(mu, sigma)`` (fp32, host memory) and the
 latents train step draws ``z = mu + sigma * eps`` afresh each step, the
@@ -39,10 +41,22 @@ class LatentCache:
     @classmethod
     @torch.no_grad()
     def build(cls, ae, dataset, batch_size: int, device, encode_batch: int = 2,
-              conditional: bool = True, seed: int = 0) -> "LatentCache":
-        """Encode every ``dataset[i]`` (``{"image", "label"}`` NDHWC numpy
-        volumes, clipped to [0, 1]) through ``ae.encode`` on ``device``, in
-        chunks of ``encode_batch``."""
+              conditional: bool = True, seed: int = 0, num_hosts: int | None = None,
+              host_id: int | None = None) -> "LatentCache":
+        """Encode this rank's ``dataset[i]`` (``{"image", "label"}`` NDHWC
+        numpy volumes, clipped to [0, 1]) through ``ae.encode`` on
+        ``device``, in chunks of ``encode_batch``. ``batch_size`` is the
+        global batch; ``num_hosts``/``host_id`` default to the process
+        group's world and rank."""
+        from ldm3d_torch.parallel.mesh import rank, world
+
+        if num_hosts is None:
+            num_hosts, host_id = world(), rank()
+        elif num_hosts > 1 and host_id is None:
+            raise ValueError("host_id is required when num_hosts > 1 is passed explicitly")
+        host_id = host_id or 0
+        if batch_size % num_hosts:
+            raise ValueError(f"global batch {batch_size} not divisible by {num_hosts} hosts")
 
         def enc(volumes: list) -> tuple[np.ndarray, np.ndarray]:
             x = torch.from_numpy(np.clip(np.stack(volumes), 0, 1)).to(device)
@@ -51,8 +65,10 @@ class LatentCache:
 
         t0 = time.time()
         lm, ls, im, isg = [], [], [], []
-        for start in range(0, len(dataset), encode_batch):
-            samples = [dataset[i] for i in range(start, min(start + encode_batch, len(dataset)))]
+        per_host = len(dataset) // num_hosts
+        lo, hi = host_id * per_host, (host_id + 1) * per_host
+        for start in range(lo, hi, encode_batch):
+            samples = [dataset[i] for i in range(start, min(start + encode_batch, hi))]
             mu, sigma = enc([s["label"] for s in samples])
             lm.append(mu)
             ls.append(sigma)
@@ -62,7 +78,7 @@ class LatentCache:
                 isg.append(sigma)
         cache = cls(np.concatenate(lm), np.concatenate(ls),
                     np.concatenate(im) if conditional else None,
-                    np.concatenate(isg) if conditional else None, batch_size, seed)
+                    np.concatenate(isg) if conditional else None, batch_size // num_hosts, seed)
         log.info("cached %d samples' latents in %.1fs (%.1f MB host RAM)", len(cache),
                  time.time() - t0, cache.nbytes() / 1e6)
         return cache

@@ -3,8 +3,11 @@ batching, and a background thread that prepares the next batches while the
 device computes.
 
 The port's copy of ``BatchLoader`` and ``device_prefetch`` from
-``ldm3d_tpu/data/loader.py`` for one process: the multi-host shard of the
-loader waits for ROADMAP.md queue A, 'Parallelism'.
+``ldm3d_tpu/data/loader.py``. Under data parallelism each rank is a "host"
+of the JAX arithmetic (``num_hosts`` = the world, ``host_id`` = the rank):
+every rank shuffles with the same seed, takes its contiguous ``1 / world``
+of the epoch's order, and yields ``batch / world`` samples a step; the
+ranks' batches end to end are the JAX package's global batch.
 """
 
 from __future__ import annotations
@@ -76,38 +79,50 @@ def _stack(samples: Sequence[dict]) -> dict:
 class BatchLoader:
     """Iterates epoch batches with prefetch; one instance per dataset split.
 
-    ``drop_last`` keeps the batch shape uniform (reference ``utils.py:215``);
-    ``pad_partial`` instead pads a trailing partial batch by repeating its last
-    sample, for small validation sets."""
+    ``batch_size`` is the GLOBAL batch; with ``num_hosts`` ranks each yields
+    its ``batch_size / num_hosts`` share (JAX's ``ValueError`` when they do
+    not divide it). ``drop_last`` keeps the batch shape uniform (reference
+    ``utils.py:215``); ``pad_partial`` instead pads a trailing partial batch
+    by repeating its last sample, for small validation sets."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True, drop_last: bool = True,
-                 seed: int = 0, prefetch: int = 2, pad_partial: bool = False):
+                 seed: int = 0, prefetch: int = 2, num_hosts: int = 1, host_id: int = 0,
+                 pad_partial: bool = False):
         if batch_size <= 0:
             raise ValueError("batch_size must be positive")
+        if batch_size % max(1, num_hosts):
+            raise ValueError(f"global batch {batch_size} not divisible by {num_hosts} hosts")
         self.dataset = dataset
-        self.batch_size = batch_size
+        self.batch_size = batch_size // max(1, num_hosts)
         self.shuffle = shuffle
         self.drop_last = drop_last and not pad_partial
         self.pad_partial = pad_partial
         self.seed = seed
         self.prefetch = max(1, prefetch)
+        self.num_hosts = max(1, num_hosts)
+        self.host_id = host_id
 
     def steps_per_epoch(self) -> int:
-        n = len(self.dataset)
+        n = len(self.dataset) // self.num_hosts
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
     def _epoch_indices(self, epoch: int) -> np.ndarray:
         idx = np.arange(len(self.dataset))
         if self.shuffle:
             np.random.default_rng(self.seed + epoch).shuffle(idx)
-        return idx
+        # this rank's contiguous share, DistributedSampler-style
+        per_host = len(idx) // self.num_hosts
+        if per_host == 0:
+            raise ValueError("dataset smaller than host count")
+        return idx[self.host_id * per_host:(self.host_id + 1) * per_host]
 
     def epoch(self, epoch: int) -> Iterator[dict]:
         """Yield stacked numpy batches for one epoch, prepared on a thread."""
         if hasattr(self.dataset, "set_epoch_seed"):
             self.dataset.set_epoch_seed(self.seed + epoch)
         indices = self._epoch_indices(epoch)
-        nb = self.steps_per_epoch()
+        nb = (len(indices) // self.batch_size if self.drop_last
+              else -(-len(indices) // self.batch_size))
         q: queue.Queue = queue.Queue(maxsize=self.prefetch)
         sentinel = object()
         err: list[BaseException] = []

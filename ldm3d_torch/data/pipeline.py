@@ -102,7 +102,12 @@ def prepare_dataloader(args: Any, batch_size: int, patch_size: Sequence[int],
                        randcrop: bool = True, size_divisible: int = 16,
                        scale_on_host: bool = True) -> tuple[BatchLoader, BatchLoader]:
     """``(train, val)`` loaders: shuffled drop-last train batches, in-order
-    validation batches with a partial batch padded by its last sample."""
+    validation batches with a partial batch padded by its last sample.
+    ``batch_size`` is the global batch: each rank of the process group loads
+    its share (JAX's ``num_hosts``/``host_id`` = the world and the rank)."""
+    from ldm3d_torch.parallel.mesh import rank, world
+
+    num_hosts, host_id = world(), rank()
     data = _DataArgs(args, patch_size)
     train_sources, val_sources = data.sources()
     vps = val_patch_size(patch_size, size_divisible, randcrop)
@@ -111,14 +116,19 @@ def prepare_dataloader(args: Any, batch_size: int, patch_size: Sequence[int],
     val_ds = NPZPairDataset(val_sources, patch_size=vps, randcrop=False,
                             scale_on_host=scale_on_host, seed=data.seed)
     train_loader = BatchLoader(train_ds, batch_size, shuffle=True, drop_last=True,
-                               seed=data.seed)
+                               seed=data.seed, num_hosts=num_hosts, host_id=host_id)
     val_loader = BatchLoader(val_ds, batch_size, shuffle=False, drop_last=True,
-                             pad_partial=True, seed=data.seed)
+                             pad_partial=True, seed=data.seed, num_hosts=num_hosts,
+                             host_id=host_id)
     if train_loader.steps_per_epoch() == 0:
         raise ValueError(
-            f"training set ({len(train_ds)} volumes) is smaller than the batch size "
-            f"{batch_size}; add data, raise synthetic_num, or lower batch_size (drop_last "
-            f"keeps the batch shape uniform)")
+            f"training set ({len(train_ds)} volumes / {num_hosts} rank(s)) is smaller than "
+            f"the global batch size {batch_size}; add data, raise synthetic_num, or lower "
+            f"batch_size / device count (drop_last keeps the batch shape uniform)")
+    if num_hosts > 1 and len(val_ds) < num_hosts:
+        raise ValueError(
+            f"validation set ({len(val_ds)} volumes) is smaller than the host "
+            f"count {num_hosts}; add validation data or raise val_fraction")
     return train_loader, val_loader
 
 

@@ -2,7 +2,8 @@
 
 The port's own copy of ``MetricsWriter`` from ``ldm3d_tpu/obs/tb.py``: torch's
 ``SummaryWriter`` when ``tensorboard`` is installed, else a JSONL event log
-(``metrics.jsonl``), so headless machines still get the metrics.
+(``metrics.jsonl``), so headless machines still get the metrics. Under data
+parallelism only rank 0 writes (``enabled=False`` elsewhere).
 """
 
 from __future__ import annotations
@@ -17,10 +18,12 @@ __all__ = ["MetricsWriter"]
 
 
 class MetricsWriter:
-    def __init__(self, logdir: str):
+    def __init__(self, logdir: str, enabled: bool = True):
         self.logdir = logdir
         self._tb = None
         self._jsonl = None
+        if not enabled:
+            return
         os.makedirs(logdir, exist_ok=True)
         try:
             from torch.utils.tensorboard import SummaryWriter

@@ -84,11 +84,19 @@ class DistillDraws:
         return DistillDraws(*(None if t is None else t.to(device)
                               for t in dataclasses.astuple(self)))
 
+    def shard(self, dp) -> "DistillDraws":
+        """This rank's rows of a global batch's draws."""
+        return DistillDraws(*(dp.shard(t) for t in dataclasses.astuple(self)))
+
 
 def draw_distill(generator: torch.Generator, latent_shape, cfg: DistillConfig,
-                 device) -> DistillDraws:
+                 device, dp=None) -> DistillDraws:
     """A step's draws from ``generator`` (on its device, then moved to
-    ``device``): label epsilon, image epsilon (conditional), noise, j."""
+    ``device``): label epsilon, image epsilon (conditional), noise, j. With
+    ``dp`` the global batch's draws are made and this rank's rows kept."""
+    if dp is not None:
+        global_shape = (dp.global_rows(latent_shape[0]), *latent_shape[1:])
+        return draw_distill(generator, global_shape, cfg, device).shard(dp)
     g = generator.device
 
     def normal():
@@ -109,7 +117,7 @@ def _gather(table: torch.Tensor, j: torch.Tensor, like: torch.Tensor) -> torch.T
     return v.reshape(v.shape + (1,) * (like.dim() - 1))
 
 
-def make_distillation_step(unet, ae, scheduler, cfg: DistillConfig):
+def make_distillation_step(unet, ae, scheduler, cfg: DistillConfig, dp=None):
     """Build the one-halving distillation step.
 
     ``unet`` gives the compute dtype of both UNet roles (the teacher's and
@@ -176,7 +184,7 @@ def make_distillation_step(unet, ae, scheduler, cfg: DistillConfig):
             labels = batch["label"]
             f = ae.downsample_factor
             shape = (labels.shape[0], *[s // f for s in labels.shape[1:4]], ae.latent_channels)
-            draws = draw_distill(generator, shape, cfg, labels.device)
+            draws = draw_distill(generator, shape, cfg, labels.device, dp=dp)
         x_t, t, a_t, condition, x0_tgt, w = targets(teacher, batch, scale_factor, draws)
         zin = x_t.to(unet.compute_dtype)
         if condition is not None:

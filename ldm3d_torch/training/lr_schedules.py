@@ -22,9 +22,19 @@ from __future__ import annotations
 import math
 from typing import Callable
 
-__all__ = ["build_lr_schedule"]
+__all__ = ["build_lr_schedule", "scale_lr_for_world"]
 
 Schedule = Callable[[int], float]
+
+
+def scale_lr_for_world(lr: float, world_size: int) -> float:
+    """``lr * sqrt(world) * 0.5`` above one replica, as the reference does
+    (``train_autoencoder.py:246-261``; ``ldm3d_tpu/training/lr_schedules.py:22``).
+    Only the stage-1 trainer calls it, as in JAX; stage 2 and distillation
+    take the configured LR at any world size."""
+    if world_size > 1:
+        return lr * (world_size ** 0.5) * 0.5
+    return lr
 
 
 def _cosine(init: float, decay_steps: int, alpha: float) -> Schedule:

@@ -6,9 +6,11 @@ they save a resumable ``last`` checkpoint (meta ``epoch`` = the interrupted
 epoch - 1, ``preempted: True``) and exit 75 (``EX_TEMPFAIL``), so a restart
 with ``resume_ckpt`` replays the interrupted epoch.
 
-One process only: with ``torch.distributed`` initialised over more than one
-rank, :attr:`GracefulShutdown.requested_global` raises (the cross-rank
-agreement waits for ROADMAP.md queue A, 'Parallelism').
+Under data parallelism :attr:`GracefulShutdown.requested_global` is the
+flag every rank agrees on: a ``MAX`` all-reduce of the local flags, taken by
+every rank at every step boundary (``ldm3d_tpu/training/preemption.py:67``),
+so one rank's SIGTERM stops all of them at the same step and the next
+collective (the checkpoint's gather) finds every rank.
 """
 
 from __future__ import annotations
@@ -52,13 +54,16 @@ class GracefulShutdown:
 
     @property
     def requested_global(self) -> bool:
-        """The flag as every rank must agree on it: with one process, the
-        local flag."""
+        """The flag as every rank agrees on it: True on every rank once any
+        rank latched the signal. Every rank must read it at the same points
+        (a collective); with one process it is the local flag."""
         dist = torch.distributed
-        if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
-            raise NotImplementedError("a preemption agreement across ranks is not ported yet: "
-                                      "ROADMAP.md queue A, item 11 ('Parallelism')")
-        return self.requested
+        if not (dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1):
+            return self.requested
+        device = "cuda" if dist.get_backend() == "nccl" else "cpu"
+        flag = torch.tensor([int(self.requested)], dtype=torch.int32, device=device)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+        return bool(flag.item())
 
     def trigger(self) -> None:
         """Set the flag programmatically (tests, cooperative shutdown)."""

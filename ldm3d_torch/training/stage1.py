@@ -21,8 +21,9 @@ reconstruction computed above and its update.
 
 Randomness. A step's draws are a :class:`Stage1Draws`: the posterior
 epsilon and the three axes' LPIPS slice indices. A step takes them as an
-argument, or draws them from the caller's ``torch.Generator``. The
-depth-sharded steps of the JAX package are not ported (ROADMAP.md queue A,
+argument, or draws them from the caller's ``torch.Generator`` (the global
+batch's under data parallelism, this rank's rows kept). The depth-sharded
+steps of the JAX package are not ported (ROADMAP.md queue A,
 'Parallelism').
 """
 
@@ -81,11 +82,18 @@ class Stage1Draws:
 
 
 def draw_stage1(generator: torch.Generator, latent_shape, volume_shape, cfg: Stage1Config,
-                device, perceptual: bool = True) -> Stage1Draws:
+                device, perceptual: bool = True, dp=None) -> Stage1Draws:
     """A step's draws from ``generator`` (on its device, then moved to
     ``device``): the posterior epsilon, then with ``perceptual`` the slice
-    indices of each axis (:func:`~ldm3d_torch.nn.lpips.draw_slices`)."""
-    eps = torch.randn(tuple(latent_shape), generator=generator, device=generator.device)
+    indices of each axis (:func:`~ldm3d_torch.nn.lpips.draw_slices`). With
+    ``dp`` the epsilon is drawn for the global batch and this rank's rows
+    kept; the slice indices are the whole batch's, on every rank."""
+    shape = tuple(latent_shape)
+    if dp is not None:
+        shape = (dp.global_rows(shape[0]), *shape[1:])
+    eps = torch.randn(shape, generator=generator, device=generator.device)
+    if dp is not None:
+        eps = dp.shard(eps)
     slices = draw_slices(generator, volume_shape, cfg.fake_3d_ratio) if perceptual else None
     return Stage1Draws(eps, slices).to(device)
 
@@ -102,15 +110,16 @@ def _accum_schedule(lr_schedule, grad_accum: int):
 
 def make_optimizer(params: Iterable[torch.nn.Parameter], lr_schedule: Callable[[int], float],
                    grad_clip: float = 0.5, weight_decay: float = 1e-5,
-                   grad_accum: int = 1) -> ClippedAdam:
+                   grad_accum: int = 1, dp=None) -> ClippedAdam:
     """The reference's stage-1 optimizer: global-norm clip, then AdamW with
     b1 0.5, b2 0.9, eps 1e-8 at ``lr_schedule(count)``. ``grad_accum > 1``
     accumulates the mean gradient over that many micro-steps before each
     update (``optax.MultiSteps``), at the schedule re-indexed by
-    :func:`_accum_schedule`."""
+    :func:`_accum_schedule`. ``dp`` averages the gradients over the
+    data-parallel ranks."""
     return ClippedAdam(params, _accum_schedule(lr_schedule, grad_accum), grad_clip,
                        betas=(0.5, 0.9), eps=1e-8, weight_decay=weight_decay,
-                       grad_accum=grad_accum)
+                       grad_accum=grad_accum, dp=dp)
 
 
 def _recon_fn(name: str) -> Callable:
@@ -122,14 +131,14 @@ def _latent_shape(ae, images: torch.Tensor) -> tuple:
     return (images.shape[0], *[s // f for s in images.shape[1:4]], ae.latent_channels)
 
 
-def _draws(ae, images, generator, draws, cfg, perceptual) -> Stage1Draws:
+def _draws(ae, images, generator, draws, cfg, perceptual, dp) -> Stage1Draws:
     if draws is not None:
         return draws
     return draw_stage1(generator, _latent_shape(ae, images), images.shape, cfg, images.device,
-                       perceptual)
+                       perceptual, dp)
 
 
-def make_stage1_train_step(ae, disc, lpips, cfg: Stage1Config):
+def make_stage1_train_step(ae, disc, lpips, cfg: Stage1Config, dp=None):
     """The (G, D) train step. ``lpips``: an LPIPS module with frozen
     parameters, or None to drop the perceptual term.
 
@@ -137,7 +146,14 @@ def make_stage1_train_step(ae, disc, lpips, cfg: Stage1Config):
     draws=None) -> metrics``: ``images`` an NDHWC batch on the models'
     device; both updates are applied to the states in place; ``metrics``
     holds device scalars ``recon_loss``, ``kl_loss``, ``perceptual_loss``,
-    ``adv_loss``, ``g_loss``, ``g_grad_norm``, ``d_loss``."""
+    ``adv_loss``, ``g_loss``, ``g_grad_norm``, ``d_loss``. With ``dp``,
+    ``images`` is this rank's share of the global batch (see
+    :func:`draw_stage1`); the states' optimizers average the gradients.
+
+    The generator's loss reaches its parameters through ``backward()`` with
+    the discriminator's parameters frozen for that pass (FSDP reduces only
+    what ``backward()`` leaves in ``.grad``), so the discriminator's
+    gradients come from its own loss alone."""
     recon_loss_fn = _recon_fn(cfg.recon_loss)
     perceptual = lpips is not None and bool(cfg.perceptual_weight)
 
@@ -146,7 +162,7 @@ def make_stage1_train_step(ae, disc, lpips, cfg: Stage1Config):
                    draws: Optional[Stage1Draws] = None) -> dict:
         if cfg.clamp_inputs:
             images = torch.clamp(images, 0.0, 1.0)
-        draws = _draws(ae, images, generator, draws, cfg, perceptual)
+        draws = _draws(ae, images, generator, draws, cfg, perceptual, dp)
         zero = torch.zeros((), dtype=torch.float32, device=images.device)
 
         recon, z_mu, z_sigma = ae(images, draws.eps)
@@ -155,13 +171,18 @@ def make_stage1_train_step(ae, disc, lpips, cfg: Stage1Config):
         pl = perceptual_loss_25d(lpips, recon, images, draws.slices) if perceptual else zero
         loss = rl + cfg.kl_weight * kl + cfg.perceptual_weight * pl
         adv = zero
-        if adv_active:
-            adv = lsgan_generator_loss(disc(recon)[-1])
-            loss = loss + cfg.adv_weight * adv
-        g_params = g_state.optimizer.params
+        d_params = [p for p in disc.parameters() if p.requires_grad]
         g_state.optimizer.zero_grad()
-        for p, g in zip(g_params, torch.autograd.grad(loss, g_params)):
-            p.grad = g
+        try:
+            for p in d_params:
+                p.requires_grad_(False)
+            if adv_active:
+                adv = lsgan_generator_loss(disc(recon)[-1])
+                loss = loss + cfg.adv_weight * adv
+            loss.backward()
+        finally:
+            for p in d_params:
+                p.requires_grad_(True)
         metrics = {"recon_loss": rl.detach(), "kl_loss": kl.detach(),
                    "perceptual_loss": pl.detach(), "adv_loss": adv.detach(),
                    "g_loss": loss.detach(), "g_grad_norm": g_state.apply_gradients()}
@@ -177,7 +198,7 @@ def make_stage1_train_step(ae, disc, lpips, cfg: Stage1Config):
     return train_step
 
 
-def make_stage1_eval_step(ae, lpips, cfg: Stage1Config):
+def make_stage1_eval_step(ae, lpips, cfg: Stage1Config, dp=None):
     """Validation on a batch: recon + perceptual on the [0, 1]-clamped
     reconstruction. Returns ``eval_step(images, generator=None, draws=None)
     -> (metrics, recon)`` with device scalars ``val_recon_loss``,
@@ -189,7 +210,7 @@ def make_stage1_eval_step(ae, lpips, cfg: Stage1Config):
     def eval_step(images: torch.Tensor, generator: Optional[torch.Generator] = None,
                   draws: Optional[Stage1Draws] = None):
         images = torch.clamp(images, 0.0, 1.0)
-        draws = _draws(ae, images, generator, draws, cfg, perceptual)
+        draws = _draws(ae, images, generator, draws, cfg, perceptual, dp)
         recon, z_mu, z_sigma = ae(images, draws.eps)
         recon = torch.clamp(recon, 0.0, 1.0)
         rl = recon_loss_fn(recon, images)

@@ -16,8 +16,10 @@ posterior epsilon of the labels and of the images, the noise, the timesteps
 and the condition-dropout mask. A step takes them as an argument, or draws
 them from the caller's ``torch.Generator`` in the order of the JAX step's
 ``jax.random.split(rng, 5)``, so a test can hand both frameworks the same
-draws. The depth-sharded and pipelined steps of the JAX package are not
-ported (ROADMAP.md).
+draws. Under data parallelism (``dp``) each rank draws the global batch's
+draws and keeps its rows, as JAX draws for the global batch and shards. The
+depth-sharded and pipelined steps of the JAX package are not ported
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -73,13 +75,23 @@ class Stage2Draws:
         return Stage2Draws(*(None if t is None else t.to(device)
                              for t in dataclasses.astuple(self)))
 
+    def shard(self, dp) -> "Stage2Draws":
+        """This rank's rows of a global batch's draws."""
+        return Stage2Draws(*(dp.shard(t) for t in dataclasses.astuple(self)))
+
 
 def draw_stage2(generator: torch.Generator, latent_shape, num_train_timesteps: int,
-                cfg: Stage2Config, device, dropout: bool = True) -> Stage2Draws:
+                cfg: Stage2Config, device, dropout: bool = True, dp=None) -> Stage2Draws:
     """A step's draws from ``generator`` (on the generator's device, then
     moved to ``device``): label epsilon, image epsilon (conditional), noise,
     timesteps, and the dropout mask (conditional with ``cond_dropout > 0``
-    and ``dropout``)."""
+    and ``dropout``). With ``dp`` (a data-parallel axis), ``latent_shape``
+    is this rank's: the global batch's draws are made and this rank's rows
+    kept."""
+    if dp is not None:
+        global_shape = (dp.global_rows(latent_shape[0]), *latent_shape[1:])
+        return draw_stage2(generator, global_shape, num_train_timesteps, cfg, device,
+                           dropout).shard(dp)
     g = generator.device
 
     def normal():
@@ -131,22 +143,35 @@ def _stage2_mse(pred, target, timesteps, scheduler, cfg: Stage2Config) -> torch.
 
 def make_diffusion_optimizer(params: Iterable[torch.nn.Parameter],
                              lr_schedule: Callable[[int], float],
-                             grad_clip: float = 1.0, grad_accum: int = 1) -> ClippedAdam:
+                             grad_clip: float = 1.0, grad_accum: int = 1,
+                             dp=None) -> ClippedAdam:
     """Adam (not AdamW: reference ``train_diffusion.py:155``) behind a
     global-norm clip of 1.0; ``grad_accum > 1`` as in
-    :func:`~ldm3d_torch.training.stage1.make_optimizer`."""
+    :func:`~ldm3d_torch.training.stage1.make_optimizer`; ``dp`` averages the
+    gradients over the data-parallel ranks."""
     from ldm3d_torch.training.stage1 import _accum_schedule
 
     return ClippedAdam(params, _accum_schedule(lr_schedule, grad_accum), grad_clip,
-                       grad_accum=grad_accum)
+                       grad_accum=grad_accum, dp=dp)
 
 
 @torch.no_grad()
-def compute_scale_factor(ae, labels: torch.Tensor, eps: torch.Tensor) -> torch.Tensor:
+def compute_scale_factor(ae, labels: torch.Tensor, eps: torch.Tensor, dp=None) -> torch.Tensor:
     """``1 / std(z_labels)`` over the whole batch, the population std (as
-    ``jnp.std``), from the posterior sample with standard-normal ``eps``."""
-    z = ae.encode_stage_2_inputs(labels, eps)
-    return 1.0 / torch.std(z.float(), correction=0)
+    ``jnp.std``), from the posterior sample with standard-normal ``eps``.
+    With ``dp`` the batch is this rank's share and the std is the global
+    batch's: the ranks all-reduce Σz, Σz² and n (fp64), so every rank gets
+    the same ``scale_factor``."""
+    z = ae.encode_stage_2_inputs(labels, eps).float()
+    if dp is None:
+        return 1.0 / torch.std(z, correction=0)
+    z64 = z.double()
+    sums = dp.all_reduce_sum(torch.stack([z64.sum(), (z64 * z64).sum(),
+                                          torch.tensor(float(z.numel()), dtype=torch.float64,
+                                                       device=z.device)]))
+    mean = sums[0] / sums[2]
+    var = torch.clamp(sums[1] / sums[2] - mean * mean, min=0.0)
+    return (1.0 / torch.sqrt(var)).float()
 
 
 def _latent_shape(ae, volumes: torch.Tensor) -> tuple:
@@ -168,14 +193,16 @@ def _denoise_loss(unet, scheduler, cfg, z_labels, condition, noise, timesteps):
     return _stage2_mse(pred, target, timesteps, scheduler, cfg)
 
 
-def make_stage2_train_step(unet, ae, scheduler, cfg: Stage2Config):
+def make_stage2_train_step(unet, ae, scheduler, cfg: Stage2Config, dp=None):
     """The LDM train step with the frozen-VAE encode inside.
 
     Returns ``train_step(state, batch, scale_factor, generator=None,
     draws=None) -> metrics`` with ``batch = {"image": low, "label": high}``
     NDHWC tensors on the model's device; ``metrics`` holds the device tensors
     ``diffusion_loss`` and ``grad_norm``. The update is applied to
-    ``state`` in place."""
+    ``state`` in place. With ``dp`` the batch is this rank's share and the
+    draws are the global batch's rows of this rank (:func:`draw_stage2`);
+    the state's optimizer averages the gradients over the ranks."""
 
     def train_step(state: TrainState, batch: dict, scale_factor, generator=None,
                    draws: Optional[Stage2Draws] = None) -> dict:
@@ -184,7 +211,7 @@ def make_stage2_train_step(unet, ae, scheduler, cfg: Stage2Config):
             images, labels = torch.clamp(images, 0.0, 1.0), torch.clamp(labels, 0.0, 1.0)
         if draws is None:
             draws = draw_stage2(generator, _latent_shape(ae, labels),
-                                scheduler.num_train_timesteps, cfg, labels.device)
+                                scheduler.num_train_timesteps, cfg, labels.device, dp=dp)
         with torch.no_grad():  # frozen VAE: gradients stop at the latents
             # an fp32 scale factor promotes the latents to fp32, as in JAX
             z_labels = ae.encode_stage_2_inputs(labels, draws.eps_label).float() * scale_factor
@@ -200,7 +227,7 @@ def make_stage2_train_step(unet, ae, scheduler, cfg: Stage2Config):
     return train_step
 
 
-def make_stage2_train_step_latents(unet, scheduler, cfg: Stage2Config):
+def make_stage2_train_step_latents(unet, scheduler, cfg: Stage2Config, dp=None):
     """The LDM train step over precomputed posterior latents
     (:class:`ldm3d_torch.data.LatentCache`): ``z = mu + sigma * eps`` with
     fresh eps each step, as ``encode_stage_2_inputs`` does, and no VAE call.
@@ -215,7 +242,7 @@ def make_stage2_train_step_latents(unet, scheduler, cfg: Stage2Config):
         mu, sigma = batch["label_mu"], batch["label_sigma"]
         if draws is None:
             draws = draw_stage2(generator, mu.shape, scheduler.num_train_timesteps, cfg,
-                                mu.device)
+                                mu.device, dp=dp)
         z_labels = ((mu + sigma * draws.eps_label) * scale_factor).to(dt)
         condition = None
         if cfg.conditional:
@@ -229,7 +256,7 @@ def make_stage2_train_step_latents(unet, scheduler, cfg: Stage2Config):
     return train_step
 
 
-def make_stage2_eval_step(unet, ae, scheduler, cfg: Stage2Config):
+def make_stage2_eval_step(unet, ae, scheduler, cfg: Stage2Config, dp=None):
     """Validation: the noise-prediction MSE on a batch, no dropout. Returns
     ``eval_step(batch, scale_factor, generator=None, draws=None) ->
     {"val_diffusion_loss": device tensor}``."""
@@ -243,7 +270,7 @@ def make_stage2_eval_step(unet, ae, scheduler, cfg: Stage2Config):
         if draws is None:
             draws = draw_stage2(generator, _latent_shape(ae, labels),
                                 scheduler.num_train_timesteps, cfg, labels.device,
-                                dropout=False)
+                                dropout=False, dp=dp)
         z_labels = ae.encode_stage_2_inputs(labels, draws.eps_label).float() * scale_factor
         condition = (ae.encode_stage_2_inputs(images, draws.eps_image)
                      if cfg.conditional else None)

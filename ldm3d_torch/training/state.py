@@ -18,6 +18,13 @@ micro-step's gradients go into a running mean (optax's Welford form,
 ``acc + (g - acc) / (n + 1)``); the k-th micro-step clips that mean and
 applies one Adam update; the other k - 1 leave the parameters and the Adam
 state as they are.
+
+Data parallelism (``dp``, a :class:`ldm3d_torch.parallel.mesh.DataParallel`):
+each micro-step's gradients are first averaged over the ranks (one
+all-reduce), so every rank clips and applies the update of the global batch.
+ZeRO-1 and FSDP keep this optimizer's arithmetic and change where its state
+lives (:mod:`ldm3d_torch.parallel.zero`, :mod:`ldm3d_torch.parallel.fsdp`);
+:meth:`TrainState.state_dict` gives the one-process layout under all three.
 """
 
 from __future__ import annotations
@@ -32,6 +39,12 @@ __all__ = ["ClippedAdam", "TrainState", "clip_by_global_norm_", "global_norm"]
 def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
     """sqrt(sum of squares) over every element, fp32 (``optax.global_norm``)."""
     return torch.sqrt(sum(torch.sum(t.float() * t.float()) for t in tensors))
+
+
+def full_tensor(t):
+    """A sharded tensor (an FSDP ``DTensor``) gathered whole; any other value
+    as it is."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
 
 
 def clip_by_global_norm_(tensors: list[torch.Tensor], max_norm: float,
@@ -68,8 +81,10 @@ class ClippedAdam:
 
     def __init__(self, params: Iterable[torch.nn.Parameter], lr_schedule: Callable[[int], float],
                  grad_clip: float = 1.0, betas: tuple[float, float] = (0.9, 0.999),
-                 eps: float = 1e-8, weight_decay: float = 0.0, grad_accum: int = 1):
+                 eps: float = 1e-8, weight_decay: float = 0.0, grad_accum: int = 1,
+                 dp=None):
         grad_accum = max(1, grad_accum)  # as JAX: MultiSteps only above 1
+        self.dp = dp
         self.params = [p for p in params if p.requires_grad]
         self.lr_schedule = lr_schedule
         self.grad_clip = grad_clip
@@ -80,8 +95,19 @@ class ClippedAdam:
         self.adam = torch.optim.AdamW(self.params, lr=lr_schedule(0), betas=betas, eps=eps,
                                       weight_decay=weight_decay)
 
+    def _adam_over(self, params: list) -> torch.optim.AdamW:
+        """A new AdamW over ``params`` with this optimizer's hyperparameters
+        (ZeRO-1 and FSDP rebuild it over their shards)."""
+        import inspect
+
+        accepted = inspect.signature(torch.optim.AdamW.__init__).parameters
+        group = self.adam.param_groups[0]
+        return torch.optim.AdamW(params, **{k: v for k, v in group.items()
+                                            if k != "params" and k in accepted})
+
     def zero_grad(self) -> None:
-        self.adam.zero_grad(set_to_none=True)
+        for p in self.params:
+            p.grad = None
 
     def step(self, count: int) -> torch.Tensor:
         """One micro-step at micro-step ``count`` (0-based): with no
@@ -95,11 +121,12 @@ class ClippedAdam:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in self.params]
+        self._reduce_grads(grads)
         if self.acc_grads is None:
-            norm = clip_by_global_norm_(grads, self.grad_clip)
+            norm = self._clip(grads)
             self._adam_step(count)
             return norm
-        norm = global_norm(grads)
+        norm = self._global_norm(grads)
         n = self.mini_step
         for acc, g in zip(self.acc_grads, grads):
             acc.add_((g - acc) / (n + 1))
@@ -109,23 +136,42 @@ class ClippedAdam:
         self.mini_step = 0
         for p, acc in zip(self.params, self.acc_grads):
             p.grad = acc
-        clip_by_global_norm_(self.acc_grads, self.grad_clip)
+        self._clip(self.acc_grads)
         self._adam_step(count // self.grad_accum)
-        self.adam.zero_grad(set_to_none=True)
+        self.zero_grad()
         for acc in self.acc_grads:
             acc.zero_()
         return norm
+
+    def _reduce_grads(self, grads: list[torch.Tensor]) -> None:
+        """Average the micro-step's gradients over the data-parallel ranks."""
+        if self.dp is not None:
+            self.dp.all_reduce_mean_(grads)
+
+    def _global_norm(self, tensors: list[torch.Tensor]) -> torch.Tensor:
+        return global_norm(tensors)
+
+    def _clip(self, tensors: list[torch.Tensor]) -> torch.Tensor:
+        return clip_by_global_norm_(tensors, self.grad_clip, self._global_norm(tensors))
 
     def _adam_step(self, count: int) -> None:
         for group in self.adam.param_groups:
             group["lr"] = self.lr_schedule(count)
         self.adam.step()
 
+    def _adam_state_dict(self) -> dict:
+        return self.adam.state_dict()
+
+    def _load_adam_state(self, state: dict) -> None:
+        self.adam.load_state_dict(state)
+
     def state_dict(self) -> dict:
-        state = self.adam.state_dict()
+        """``torch.optim.AdamW``'s state_dict of the one-process optimizer
+        (whole moments at any world size), with ``accum`` under accumulation."""
+        state = self._adam_state_dict()
         if self.acc_grads is not None:
             state["accum"] = {"mini_step": self.mini_step,
-                              "acc_grads": [a.clone() for a in self.acc_grads]}
+                              "acc_grads": [full_tensor(a).clone() for a in self.acc_grads]}
         return state
 
     def load_state_dict(self, state: dict) -> None:
@@ -134,7 +180,7 @@ class ClippedAdam:
         if (accum is None) != (self.acc_grads is None):
             raise ValueError("the checkpoint's optimizer was saved with another --grad-accum "
                              "setting than this run's")
-        self.adam.load_state_dict(state)
+        self._load_adam_state(state)
         if accum is not None:
             if len(accum["acc_grads"]) != len(self.acc_grads):
                 raise ValueError("the checkpoint's accumulator does not match the parameters")
@@ -171,11 +217,21 @@ class TrainState:
         return norm
 
     def state_dict(self) -> dict:
-        out = {"params": self.model.state_dict(), "optimizer": self.optimizer.state_dict(),
-               "step": self.step}
+        """The one-process layout (whole tensors) at any world size: a
+        collective under FSDP and ZeRO-1, so every rank calls it."""
+        out = {"params": self.model_state_dict(),
+               "optimizer": self.optimizer.state_dict(), "step": self.step}
         if self.ema_params is not None:
-            out["ema_params"] = self.ema_params
+            out["ema_params"] = self.ema_state_dict()
         return out
+
+    def model_state_dict(self) -> dict:
+        """The model's params as whole tensors (the ``best`` role's state_dict)."""
+        return {k: full_tensor(v) for k, v in self.model.state_dict().items()}
+
+    def ema_state_dict(self) -> dict:
+        """The EMA params as whole tensors (the ``ema`` role's state_dict)."""
+        return {k: full_tensor(v) for k, v in self.ema_params.items()}
 
     def load_state_dict(self, state: dict) -> None:
         self.model.load_state_dict(state["params"])

@@ -11,6 +11,13 @@ path is not ported raises ``NotImplementedError`` naming its ROADMAP item,
 ``--pipeline`` in the stage-1 trainer the JAX CLI's ``ValueError``, and
 ``--pipeline``, ``--spatial`` and ``--tensor`` in the distillation CLI the
 JAX CLI's ``ValueError`` (distillation runs data-parallel).
+
+``-g 2`` starts two CPU ranks (gloo), and each rank reaches the same point
+past the flags: the launcher raises the ranks' ``FileNotFoundError`` (the
+environment's 8 synthetic pairs, a quarter of them for validation, give
+each rank its share of both splits). ``--multihost`` without torchrun's
+environment raises ``RuntimeError``. The evaluate CLI has no data-parallel
+path: there both name the ROADMAP item.
 """
 
 import json
@@ -30,9 +37,13 @@ torch.set_num_threads(1)
 PARALLEL = "'Parallelism'"
 PIPELINE = "'UNet mid_depth stack, then pipeline parallelism'"
 
-# (argv, None if the flag runs, else the ROADMAP item its error names)
+RANKS, TORCHRUN = "runs on 2 ranks", "needs torchrun"
+ONE_DEVICE = {"evaluate"}  # CLIs without a data-parallel path
+
+# (argv, None if the flag runs, else the ROADMAP item its error names, or
+# RANKS / TORCHRUN)
 FLAGS = {
-    "-g": [(["-g", "0"], None), (["-g", "1"], None), (["-g", "2"], PARALLEL)],
+    "-g": [(["-g", "0"], None), (["-g", "1"], None), (["-g", "2"], RANKS)],
     "--gpus": [(["--gpus", "1"], None)],
     "--amp": [(["--amp"], None)],
     "--compile": [(["--compile"], None)],
@@ -47,10 +58,10 @@ FLAGS = {
     "--remat": [(["--remat"], None), (["--remat", "convs"], None)],
     "--spatial": [(["--spatial", "2"], PARALLEL)],
     "--ema-decay": [(["--ema-decay", "0.9"], None)],
-    "--multihost": [(["--multihost"], PARALLEL)],
+    "--multihost": [(["--multihost"], TORCHRUN)],
     "--tensor": [(["--tensor", "2"], PARALLEL)],
-    "--zero": [(["--zero"], PARALLEL)],
-    "--fsdp": [(["--fsdp"], PARALLEL)],
+    "--zero": [(["--zero"], None)],
+    "--fsdp": [(["--fsdp"], None)],
     "--pipeline": [(["--pipeline", "2"], PIPELINE)],
     "--pipeline-microbatches": [(["--pipeline-microbatches", "2"], PIPELINE)],
 }
@@ -71,7 +82,8 @@ def test_cases_cover_every_flag_of_the_jax_parser():
 def env_file(tmp_path):
     env = {"model_dir": str(tmp_path / "ckpt"), "output_dir": str(tmp_path / "out"),
            "tfevent_path": str(tmp_path / "tb"), "seed": 0, "synthetic_data": True,
-           "synthetic_num": 2, "synthetic_shape": [32, 32, 32], "resume_ckpt": False,
+           "synthetic_num": 8, "val_fraction": 0.25, "synthetic_shape": [32, 32, 32],
+           "resume_ckpt": False,
            "lpips_weights": str(tmp_path / "missing_lpips.pt")}
     path = tmp_path / "env.json"
     path.write_text(json.dumps(env))
@@ -81,9 +93,17 @@ def env_file(tmp_path):
 @pytest.mark.parametrize("cli", sorted(CLIS))
 @pytest.mark.parametrize("flag,argv,item", CASES,
                          ids=[" ".join(argv) for _, argv, _ in CASES])
-def test_jax_flag_parses_then_runs_or_names_its_item(cli, flag, argv, item, env_file):
+def test_jax_flag_parses_then_runs_or_names_its_item(cli, flag, argv, item, env_file,
+                                                      monkeypatch):
+    for var in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(var, raising=False)
     args = ["-c", preset_path("config_tiny_cpu.json"), "-e", env_file, "--device", "cpu", *argv]
-    if cli == "train_autoencoder" and flag == "--pipeline":
+    if item in (RANKS, TORCHRUN):
+        item = PARALLEL if cli in ONE_DEVICE else (None if item == RANKS else item)
+    if item == TORCHRUN:
+        with pytest.raises(RuntimeError, match="^--multihost needs torchrun's environment"):
+            CLIS[cli](args)
+    elif cli == "train_autoencoder" and flag == "--pipeline":
         with pytest.raises(ValueError, match="^--pipeline applies to stage 2"):
             CLIS[cli](args)
     elif cli == "distill" and flag in ("--pipeline", "--spatial", "--tensor"):

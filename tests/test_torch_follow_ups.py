@@ -119,11 +119,26 @@ def test_sigterm_latches_flag():
 
 
 def test_requested_global_refuses_several_ranks(monkeypatch):
+    """With several ranks the flag is no longer one process's: every read is
+    a MAX all-reduce of the ranks' flags (one rank's latch stops all; the
+    two-rank run is ``tests/test_torch_ddp.py``). Here the other rank is
+    simulated: its flag enters the reduction."""
     stop = GracefulShutdown(signals=())
+    other = {"flag": 0}
+    calls = []
+
+    def all_reduce(t, op=None):
+        calls.append(op)
+        t.copy_(torch.maximum(t, torch.full_like(t, other["flag"])))
+
     monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
     monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        stop.requested_global
+    monkeypatch.setattr(torch.distributed, "get_backend", lambda: "gloo")
+    monkeypatch.setattr(torch.distributed, "all_reduce", all_reduce)
+    assert not stop.requested_global
+    other["flag"] = 1
+    assert stop.requested_global and not stop.requested
+    assert calls == [torch.distributed.ReduceOp.MAX] * 2
 
 
 def test_stage1_trainer_preempt_saves_resumable_last(tmp_path, monkeypatch):

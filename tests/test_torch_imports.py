@@ -1,6 +1,7 @@
 """Import rules of the PyTorch port.
 
-The port (``ldm3d_torch/``) and ``chip_smoke.py`` import torch, numpy and the
+The port (``ldm3d_torch/``), ``chip_smoke.py`` and the rank functions it
+runs on the card (``tools/dp_check.py``) import torch, numpy and the
 standard library: never JAX, Flax, Optax, Orbax, MLflow (the port's
 tracker writes local JSON only), psutil (the host probes read ``/proc``),
 nibabel (NIfTI goes through the port's own reader), scipy or PyYAML, or the
@@ -23,7 +24,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "mlflow", "ldm3d_tpu", "
 
 
 def _port_sources():
-    return sorted(ROOT.joinpath("ldm3d_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(ROOT.joinpath("ldm3d_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "tools" / "dp_check.py"]
 
 
 def _imported_modules(path: Path):

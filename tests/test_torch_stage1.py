@@ -447,7 +447,7 @@ def test_cli_lpips_weights_load_a_port_state_dict_and_refuse_msgpack(tmp_path):
     loaded = build_lpips(args, torch.float32, torch.device("cpu"))
     assert torch.equal(loaded.lin_0, lp.lin_0) and not loaded.lin_0.requires_grad
     (tmp_path / "lpips.msgpack").write_bytes(b"\x80")
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="tools/jax_to_torch_ckpt.py --lpips"):
         build_lpips(SimpleNamespace(lpips_weights=str(tmp_path / "lpips.msgpack")),
                     torch.float32, torch.device("cpu"))
     with pytest.raises(FileNotFoundError, match="lpips_weights"):

@@ -404,11 +404,12 @@ def test_cli_resume_restarts_best_val_and_step_count_as_the_reference(tmp_path, 
                                   ["--pipeline", "2"], ["--remat"], ["--grad-accum", "2"]])
 def test_cli_unported_flags_name_the_roadmap(flag, tmp_path):
     """The flags whose paths are not ported raise naming their ROADMAP item;
-    ``--remat`` and ``--grad-accum``, ported since, pass the flag checks and
-    run on to the stage-1 checkpoint, which this model_dir lacks."""
+    ``--remat``, ``--grad-accum``, ``--fsdp`` and ``--zero``, ported since
+    (the last two act with more than one rank), pass the flag checks and run
+    on to the stage-1 checkpoint, which this model_dir lacks."""
     argv = ["-c", port_preset_path("config_tiny_cpu.json"), "-e", _env(tmp_path),
             "--device", "cpu", *flag]
-    if flag[0] in ("--remat", "--grad-accum"):
+    if flag[0] in ("--remat", "--grad-accum", "--fsdp", "--zero"):
         with pytest.raises(FileNotFoundError, match="stage-1 autoencoder checkpoint"):
             port_train(argv)
     else:

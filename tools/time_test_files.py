@@ -6,14 +6,14 @@ xdist in each, ``JAX_PLATFORMS=cpu`` as the suite's own command sets it),
 and prints one JSON line per file (seconds, exit code, the summary line)
 and a last line with their sum and the whole run's wall time.
 
-``--root DIR`` times the files of another checkout (say a fresh ``git
+``--only NAME ...`` times those files alone. ``--root DIR`` times the files of another checkout (say a fresh ``git
 archive`` copy), from that checkout's root. The suite keeps its JAX compile
 cache in ``<root>/.jax_cache_tests`` (``tests/conftest.py``); ``--cold``
 empties it first, so that every JAX program the files compile is compiled
 anew, as in a fresh checkout's first run.
 
 Usage, from the repository's root:
-    python tools/time_test_files.py [--jobs 6] [--root DIR] [--cold]
+    python tools/time_test_files.py [--jobs 6] [--root DIR] [--cold] [--only NAME ...]
 """
 
 from __future__ import annotations
@@ -48,11 +48,15 @@ def main(argv=None) -> int:
     ap.add_argument("--root", type=Path, default=ROOT, help="the checkout whose files to time")
     ap.add_argument("--cold", action="store_true",
                     help="empty <root>/.jax_cache_tests first (a cold compile cache)")
+    ap.add_argument("--only", nargs="+", default=None, metavar="NAME",
+                    help="time only these test files (names under tests/)")
     args = ap.parse_args(argv)
     root = args.root.resolve()
     if args.cold:
         shutil.rmtree(root / ".jax_cache_tests", ignore_errors=True)
     files = sorted((root / "tests").glob("test_torch_*.py"))
+    if args.only:
+        files = [f for f in files if f.name in set(args.only)]
     t0 = time.perf_counter()
     recs = []
     with ThreadPoolExecutor(args.jobs) as pool:
