@@ -271,7 +271,25 @@ Phases, each printing JSON lines:
    in a NCCL group (``group_of_one``): one bf16 step at batch 2 under
    ``fully_shard`` launches what the unwrapped step
    launches, and its full-state checkpoint loads into a one-process state
-   bit for bit.
+   bit for bit. (c) Depth sharding (``--spatial``) on the same two
+   ranks, laid out as one data replica of two depth slabs, at the full
+   width of ``config_train_multigpu.json`` (64^3, which 2 * 2^4 divides;
+   depth cut to a global batch of 2 and 2 bf16 steps): the fp32 spatial
+   stage-2 step's gradients (TF32 off), summed over the slabs, within
+   PARALLEL_GRAD_TOL of the one-process step's on the same draws, and a
+   faulty program's (the slab sum skipped) above PARALLEL_FAULT_FLOOR;
+   each rank's launches by route of a bf16 spatial step equal to the
+   one-process step's on the whole volumes, a second step timed (two
+   ranks time-sharing one card), and the bytes and seconds of the spatial
+   collectives and the gradient all-reduce of the first; then
+   ``cli.inference -g 2 --spatial 2`` (fp32 DDIM-10, the condition
+   through the spatial encoder, rank 0 writing the gathered volume) over
+   the preset's seeded checkpoints, its volume within PARALLEL_SAMPLE_TOL
+   of the one-process ``cli.inference`` run's. Every attention input these
+   runs gave the kernels (local queries against the gathered keys and
+   values) is held to the plain versions and timed
+   (``parallel_spatial_kernel_fwd``/``_bwd``), and their GroupNorm inputs
+   go to the kernel_gn phase (the bf16 step's timed).
 
 The GroupNorm kernel phase (7) runs after the serving, presets and
 data_tools paths, and replays the inputs of every main-path run (the
@@ -1203,7 +1221,7 @@ def _library_gn_bwd(torch, dy, x, mean, inv) -> dict:
 # are checked in both dtypes but not timed: a cut of that phase's depth to
 # keep the script inside its time limit
 GN_TIMED_PATHS = ("sampling", "training", "training_fp32", "training_ae", "training_ae_fp32",
-                  "serving")
+                  "serving", "parallel_spatial_bf16_step")
 
 
 def phase_kernel_gn(torch, paths: dict, timed_paths=GN_TIMED_PATHS) -> dict:
@@ -4620,7 +4638,8 @@ def _kernel_summary(fwd: dict, bwd: dict, gn: dict, sample_launches: dict,
     DATA_ATTN_SHAPE, the small card's recipe and the pipeline's run), and the
     attention rows' ``data_tools_*`` one call at DATA_ATTN_SHAPE, bf16;
     ``parallel_launches`` the parallel phase's bf16 data-parallel run (both
-    ranks' warm-up and timed steps)."""
+    ranks' warm-up and timed steps), ``parallel_spatial_launches`` its bf16
+    spatial run's (both ranks' two steps)."""
     def per(results, weights, key, by=None, dtype="bfloat16"):
         return sum(n * results[(shape, dtype)][key] for shape, n in weights.items()
                    if by is None or results[(shape, dtype)].get("bound_by", by) == by)
@@ -4855,6 +4874,7 @@ def _kernel_summary(fwd: dict, bwd: dict, gn: dict, sample_launches: dict,
                                       for run, r in data_tools.items()
                                       if run.endswith("_launches")}
         row["parallel_launches"] = parallel["launches"][key]
+        row["parallel_spatial_launches"] = parallel["spatial_launches"][key]
     shape = {"data_tools_shape": list(DATA_ATTN_SHAPE)}
     fwd_dt, bwd_dt = data_tools["fwd"], data_tools["bwd"]
     for row in rows:
@@ -4888,16 +4908,22 @@ PARALLEL_ZERO_TOL = 1e-2
 PARALLEL_ZERO_FAULT_FLOOR = 0.5
 PARALLEL_TIMED_STEPS = 3
 PATH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "gn_sums", "gn_bwd_sums")
+# depth sharding: a preset whose patch depth 2 * 2^(its downsamples) divides
+SPATIAL_PRESET = "config_train_multigpu.json"
+SPATIAL_FAULTS = ("skip_spatial_sum",)
 
 
 def phase_parallel(torch, ns, workdir: Path, card: str, smi_line: str) -> dict:
     """17. Data parallelism (see the module docstring); one line a part, then
     the phase's line. Returns the launches of the bf16 data-parallel run
     (both ranks' warm-up and timed steps)."""
+    import torch.nn.functional as F
+
     from ldm3d_torch.cli.inference import main as infer_main
     from ldm3d_torch.parallel.launch import RankPool, group_of_one
     sys.path.append(str(ROOT / "tools"))
     import dp_check as D
+    from ldm3d_torch.configs import load_json, preset_path
     from ldm3d_torch.utils.nifti import read_nifti
 
     t0 = time.perf_counter()
@@ -4959,6 +4985,57 @@ def phase_parallel(torch, ns, workdir: Path, card: str, smi_line: str) -> dict:
             "run_launches": run_counts, "peak_gib_per_rank": [r["peak_gib"] for r in timed],
             "seconds": time.perf_counter() - t})
 
+        t = time.perf_counter()
+        sp = pool.run(D.spatial_check, SPATIAL_PRESET)
+        steps_s = time.perf_counter() - t
+        model_dir, _ = _flagship_checkpoints(
+            torch, SimpleNamespace(**load_json(preset_path(SPATIAL_PRESET))), workdir)
+        env = _write_env(model_dir, synthetic_num=4, val_fraction=0.5)
+        argv = ["-c", preset_path(SPATIAL_PRESET), "-e", str(env), "--batch", "1",
+                "--sampler", "ddim", "--steps", "10"]
+        sp_cli = pool.run(D.cli_cases, "inference", argv + ["-g", "2", "--spatial", "2"])
+        sp[0]["cases"]["cli_inference"] = sp_cli[0]["cases"]
+        # read now: the one-process run writes into the same folder
+        two_sp = [read_nifti(f)[0] for f in sorted(sp_cli[0]["out"])]
+        gc.collect()
+        torch.cuda.empty_cache()
+        one_sp = infer_main(argv)
+        sp_sample_err = max(float(abs(a - read_nifti(b)[0]).max())
+                            for a, b in zip(two_sp, sorted(one_sp)))
+        shutil.rmtree(model_dir)
+        sp_per_rank = [_counts_by_key(r["step_counts"]) for r in sp]
+        sp_one = _counts_by_key(sp[0]["one_process_counts"])
+        sp_cli_counts = [_counts_by_key(r["counts"]) for r in sp_cli]
+        sp_counts = {k: sum(_counts_by_key(r["step_counts"])[k]
+                            + _counts_by_key(r["timed_counts"])[k] for r in sp)
+                     + sum(c[k] for c in sp_cli_counts) for k in sp_one}
+        part("spatial", {
+            "preset": SPATIAL_PRESET, "ranks": "1 data x 2 spatial", "global_batch": 2,
+            "grad_err_over_max_g": {k: max(r[k] for r in sp)
+                                    for k in ("spatial", *SPATIAL_FAULTS)},
+            "grad_dtype": "float32", "tol": PARALLEL_GRAD_TOL,
+            "fault_floor": PARALLEL_FAULT_FLOOR,
+            "sample": "cli.inference -g 2 --spatial 2, ddim-10 fp32, --batch 1",
+            "sample_max_abs_err": sp_sample_err, "sample_tol": PARALLEL_SAMPLE_TOL,
+            "sample_shape": [list(v.shape) for v in two_sp],
+            "sample_finite": all(bool(np.isfinite(v).all()) for v in two_sp),
+            "cli_volumes_written": [len(r["out"]) for r in sp_cli],
+            "cli_launches_per_rank": sp_cli_counts,
+            "bf16_ms_per_step": [r["ms_per_step"] for r in sp],
+            "timing_is": label, "launches_per_rank_step": sp_per_rank,
+            "one_process_launches_per_step": sp_one, "run_launches": sp_counts,
+            "transfers_first_bf16_step": [r["transfers"] for r in sp],
+            "peak_gib_per_rank": [r["peak_gib"] for r in sp],
+            "rank_seconds": [r["seconds"] for r in sp], "steps_seconds": steps_s,
+            "seconds": time.perf_counter() - t})
+
+    t = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    sp_attn = _spatial_attention_checks(torch, F, sp)
+    out["spatial_kernels"] = {"cases_fwd": len(sp_attn[0]), "cases_bwd": len(sp_attn[1]),
+                              "seconds": time.perf_counter() - t}
+
     t = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
@@ -5001,14 +5078,64 @@ def phase_parallel(torch, ns, workdir: Path, card: str, smi_line: str) -> dict:
                                       f"unwrapped step's {fsdp_plain}")
     check(fsdp["checkpoint_bit_equal"] and fsdp["sharded_params"] > 0,
           "FSDP's full-state checkpoint did not load into one process bit for bit")
+    errs = out["spatial"]["grad_err_over_max_g"]
+    check(errs["spatial"] <= PARALLEL_GRAD_TOL,
+          f"spatial: the slabs' summed gradients {errs['spatial']:.3g} of max |g| from one "
+          f"process's (limit {PARALLEL_GRAD_TOL})")
+    for fault in SPATIAL_FAULTS:
+        check(errs[fault] >= PARALLEL_FAULT_FLOOR,
+              f"spatial: the fault {fault} reads {errs[fault]:.3g}, under "
+              f"{PARALLEL_FAULT_FLOOR}: the check cannot see it")
+    spr = out["spatial"]
+    check(spr["cli_volumes_written"] == [1, 0] and spr["sample_shape"] == [[64, 64, 64]]
+          and spr["sample_finite"] and sp_sample_err <= PARALLEL_SAMPLE_TOL,
+          f"cli.inference --spatial 2: {spr['cli_volumes_written']} volumes written of shapes "
+          f"{spr['sample_shape']}, {sp_sample_err:.3g} from one process's "
+          f"(limit {PARALLEL_SAMPLE_TOL})")
+    for r, counts in enumerate(sp_per_rank):
+        check(counts == sp_one, f"spatial rank {r}'s launches {counts} differ from the "
+                                f"one-process step's {sp_one}")
+    for name in PATH_KERNELS:
+        check(sp_counts[name] > 0, f"{name} was not launched on the spatial path")
     emit({"phase": "parallel", "card": card, "nvidia_smi": smi_line,
           "seconds": time.perf_counter() - t0, "timing_is": label,
           **{name: {k: v for k, v in r.items() if k in ("seconds", "grad_err_over_max_g",
                                                          "zero_update_err_over_max_update",
-                                                         "max_abs_err",
-                                                         "ms_per_step", "checkpoint_bit_equal")}
+                                                         "max_abs_err", "sample_max_abs_err",
+                                                         "ms_per_step", "bf16_ms_per_step",
+                                                         "checkpoint_bit_equal")}
              for name, r in out.items()}})
-    return {"launches": run_counts}
+    return {"launches": run_counts, "spatial_launches": sp_counts,
+            "gn_paths": {f"parallel_spatial_{run}": {k: c[k] for k in ("gn_sums", "gn_bwd_sums")}
+                         for run, c in sp[0]["cases"].items()}}
+
+
+def _spatial_attention_checks(torch, F, sp: list) -> tuple[dict, dict]:
+    """The forward and backward kernels held to their plain versions (TF32
+    off) and timed at every attention input the spatial runs gave them
+    (rank 0's: the ranks' inputs have the same shapes), local queries
+    against the gathered keys and values; a line each with the runs'
+    launches at it."""
+    from ldm3d_torch.cli.common import tf32_flags
+
+    def keyed(cases):
+        return {((*shape, kv) if kv != shape[1] else tuple(shape), dtype): n
+                for (shape, kv, dtype), n in cases.items()}
+
+    runs = {run: {"fwd": keyed(c["attn_fwd"]), "bwd": keyed(c["attn_bwd"])}
+            for run, c in sp[0]["cases"].items()}
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    out: tuple[dict, dict] = ({}, {})
+    with tf32_flags(False):
+        for i, (kind, case) in enumerate((("fwd", _fwd_case), ("bwd", _bwd_case))):
+            for shape, dtype in sorted({k for r in runs.values() for k in r[kind]}, key=str):
+                out[i][(shape, dtype)] = case(torch, F, dtype, shape, gen,
+                                              phase=f"parallel_spatial_kernel_{kind}")
+                emit({"phase": f"parallel_spatial_kernel_{kind}_launches",
+                      "shape_bnhd": list(shape[:4]), "kv_len": shape[-1], "dtype": dtype,
+                      "launches": {run: r[kind].get((shape, dtype), 0)
+                                   for run, r in runs.items()}})
+    return out
 
 
 # phases that ``--phases`` runs alone, after device and build
@@ -5069,8 +5196,8 @@ def main(argv=None) -> int:
                                                           card, smi_line),
                    "data_tools": lambda: _kernel_gn_all(torch, phase_data_tools(
                        torch, F, ns, counts, Path(workdir), card, smi_line)["gn_paths"]),
-                   "parallel": lambda: phase_parallel(torch, ns, Path(workdir), card,
-                                                      smi_line)}
+                   "parallel": lambda: _kernel_gn_all(torch, phase_parallel(
+                       torch, ns, Path(workdir), card, smi_line)["gn_paths"])}
             for name in phases:
                 run[name]()
         emit({"phase": "done", "phases": phases})
@@ -5117,7 +5244,7 @@ def main(argv=None) -> int:
                                  "training_ae": train_ae.pop("gn_cases"),
                                  "training_ae_fp32": train_ae_fp32.pop("gn_cases"),
                                  "serving": serve.pop("gn_cases"), **presets["gn_paths"],
-                                 **data_tools.pop("gn_paths")})
+                                 **data_tools.pop("gn_paths"), **parallel.pop("gn_paths")})
     phase_gn_host(torch)
     conv = phase_kernel_conv(torch)
     phase_card_vs_cpu(torch)

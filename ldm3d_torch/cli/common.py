@@ -52,7 +52,7 @@ from ldm3d_torch.configs import define_instance, preset_path
 from ldm3d_torch.utils import merge_configs_onto_args
 
 __all__ = ["SAMPLERS", "TIMESTEP_SPACINGS", "UNPORTED", "build_parser", "reject_unported",
-           "launch_data_parallel", "global_batch_size", "shard_train_state", "setup",
+           "launch_data_parallel", "check_axes", "global_batch_size", "shard_train_state", "setup",
            "cli_main", "enable_debug_nans", "disable_debug_nans", "track_run",
            "resolve_device", "pin_fp32_precision", "tf32_flags",
            "model_dtype", "env_seed", "save_two_stage", "load_two_stage",
@@ -114,7 +114,10 @@ def build_parser(description: str) -> argparse.ArgumentParser:
                         "--remat = 'full' (least memory: every forward op of the block reruns "
                         "in the backward); --remat convs keeps the blocks' convolution outputs "
                         "and recomputes the rest (GroupNorm, SiLU)")
-    p.add_argument("--spatial", type=int, default=1, help="not ported (must be 1)")
+    p.add_argument("--spatial", type=int, default=1,
+                   help="stage-2 training and sampling: split each volume's depth over this "
+                        "many ranks (halo convolutions, group-summed GroupNorm, gathered-kv "
+                        "attention); -g must be a multiple of it")
     p.add_argument("--ema-decay", type=float, default=0.0,
                    help="keep an EMA of the UNet params (e.g. 0.9999), saved as 'ema' (training)")
     p.add_argument("--multihost", action="store_true",
@@ -136,7 +139,8 @@ def build_parser(description: str) -> argparse.ArgumentParser:
 
 
 # flags of the JAX parser whose paths are not ported: (attribute, the values
-# the port runs, ROADMAP.md queue A item); any other value raises
+# the port runs, ROADMAP.md queue A item); any other value raises (--spatial
+# runs in the CLIs that pass spatial=True to reject_unported)
 _PARALLEL = "'Parallelism'"
 _PIPELINE = "'UNet mid_depth stack, then pipeline parallelism'"
 UNPORTED = (
@@ -150,11 +154,21 @@ UNPORTED = (
 _SINGLE_DEVICE = (("gpus", (0, 1), _PARALLEL), ("multihost", (False,), _PARALLEL))
 
 
-def reject_unported(args, data_parallel: bool = True) -> None:
+def reject_unported(args, data_parallel: bool = True, spatial: bool = False) -> None:
     """Raise ``NotImplementedError`` naming its ROADMAP item for the first
     flag set to a value whose path is not ported (``data_parallel=False``:
-    also ``-g`` above 1 and ``--multihost``)."""
+    also ``-g`` above 1 and ``--multihost``). ``spatial=True`` (the stage-2
+    trainer and the sampler) runs ``--spatial``, but not yet with
+    ``--zero``, ``--fsdp`` or ``--tensor``."""
+    if spatial and args.spatial > 1:
+        for flag, on in (("--zero", args.zero), ("--fsdp", args.fsdp),
+                         ("--tensor", args.tensor != 1)):
+            if on:
+                raise NotImplementedError(f"--spatial {args.spatial} with {flag} is not ported "
+                                          f"yet: ROADMAP.md queue A, {_PARALLEL}")
     for attr, ported, item in UNPORTED + (() if data_parallel else _SINGLE_DEVICE):
+        if spatial and attr == "spatial":
+            continue
         value = getattr(args, attr)
         if value not in ported:
             flag = "--" + attr.replace("_", "-")
@@ -192,18 +206,21 @@ def launch_data_parallel(args, main, argv, timings: dict | None = None) -> tuple
         n = mesh.world()
         if args.gpus not in (0, n):
             raise ValueError(f"-g {args.gpus} in a process group of {n} ranks")
+        check_axes(args, n)
         return False, None
     device_type = torch.device(args.device).type
     if args.multihost:
         _, n = multihost.init_multihost(device_type)
         if args.gpus not in (0, n):
             raise ValueError(f"-g {args.gpus} under torchrun's {n} ranks")
+        check_axes(args, n)
         return False, None
     if multihost.torchrun_env():
         raise RuntimeError("torchrun's environment (RANK, WORLD_SIZE, MASTER_ADDR, "
                            "MASTER_PORT) is set but --multihost is not: pass --multihost to "
                            "join its process group, or unset those variables")
     n = _requested_ranks(args)
+    check_axes(args, n)
     if n <= 1:
         return False, None
     from ldm3d_torch.parallel.launch import launch, run_cli
@@ -219,10 +236,21 @@ def launch_data_parallel(args, main, argv, timings: dict | None = None) -> tuple
     return True, out
 
 
+def check_axes(args, n: int) -> None:
+    """JAX's ``ValueError`` when ``--spatial x --tensor x --pipeline`` does
+    not divide the ``n`` ranks (``ldm3d_tpu/cli/common.py:188-190``)."""
+    spatial = max(1, getattr(args, "spatial", 1))
+    tensor = max(1, getattr(args, "tensor", 1))
+    stage = max(1, getattr(args, "pipeline", 1))
+    if n % (spatial * tensor * stage):
+        raise ValueError(f"--spatial {spatial} x --tensor {tensor} x --pipeline {stage} "
+                         f"does not divide {n} devices")
+
+
 def global_batch_size(per_device_batch: int, world: int) -> int:
     """The configured ``batch_size`` is per replica (reference: one process
-    per GPU); the global batch over ``world`` ranks is ``per_device *
-    world`` (``ldm3d_tpu/cli/common.py:213``)."""
+    per GPU); the global batch over ``world`` replicas (the data axis's
+    size) is ``per_device * world`` (``ldm3d_tpu/cli/common.py:213``)."""
     return per_device_batch * world
 
 

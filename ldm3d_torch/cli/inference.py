@@ -32,6 +32,17 @@ decodes them, and rank 0 gathers every rank's volumes and writes them all.
 A ``--batch`` the world does not divide is sampled whole on every rank (JAX
 then samples on one chip) and still written once.
 
+Depth-sharded sampling (``--spatial S``, ``ldm3d_tpu/cli/inference.py:240-275``):
+the ranks form ``-g / S`` data replicas of S ranks; ``--batch`` must divide
+by the replicas (JAX's message); each rank keeps its rows and one depth slab
+of every draw, encodes the condition through the spatial encoder and runs
+the spatial sampler (halo convolutions, group-summed GroupNorm,
+gathered-kv attention, the decode included); rank 0 gathers the slabs and
+the replicas' rows and writes the volumes. The latent depth must divide by
+``S * 2^(len(unet channels) - 1)``. ``--fused-decode`` and
+``--decode-chunk`` are not applied under ``--spatial`` (logged), as JAX's
+spatial branch reads neither.
+
 An unconditional UNet (``in_channels == latent_channels``) skips step 1.
 Noise, the ancestral noise of ddpm included, is drawn on the CPU from
 ``torch.Generator().manual_seed(seed)`` and moved to the device, so a seed
@@ -40,7 +51,8 @@ gives the same noise on every device.
 Usage: python -m ldm3d_torch.cli.inference -c CONFIG -e ENV [-n NUM]
        [--sampler ddpm|ddim|dpm|dpm3] [--steps N] [--timestep-spacing S]
        [--batch B] [--guidance W] [--use-ema] [--decode-chunk N|auto] [--amp]
-       [--use-distilled] [--fused-decode] [--device cuda|cpu] [-g N] [--multihost] [--compile]
+       [--use-distilled] [--fused-decode] [--device cuda|cpu] [-g N] [--spatial S]
+       [--multihost] [--compile]
 It takes every flag of the JAX parser, as the JAX CLI does; the training
 options among them are read by the trainer only, and the flags whose paths
 are not ported raise ``NotImplementedError`` naming their ROADMAP item
@@ -75,7 +87,14 @@ from ldm3d_torch.cli.common import (
 )
 from ldm3d_torch.data import val_condition_volumes
 from ldm3d_torch.diffusion import inferer
-from ldm3d_torch.parallel import dp_sample_placer, global_batch, mesh
+from ldm3d_torch.parallel import DataParallel, MeshSpec, dp_sample_placer, global_batch, mesh
+from ldm3d_torch.parallel.spatial import (
+    SpatialGroup,
+    make_spatial_encoder,
+    make_spatial_sampler,
+    shard_volume,
+    validate_spatial_divisibility,
+)
 from ldm3d_torch.utils import TrainContext
 from ldm3d_torch.utils.nifti import write_nifti
 
@@ -210,13 +229,23 @@ def main(argv=None, timings: dict | None = None) -> list[str]:
                         help="run the reverse loop and the whole-batch decode as replays of "
                              "CUDA graphs (one step graph replayed a step, one decode graph)")
     args = parser.parse_args(argv)
-    reject_unported(args)
+    reject_unported(args, spatial=True)
     launched, out = launch_data_parallel(args, main, argv, timings)
     if launched:
         return out
     args, device = setup(args)
+    lay = mesh.set_layout(MeshSpec(spatial=args.spatial))
+    sg = SpatialGroup.current()
+    if sg is not None and args.batch % lay.data:
+        raise ValueError(
+            f"--batch {args.batch} must be divisible by the data axis "
+            f"({lay.data} = devices/spatial); e.g. use -g {lay.spatial} "
+            f"--spatial {lay.spatial} to devote all devices to one volume")
     place, n_shards = dp_sample_placer(args.batch)
-    if n_shards == 1 and mesh.world() > 1:
+    if sg is not None:  # this rank's rows, then its depth slab
+        rows = place
+        place = lambda x: shard_volume(rows(x), sg)  # noqa: E731
+    elif n_shards == 1 and mesh.world() > 1:
         log.warning("--batch %d not divisible by %d data-parallel ranks; every rank samples "
                     "the whole batch (pick --batch as a multiple to split it)", args.batch,
                     mesh.world())
@@ -243,22 +272,30 @@ def main(argv=None, timings: dict | None = None) -> list[str]:
     patch_size = args.diffusion_train["patch_size"]
     latent_batch_shape = (args.batch, *latent_shape, ae.latent_channels)
     local_shape = (args.batch // n_shards, *latent_batch_shape[1:])
+    if sg is not None:
+        validate_spatial_divisibility(latent_shape[0], sg.size,
+                                      len(args.diffusion_def["channels"]) - 1)
 
     condition = None
     if unet.in_channels > ae.latent_channels:
         images = place(np.clip(val_condition_volumes(args, args.batch, patch_size), 0, 1))
         eps = place(torch.randn(latent_batch_shape, generator=gen))
+        encode = (ae.encode_stage_2_inputs if sg is None
+                  else make_spatial_encoder(ae, sg))
         t0 = _sync(device)
         with torch.no_grad():
-            condition = ae.encode_stage_2_inputs(
-                torch.from_numpy(images).to(device, dt), eps.to(device))
+            condition = encode(torch.from_numpy(np.ascontiguousarray(images)).to(device, dt),
+                               eps.to(device))
         timings["encode_ms"].append((_sync(device) - t0) * 1e3)
         log.info("conditional sampling (concat) with condition shape %s", tuple(condition.shape))
 
-    run = build_sampler(args, ae, unet, scheduler, scale_factor, local_shape, dt, device,
-                        condition_shape=None if condition is None else tuple(condition.shape),
-                        timings=timings, place=place if n_shards > 1 else None,
-                        n_shards=n_shards)
+    if sg is None:
+        run = build_sampler(args, ae, unet, scheduler, scale_factor, local_shape, dt, device,
+                            condition_shape=None if condition is None else tuple(condition.shape),
+                            timings=timings, place=place if n_shards > 1 else None,
+                            n_shards=n_shards)
+    else:
+        run = _spatial_run(args, ae, unet, scheduler, scale_factor, sg, device)
     lead = mesh.rank() == 0
     if lead:
         os.makedirs(args.output_dir, exist_ok=True)
@@ -268,7 +305,11 @@ def main(argv=None, timings: dict | None = None) -> list[str]:
         out, ms = run(noise, condition, gen)
         for key, value in ms.items():
             timings[key].append(value)
-        if n_shards > 1:  # every rank's volumes to rank 0, in rank order
+        if sg is not None:  # the slabs put together, then the replicas' rows
+            out = sg.all_gather(out, 1)
+            if n_shards > 1:
+                out = global_batch(out, group=lay.data_group)
+        elif n_shards > 1:  # every rank's volumes to rank 0, in rank order
             out = global_batch(out)
         if not lead:
             continue
@@ -282,6 +323,23 @@ def main(argv=None, timings: dict | None = None) -> list[str]:
             written.append(save_volume(vol, args.output_dir, stem))
             log.info("wrote %s", written[-1])
     return written
+
+
+def _spatial_run(args, ae, unet, scheduler, scale_factor: float, sg, device):
+    """The depth-sharded sampler as ``run(noise, condition, generator) ->
+    (this rank's slab of the volumes, ms)``; ``ms`` holds ``sample_ms``."""
+    if args.fused_decode or str(args.decode_chunk) != "0":
+        log.info("--fused-decode and --decode-chunk are not applied under --spatial: the "
+                 "spatial sampler runs the eager loop and decodes whole slabs")
+    sampler = make_spatial_sampler(unet, ae, scheduler, sg, scale_factor=scale_factor,
+                                   guidance_scale=args.guidance, dp=DataParallel.current())
+
+    def run(noise: torch.Tensor, condition, generator: torch.Generator):
+        t0 = _sync(device)
+        vols = sampler(noise, condition, generator)
+        return vols, {"sample_ms": (_sync(device) - t0) * 1e3}
+
+    return run
 
 
 def check_distilled_args(args) -> None:

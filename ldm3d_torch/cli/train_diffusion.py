@@ -22,6 +22,17 @@ moments (ZeRO-1), ``--fsdp`` the parameters, moments and EMA
 (``fully_shard``); both act only with more than one rank, as in JAX. Rank 0
 writes the checkpoints (the one-process layout) and TensorBoard.
 
+Depth sharding (``--spatial S``, JAX ``:193-213``): the ``-g N`` ranks form
+N / S data replicas of S ranks each (``parallel.mesh.set_layout``); each
+replica loads its rows (``batch_size`` per replica) and each of its ranks
+keeps one depth slab of them, and the spatial train and eval steps run the
+encode and the UNet on the slabs (``make_stage2_train_step(..., sg=)``). The
+patch depth must divide by ``S * 2^(len(ae channels) + len(unet channels) -
+2)`` (``validate_spatial_divisibility``); ``--cache-latents`` is refused, as
+in JAX; the scale factor is the whole-volume encode of the replicas' first
+batch, as in JAX; the periodic sample runs through the spatial encoder and
+sampler. ``--zero``, ``--fsdp`` and ``--tensor`` do not compose with it yet.
+
 ``--remat full|convs`` checkpoints the UNet's ResBlocks (and ``mid_stack``);
 ``--grad-accum k`` applies one update per k batches on their mean gradient,
 the EMA decaying once per update. SIGTERM (:class:`GracefulShutdown`, polled
@@ -39,7 +50,8 @@ generator with the same seed.
 Usage: python -m ldm3d_torch.cli.train_diffusion -c CONFIG -e ENV [--amp]
        [--device cuda|cpu] [--max-epochs N] [--cache-latents] [--ema-decay D]
        [--min-snr-gamma G] [--cond-dropout P] [--unconditional] [--no-images]
-       [-g N] [--multihost] [--zero] [--fsdp] [--compile] [--remat [full|convs]]
+       [-g N] [--spatial S] [--multihost] [--zero] [--fsdp] [--compile]
+       [--remat [full|convs]]
        [--grad-accum K] [--track] [--experiment NAME] [--debug-nans] [--profile]
 Every other flag of the JAX parser parses and raises ``NotImplementedError``
 naming its ROADMAP item (``ldm3d_torch.cli.common.UNPORTED``).
@@ -72,7 +84,14 @@ from ldm3d_torch.data import LatentCache, prepare_dataloader
 from ldm3d_torch.diffusion import DDPMScheduler, inferer
 from ldm3d_torch.nn import init_weights_
 from ldm3d_torch.obs import MetricsWriter, visualize_one_slice_in_3d_image
-from ldm3d_torch.parallel import DataParallel, mesh
+from ldm3d_torch.parallel import DataParallel, MeshSpec, mesh
+from ldm3d_torch.parallel.spatial import (
+    SpatialGroup,
+    make_spatial_encoder,
+    make_spatial_sampler,
+    shard_volume,
+    validate_spatial_divisibility,
+)
 from ldm3d_torch.training import (
     GracefulShutdown,
     Stage2Config,
@@ -114,6 +133,27 @@ def _to_device(batch: dict, device: torch.device) -> dict:
             for k, v in batch.items()}
 
 
+def _slabs(batch: dict, sg) -> dict:
+    """This rank's depth slab of each volume (the volumes as they are
+    without a spatial group)."""
+    return batch if sg is None else {k: shard_volume(v, sg) for k, v in batch.items()}
+
+
+def _spatial_sample(ae, unet, scheduler, sg, img1, shape1, conditional: bool,
+                    scale_factor: float, gen, dt):
+    """The periodic sample through the spatial encoder and sampler (JAX
+    ``:321-339``): the condition's and the noise's draws are the whole
+    volume's, cut to this rank's slab; every rank of the group gets the
+    gathered volume."""
+    cond = None
+    if conditional:
+        eps = shard_volume(torch.randn(shape1, generator=gen, device=gen.device), sg)
+        cond = make_spatial_encoder(ae, sg)(shard_volume(img1, sg), eps)
+    noise = shard_volume(torch.randn(shape1, generator=gen, device=gen.device), sg).to(dt)
+    sampler = make_spatial_sampler(unet, ae, scheduler, sg, scale_factor=scale_factor)
+    return sg.all_gather(sampler(noise, cond, gen), 1)
+
+
 def build_parser_train():
     parser = build_parser("latent diffusion training, stage 2 (PyTorch port)")
     parser.add_argument("--unconditional", action="store_true",
@@ -136,12 +176,13 @@ def main(argv=None, timings: dict | None = None) -> float:
     per validation pass; ``diffusion_loss`` per step; ``val_batches``, the
     batch count of each validation pass; and ``scale_factor``."""
     args = build_parser_train().parse_args(argv)
-    reject_unported(args)
+    reject_unported(args, spatial=True)
     launched, out = launch_data_parallel(args, main, argv, timings)
     if launched:
         return out
     args, device = setup(args)
-    dp = DataParallel.current()
+    mesh.set_layout(MeshSpec(spatial=args.spatial))
+    dp, sg = DataParallel.current(), SpatialGroup.current()
     dt = model_dtype(args)
     train_cfg = args.diffusion_train
     patch_size = train_cfg["patch_size"]
@@ -151,9 +192,14 @@ def main(argv=None, timings: dict | None = None) -> float:
         timings.setdefault(key, [])
 
     # data -------------------------------------------------------------------
-    size_divisible = 2 ** (len(args.autoencoder_def["channels"])
-                           + len(args.diffusion_def["channels"]) - 2)
-    batch_size = global_batch_size(train_cfg["batch_size"], mesh.world())
+    downsamples = len(args.autoencoder_def["channels"]) + len(args.diffusion_def["channels"]) - 2
+    size_divisible = 2 ** downsamples
+    if sg is not None:
+        validate_spatial_divisibility(patch_size[0], sg.size, downsamples)
+        if args.cache_latents:
+            raise ValueError("--cache-latents is incompatible with --spatial "
+                             "(the cache stores whole-volume latents)")
+    batch_size = global_batch_size(train_cfg["batch_size"], mesh.data_size())
     train_loader, val_loader = prepare_dataloader(args, batch_size, patch_size, randcrop=False,
                                                   size_divisible=size_divisible)
     steps_per_epoch = max(1, train_loader.steps_per_epoch())
@@ -212,13 +258,13 @@ def main(argv=None, timings: dict | None = None) -> float:
     best_val, total_step = float("inf"), 0
     shard_train_state(state, args, dp)
 
-    eval_step = make_stage2_eval_step(unet, ae, scheduler, s2cfg, dp=dp)
+    eval_step = make_stage2_eval_step(unet, ae, scheduler, s2cfg, dp=dp, sg=sg)
     if args.cache_latents:
         cache = LatentCache.build(ae, train_loader.dataset, batch_size, device,
                                   conditional=s2cfg.conditional, seed=seed)
         train_step = make_stage2_train_step_latents(unet, scheduler, s2cfg, dp=dp)
     else:
-        train_step = make_stage2_train_step(unet, ae, scheduler, s2cfg, dp=dp)
+        train_step = make_stage2_train_step(unet, ae, scheduler, s2cfg, dp=dp, sg=sg)
 
     writer = MetricsWriter(os.path.join(args.tfevent_path, "diffusion"),
                            enabled=mesh.rank() == 0)
@@ -241,7 +287,7 @@ def main(argv=None, timings: dict | None = None) -> float:
                 if stop.requested_global:
                     break
                 if not args.cache_latents:
-                    batch = {"image": batch["image"], "label": batch["label"]}
+                    batch = _slabs({"image": batch["image"], "label": batch["label"]}, sg)
                 t_step = _sync(device)
                 metrics = train_step(state, _to_device(batch, device), scale_factor, gen)
                 if dp is not None:  # the global batch's loss, as one process logs it
@@ -271,7 +317,8 @@ def main(argv=None, timings: dict | None = None) -> float:
             t_val = _sync(device)
             val_losses, last_batch = [], None
             for batch in val_loader.epoch(epoch):
-                vm = eval_step(_to_device({"image": batch["image"], "label": batch["label"]}, device),
+                vm = eval_step(_to_device(_slabs({"image": batch["image"],
+                                                  "label": batch["label"]}, sg), device),
                                scale_factor, gen)
                 val_losses.append(float(vm["val_diffusion_loss"]))
                 last_batch = batch
@@ -297,14 +344,18 @@ def main(argv=None, timings: dict | None = None) -> float:
                 with torch.no_grad():
                     img1 = torch.clamp(torch.from_numpy(last_batch["image"][:1]).to(device), 0, 1)
                     shape1 = (1, *[s // f for s in img1.shape[1:4]], ae.latent_channels)
-                    cond = None
-                    if s2cfg.conditional:
-                        eps = torch.randn(shape1, generator=gen, device=device)
-                        cond = ae.encode_stage_2_inputs(img1, eps)
-                    noise = torch.randn(shape1, generator=gen, device=device).to(dt)
-                    sampled = inferer.sample(unet, ae.decode_stage_2_outputs, scheduler, noise,
-                                             condition=cond, scale_factor=scale_factor,
-                                             generator=gen)
+                    if sg is None:
+                        cond = None
+                        if s2cfg.conditional:
+                            eps = torch.randn(shape1, generator=gen, device=device)
+                            cond = ae.encode_stage_2_inputs(img1, eps)
+                        noise = torch.randn(shape1, generator=gen, device=device).to(dt)
+                        sampled = inferer.sample(unet, ae.decode_stage_2_outputs, scheduler,
+                                                 noise, condition=cond,
+                                                 scale_factor=scale_factor, generator=gen)
+                    else:  # through the spatial encoder and sampler, the slabs gathered
+                        sampled = _spatial_sample(ae, unet, scheduler, sg, img1, shape1,
+                                                  s2cfg.conditional, scale_factor, gen, dt)
                 sampled = sampled.float().cpu().numpy()
                 for axis in range(3):
                     writer.add_image(f"val_lowcount_input_{axis}", visualize_one_slice_in_3d_image(

@@ -46,12 +46,12 @@ class LatentCache:
         """Encode this rank's ``dataset[i]`` (``{"image", "label"}`` NDHWC
         numpy volumes, clipped to [0, 1]) through ``ae.encode`` on
         ``device``, in chunks of ``encode_batch``. ``batch_size`` is the
-        global batch; ``num_hosts``/``host_id`` default to the process
-        group's world and rank."""
-        from ldm3d_torch.parallel.mesh import rank, world
+        global batch; ``num_hosts``/``host_id`` default to the data axis's
+        size and this rank's index on it."""
+        from ldm3d_torch.parallel.mesh import data_index, data_size
 
         if num_hosts is None:
-            num_hosts, host_id = world(), rank()
+            num_hosts, host_id = data_size(), data_index()
         elif num_hosts > 1 and host_id is None:
             raise ValueError("host_id is required when num_hosts > 1 is passed explicitly")
         host_id = host_id or 0

@@ -103,11 +103,12 @@ def prepare_dataloader(args: Any, batch_size: int, patch_size: Sequence[int],
                        scale_on_host: bool = True) -> tuple[BatchLoader, BatchLoader]:
     """``(train, val)`` loaders: shuffled drop-last train batches, in-order
     validation batches with a partial batch padded by its last sample.
-    ``batch_size`` is the global batch: each rank of the process group loads
-    its share (JAX's ``num_hosts``/``host_id`` = the world and the rank)."""
-    from ldm3d_torch.parallel.mesh import rank, world
+    ``batch_size`` is the global batch: each replica on the data axis loads
+    its share (JAX's ``num_hosts``/``host_id`` = the data axis's size and this
+    rank's index on it; the ranks of one spatial group load the same rows)."""
+    from ldm3d_torch.parallel.mesh import data_index, data_size
 
-    num_hosts, host_id = world(), rank()
+    num_hosts, host_id = data_size(), data_index()
     data = _DataArgs(args, patch_size)
     train_sources, val_sources = data.sources()
     vps = val_patch_size(patch_size, size_divisible, randcrop)

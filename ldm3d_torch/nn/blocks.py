@@ -23,14 +23,23 @@ PyTorch autograd.
 Rematerialisation. :func:`remat_wrapped` runs a block under
 ``torch.utils.checkpoint``: the models wrap their ResBlocks (and the UNet's
 ``mid_stack`` layers) with it when their ``remat`` is set, as the JAX
-package's ``nn.remat`` does. The JAX package's depth-sharded
-(``spatial_axis``) variants are not ported.
+package's ``nn.remat`` does.
+
+Depth sharding. :class:`Conv3D`, :class:`GroupNorm32`,
+:class:`AttentionBlock3D` and :class:`Upsample3D` take an optional
+``spatial_group`` (JAX's ``spatial_axis``, a
+:class:`~ldm3d_torch.parallel.spatial.SpatialGroup`); with one, the block
+works on this rank's depth slab and stays exact: the convolutions exchange
+depth halos, GroupNorm sums its statistics (and its backward's sums) over
+the group, attention gathers the keys and values of every slab.
+:func:`~ldm3d_torch.parallel.spatial.spatial_clone` binds every block of a
+model to a group over the same weights.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -44,6 +53,7 @@ from torch.utils.checkpoint import (
 
 from ldm3d_torch.ops.attention import volumetric_attention
 from ldm3d_torch.ops.groupnorm import gn_bwd_sums, gn_sums
+from ldm3d_torch.parallel.spatial import gather_tokens, halo_exchange
 
 __all__ = [
     "Conv3D",
@@ -80,16 +90,22 @@ class Conv3D(nn.Module):
 
     The JAX package's few-output-channel factorised form
     (``_conv3_small_out_factorized``) computes the same sum reassociated and
-    is a plain convolution here."""
+    is a plain convolution here.
+
+    With a ``spatial_group`` the input is this rank's depth slab: the depth
+    padding comes from the neighbours' slabs (:func:`halo_exchange`, zeros at
+    either end of the volume) and only H and W are padded here
+    (``ldm3d_tpu/nn/blocks.py:129-136``)."""
 
     def __init__(self, in_channels: int, features: int, kernel: int = 3, stride: int = 1,
-                 padding: str = "same", zero_init: bool = False):
+                 padding: str = "same", zero_init: bool = False, spatial_group=None):
         super().__init__()
         if padding not in ("same", "valid", "down"):
             raise ValueError(f"padding must be 'same', 'valid' or 'down', got {padding!r}")
         if padding == "same" and kernel % 2 == 0:
             raise ValueError(f"'same' padding needs an odd kernel, got {kernel}")
         self.kernel, self.stride, self.padding, self.zero_init = kernel, stride, padding, zero_init
+        self.spatial_group = spatial_group
         self.weight = nn.Parameter(torch.empty(features, in_channels, kernel, kernel, kernel))
         self.bias = nn.Parameter(torch.zeros(features))
         self.reset_parameters()
@@ -101,12 +117,22 @@ class Conv3D(nn.Module):
             _lecun_normal_(self.weight, self.weight[0].numel(), generator)
         nn.init.zeros_(self.bias)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, depth_pad: Optional[int] = None) -> torch.Tensor:
+        """``depth_pad``, when given, is the depth's zero padding of a "same"
+        convolution in place of its own (and of a spatial group's halo): a
+        caller that brought its own depth rows passes 0."""
         pad = (self.kernel - 1) // 2 if self.padding == "same" else 0
+        sg = self.spatial_group if depth_pad is None else None
+        if depth_pad is None:
+            depth_pad = pad if sg is None else 0
         if self.padding == "down":
-            x = F.pad(x, (0, 1, 0, 1, 0, 1))
+            x = F.pad(x, (0, 1, 0, 1, 0, 0 if sg is not None else 1))
+            if sg is not None:
+                x = halo_exchange(x, sg, lo=0, hi=1)
+        elif sg is not None:
+            x = halo_exchange(x, sg, lo=pad, hi=pad)
         return F.conv3d(x, self.weight.to(x.dtype), self.bias.to(x.dtype),
-                        stride=self.stride, padding=pad)
+                        stride=self.stride, padding=(depth_pad, pad, pad))
 
 
 def _conv3(in_channels: int, features: int, kernel: int = 3, zero_init: bool = False) -> Conv3D:
@@ -136,15 +162,30 @@ def _per_channel(t: torch.Tensor, ndim: int) -> torch.Tensor:
     return t.reshape(t.shape + (1,) * (ndim - 2))
 
 
-def _gn_stats(x: torch.Tensor, g: int, eps: float) -> tuple[torch.Tensor, torch.Tensor]:
+def _group_sums(s1: torch.Tensor, s2: torch.Tensor, sg) -> tuple[torch.Tensor, torch.Tensor]:
+    """Two (B, G) fp32 sums over the spatial group (one all-reduce)."""
+    both = sg.all_reduce_(torch.stack([s1, s2]))
+    return both[0], both[1]
+
+
+def _gn_count(x: torch.Tensor, g: int, sg) -> float:
+    """Voxels x channels of one group over the whole volume."""
+    return float(x[0, 0].numel() * (x.shape[1] // g) * (sg.size if sg is not None else 1))
+
+
+def _gn_stats(x: torch.Tensor, g: int, eps: float, sg=None) -> tuple[torch.Tensor, torch.Tensor]:
     """fp32 (mean, inv-std) per (batch, channel), group-combined: per-channel
     sums first (:func:`~ldm3d_torch.ops.groupnorm.gn_sums`), then the tiny
-    (B, C) -> (B, G) combine (``ldm3d_tpu/nn/blocks.py:167-198``)."""
+    (B, C) -> (B, G) combine (``ldm3d_tpu/nn/blocks.py:167-198``); with a
+    spatial group ``sg`` the (B, G) sums are summed over its slabs and the
+    count is the volume's."""
     b, c = x.shape[:2]
     s1c, s2c = gn_sums(x)
     s1 = s1c.reshape(b, g, c // g).sum(-1)
     s2 = s2c.reshape(b, g, c // g).sum(-1)
-    count = float(x[0, 0].numel() * (c // g))
+    if sg is not None:
+        s1, s2 = _group_sums(s1, s2, sg)
+    count = _gn_count(x, g, sg)
     mean = s1 / count
     var = torch.clamp(s2 / count - mean * mean, min=0.0)
     inv = torch.rsqrt(var + eps)
@@ -162,15 +203,20 @@ class GroupNormAffine(torch.autograd.Function):
     one pass over dy and x with per-(batch, channel) coefficients, in the
     activations' dtype; dscale = sum_b sum_v dy*x_hat, dbias = sum_b sum_v dy.
     It saves x and the fp32 (mean, inv) per channel, not an fp32 copy of the
-    volume."""
+    volume.
+
+    With a spatial group ``sg`` (this rank holding a depth slab) S1 and S2
+    are sums over the whole volume, so they are summed over the group as
+    the forward's statistics are, and N is the volume's count; dscale and
+    dbias stay this slab's sums (the step sums the ranks' gradients)."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, g: int, eps: float):
-        mean_c, inv_c = _gn_stats(x, g, eps)
+    def forward(ctx, x, weight, bias, g: int, eps: float, sg=None):
+        mean_c, inv_c = _gn_stats(x, g, eps, sg)
         a_c = inv_c * weight[None, :]
         b_c = bias[None, :] - mean_c * a_c
         ctx.save_for_backward(x, weight, mean_c, inv_c)
-        ctx.g = g
+        ctx.g, ctx.sg = g, sg
         nd = x.dim()
         return x * _per_channel(a_c, nd).to(x.dtype) + _per_channel(b_c, nd).to(x.dtype)
 
@@ -178,15 +224,17 @@ class GroupNormAffine(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, dy):
         x, weight, mean_c, inv_c = ctx.saved_tensors
-        g = ctx.g
+        g, sg = ctx.g, ctx.sg
         b, c = x.shape[:2]
-        n = float(x[0, 0].numel() * (c // g))
+        n = _gn_count(x, g, sg)
         sum_dy_c, sum_dyx_c = gn_bwd_sums(dy, x, mean_c, inv_c)
         dscale = sum_dyx_c.sum(0)
         dbias = sum_dy_c.sum(0)
         gam = weight[None, :]
         s1 = (sum_dy_c * gam).reshape(b, g, c // g).sum(-1)
         s2 = (sum_dyx_c * gam).reshape(b, g, c // g).sum(-1)
+        if sg is not None:
+            s1, s2 = _group_sums(s1, s2, sg)
         s1_c = s1.repeat_interleave(c // g, dim=1)
         s2_c = s2.repeat_interleave(c // g, dim=1)
         a1 = inv_c * gam
@@ -195,7 +243,7 @@ class GroupNormAffine(torch.autograd.Function):
         nd, od = x.dim(), x.dtype
         dx = (dy * _per_channel(a1, nd).to(od) + x * _per_channel(a2, nd).to(od)
               + _per_channel(a3, nd).to(od))
-        return dx, dscale, dbias, None, None
+        return dx, dscale, dbias, None, None, None
 
 
 class GroupNorm32(nn.Module):
@@ -205,13 +253,16 @@ class GroupNorm32(nn.Module):
     combined per group; var = E[x^2] - mean^2 clamped at 0; the affine is
     folded into one per-channel multiply-add applied in the compute dtype
     (``ldm3d_tpu/nn/blocks.py:167-261``); the backward is
-    :class:`GroupNormAffine`'s closed form."""
+    :class:`GroupNormAffine`'s closed form, over the volume's slabs with a
+    ``spatial_group``."""
 
-    def __init__(self, channels: int, num_groups: int = 32, eps: float = 1e-6):
+    def __init__(self, channels: int, num_groups: int = 32, eps: float = 1e-6,
+                 spatial_group=None):
         super().__init__()
         if channels % num_groups:
             raise ValueError(f"channels {channels} not divisible by {num_groups} groups")
         self.num_groups, self.eps = num_groups, eps
+        self.spatial_group = spatial_group
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
@@ -220,7 +271,8 @@ class GroupNorm32(nn.Module):
         nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return GroupNormAffine.apply(x, self.weight, self.bias, self.num_groups, self.eps)
+        return GroupNormAffine.apply(x, self.weight, self.bias, self.num_groups, self.eps,
+                                     self.spatial_group)
 
 
 # the outputs JAX's "convs" policy keeps (the ``resblock_conv`` tags: conv1,
@@ -325,11 +377,14 @@ class TimeResBlock3D(nn.Module):
 class AttentionBlock3D(nn.Module):
     """GroupNorm -> fused qkv Dense -> attention over the D*H*W tokens -> proj
     -> residual. ``num_head_channels=0`` is one head over all channels; the
-    channel axis splits as channel = head * head_dim + j."""
+    channel axis splits as channel = head * head_dim + j. With a
+    ``spatial_group`` the queries stay this slab's and the keys and values
+    are gathered from every slab (``ldm3d_tpu/nn/blocks.py:413-415``)."""
 
     def __init__(self, channels: int, num_head_channels: int = 0, num_groups: int = 32,
-                 norm_eps: float = 1e-6):
+                 norm_eps: float = 1e-6, spatial_group=None):
         super().__init__()
+        self.spatial_group = spatial_group
         self.heads = max(1, channels // num_head_channels) if num_head_channels else 1
         self.norm = GroupNorm32(channels, num_groups, norm_eps)
         self.qkv = Dense(channels, 3 * channels)
@@ -340,6 +395,8 @@ class AttentionBlock3D(nn.Module):
         y = self.norm(x).flatten(2).transpose(1, 2)          # (B, N, C), N in (D, H, W) order
         qkv = self.qkv(y)
         q, k, v = (t.unflatten(-1, (self.heads, c // self.heads)) for t in qkv.chunk(3, dim=-1))
+        if self.spatial_group is not None:  # every slab's tokens, in depth order
+            k, v = gather_tokens(k, self.spatial_group), gather_tokens(v, self.spatial_group)
         attn = volumetric_attention(q, k, v).flatten(2)     # (B, N, C)
         out = self.proj(attn).transpose(1, 2).reshape(b, c, d, h, w)
         return x + out
@@ -358,15 +415,29 @@ class Downsample3D(nn.Module):
 
 class Upsample3D(nn.Module):
     """Nearest-neighbour x2 then a SAME conv3^3: the JAX package's fused
-    ``_upsample_conv_fused`` computes the same sums reassociated."""
+    ``_upsample_conv_fused`` computes the same sums reassociated.
 
-    def __init__(self, in_channels: int, out_channels: int):
+    With a ``spatial_group`` the halo is taken before the upsample, one row
+    of each neighbour's slab (JAX's polyphase choice, ``:495-547``): the x2
+    upsample makes it two rows, the conv runs without depth padding, and one
+    row at each end is cropped, which leaves this slab's rows exact without
+    the 8x volume's halo."""
+
+    def __init__(self, in_channels: int, out_channels: int, spatial_group=None):
         super().__init__()
+        self.spatial_group = spatial_group
         self.conv = _conv3(in_channels, out_channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        sg = self.spatial_group
+        if sg is not None:
+            x = halo_exchange(x, sg, lo=1, hi=1)
         x = F.interpolate(x, scale_factor=2, mode="nearest")
-        return self.conv(x.contiguous(memory_format=torch.channels_last_3d))
+        x = x.contiguous(memory_format=torch.channels_last_3d)
+        if sg is None:
+            return self.conv(x)
+        y = self.conv(x, depth_pad=0)
+        return y[:, :, 1:-1].contiguous(memory_format=torch.channels_last_3d)
 
 
 def sinusoidal_time_embedding(timesteps: torch.Tensor, dim: int,

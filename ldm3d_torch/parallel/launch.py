@@ -64,6 +64,8 @@ def _worker(rank: int, world: int, port: int, backend: str, device: str,
             timeout_s: Optional[float], threads: Optional[int], conn) -> None:
     import torch.distributed as dist
 
+    from ldm3d_torch.parallel.mesh import reset_layout
+
     if threads:
         torch.set_num_threads(threads)
     dev = torch.device(device)
@@ -85,6 +87,7 @@ def _worker(rank: int, world: int, port: int, backend: str, device: str,
             if task is None:
                 break
             fn, args, kwargs = task
+            reset_layout()  # each task starts with every rank on the data axis
             try:
                 conn.send(("ok", fn(*args, **kwargs)))
             except SystemExit as e:

@@ -1,17 +1,25 @@
-"""The data-parallel axis over ``torch.distributed`` ranks.
+"""The data and spatial axes over ``torch.distributed`` ranks.
 
-The port of ``ldm3d_tpu/parallel/mesh.py``'s data axis. In JAX one process
-holds a mesh whose ``data`` axis spans the devices, and a step's arrays are
-sharded over it; here each device is one process (a rank), and the ranks of
-the default process group are the data axis:
+The port of ``ldm3d_tpu/parallel/mesh.py``'s data and spatial axes. In JAX
+one process holds a mesh whose ``data`` and ``spatial`` axes span the
+devices, and a step's arrays are sharded over it; here each device is one
+process (a rank), and the ranks of the default process group form the
+``data x spatial`` layout:
 
 * :class:`MeshSpec` resolves the axis sizes with the JAX package's rule and
   error text;
-* :func:`world` and :func:`rank` read the process group (1 and 0 without one);
-* :class:`DataParallel` is what a train step needs of the axis: this rank's
-  contiguous rows of a global batch (:meth:`DataParallel.shard`), the mean of
-  the gradients over the ranks (one all-reduce of a flat buffer), and sums
-  over the ranks;
+* :func:`set_layout` lays the ranks out: rank ``r`` sits at data index
+  ``r // spatial`` and spatial index ``r % spatial`` (the spatial axis is
+  the minor one, as ``create_mesh`` orders it), with one process group per
+  spatial group and one per data group (:class:`Layout`); without it the
+  layout is every rank on the data axis;
+* :func:`world` and :func:`rank` read the process group (1 and 0 without
+  one); :func:`data_size` and :func:`data_index` the data axis, which keys
+  the batch rows, the loaders' shards and the global batch size;
+* :class:`DataParallel` is what a train step needs of the axes: this rank's
+  contiguous rows of a global batch (:meth:`DataParallel.shard`), the
+  gradients summed over the spatial axis and averaged over the data axis
+  (one all-reduce of a flat buffer), and sums and means over the data axis;
 * :func:`shard_batch` and :func:`dp_sample_placer` are the JAX functions of
   those names for this layout.
 
@@ -28,15 +36,16 @@ from typing import Any, Optional, Sequence
 import torch
 import torch.distributed as dist
 
-__all__ = ["MeshSpec", "DataParallel", "world", "rank", "shard_batch", "dp_sample_placer"]
+__all__ = ["MeshSpec", "Layout", "DataParallel", "world", "rank", "data_size", "data_index",
+           "set_layout", "reset_layout", "layout", "shard_batch", "dp_sample_placer"]
 
 
 @dataclasses.dataclass(frozen=True)
 class MeshSpec:
     """Axis sizes ``(data, model, spatial, stage)``; ``data = -1`` takes every
     device the other axes leave (``ldm3d_tpu/parallel/mesh.py`` ``MeshSpec``).
-    The port runs the data axis only; the others must be 1 until their
-    slices land (ROADMAP.md queue A, 'Parallelism')."""
+    The port runs the data and spatial axes; ``model`` and ``stage`` must be
+    1 until their slices land (ROADMAP.md queue A, 'Parallelism')."""
 
     data: int = -1
     model: int = 1
@@ -68,6 +77,85 @@ def rank() -> int:
     return dist.get_rank() if _initialized() else 0
 
 
+@dataclasses.dataclass(frozen=True)
+class Layout:
+    """This rank's place in the ``data x spatial`` layout and the process
+    groups of its axes: ``spatial_group`` holds the ranks of this rank's
+    volume slabs, in depth order (``spatial_ranks``), ``data_group`` the
+    ranks that hold the same slab of the other replicas (None when the data
+    axis is the whole default group)."""
+
+    data: int
+    spatial: int
+    data_index: int
+    spatial_index: int
+    data_group: Any = None
+    spatial_group: Any = None
+    spatial_ranks: tuple = ()
+
+
+# the layout set_layout made for the live process group, and the groups it
+# built, by axis sizes (dist.new_group is a collective: every rank builds the
+# same groups in the same order, once a process group)
+_LAYOUT: list = []
+_GROUPS: dict = {}
+
+
+def set_layout(spec: MeshSpec) -> Layout:
+    """Lay the default process group's ranks out as ``spec`` says and make it
+    the layout that :func:`data_size`, :func:`data_index` and
+    :meth:`DataParallel.current` read. Every rank must call it with the same
+    ``spec`` (it builds process groups). Raises JAX's ``ValueError`` when the
+    axes do not tile the ranks, and ``NotImplementedError`` for a ``model``
+    or ``stage`` axis."""
+    n = world()
+    data, model, spatial, stage = spec.resolve(n)
+    if model > 1 or stage > 1:
+        raise NotImplementedError("the tensor and pipeline axes are not ported yet: ROADMAP.md "
+                                  "queue A, 'Parallelism'")
+    r = rank()
+    groups = None
+    if spatial > 1:
+        key = (id(dist.group.WORLD), data, spatial)
+        if key not in _GROUPS:
+            sp = [dist.new_group([d * spatial + s for s in range(spatial)])
+                  for d in range(data)]
+            dg = [dist.new_group([d * spatial + s for d in range(data)])
+                  for s in range(spatial)]
+            _GROUPS[key] = (sp, dg)
+        groups = _GROUPS[key]
+    out = Layout(data=data, spatial=spatial, data_index=r // spatial,
+                 spatial_index=r % spatial,
+                 data_group=None if groups is None else groups[1][r % spatial],
+                 spatial_group=None if groups is None else groups[0][r // spatial],
+                 spatial_ranks=tuple((r // spatial) * spatial + s for s in range(spatial)))
+    _LAYOUT[:] = [out]
+    return out
+
+
+def reset_layout() -> None:
+    """Back to the default layout: every rank on the data axis."""
+    _LAYOUT.clear()
+
+
+def layout() -> Layout:
+    """The layout :func:`set_layout` set, else every rank on the data axis."""
+    if _LAYOUT:
+        return _LAYOUT[0]
+    return Layout(data=world(), spatial=1, data_index=rank(), spatial_index=0,
+                  spatial_ranks=(rank(),))
+
+
+def data_size() -> int:
+    """Ranks on the data axis (the world without a spatial axis)."""
+    return layout().data
+
+
+def data_index() -> int:
+    """This rank's index on the data axis (its rank without a spatial axis)."""
+    return layout().data_index
+
+
 def _rows(x, rank_: int, world_: int):
     n = x.shape[0]
     if n % world_:
@@ -78,15 +166,20 @@ def _rows(x, rank_: int, world_: int):
 
 @dataclasses.dataclass(frozen=True)
 class DataParallel:
-    """This rank's place on the data axis and the collectives a step takes."""
+    """This rank's place on the data axis and the collectives a step takes.
+    ``group`` is the data axis's process group (None: the default group)."""
 
     world: int
     rank: int
+    group: Any = None
 
     @classmethod
     def current(cls) -> Optional["DataParallel"]:
-        """The default process group's axis, or None with one rank."""
-        return cls(world(), rank()) if world() > 1 else None
+        """The layout's data axis (:func:`layout`), or None with one rank."""
+        if world() <= 1:
+            return None
+        lay = layout()
+        return cls(lay.data, lay.data_index, lay.data_group)
 
     def shard(self, x):
         """This rank's contiguous ``batch / world`` rows of a global batch
@@ -97,9 +190,10 @@ class DataParallel:
         return local * self.world
 
     def all_reduce_mean_(self, tensors: Sequence[torch.Tensor]) -> None:
-        """Replace each tensor by its mean over the ranks, in place: one
-        all-reduce (sum) of one flat buffer per dtype and device, then a
-        division by the world."""
+        """Replace each tensor by its sum over the spatial axis and mean over
+        the data axis, in place: one all-reduce (sum) over every rank of one
+        flat buffer per dtype and device, then a division by the data
+        axis's size (without a spatial axis: the mean over the ranks)."""
         by_dtype: dict = {}
         for t in tensors:
             by_dtype.setdefault((t.dtype, t.device), []).append(t)
@@ -113,17 +207,17 @@ class DataParallel:
                 offset += t.numel()
 
     def all_reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
-        """The sum over the ranks of ``t`` (a new tensor)."""
+        """The sum over the data axis of ``t`` (a new tensor)."""
         out = t.clone()
-        dist.all_reduce(out)
+        dist.all_reduce(out, group=self.group)
         return out
 
     def mean(self, t: torch.Tensor) -> torch.Tensor:
-        """The mean over the ranks of ``t`` (a new tensor; one all-reduce)."""
+        """The mean over the data axis of ``t`` (a new tensor; one all-reduce)."""
         return self.all_reduce_sum(t) / self.world
 
     def mean_of(self, value: float, device) -> float:
-        """The mean over the ranks of a host number (one all-reduce)."""
+        """The mean over the data axis of a host number (one all-reduce)."""
         return float(self.mean(torch.tensor([float(value)], dtype=torch.float64,
                                             device=device)).item())
 

@@ -69,15 +69,14 @@ def is_multihost() -> bool:
     return dist.is_initialized() and dist.get_world_size() > 1
 
 
-def global_batch(local: torch.Tensor) -> torch.Tensor:
+def global_batch(local: torch.Tensor, group=None) -> torch.Tensor:
     """Every rank's ``local`` rows end to end, in rank order (an
-    ``all_gather``; all ranks call it with equal shapes). gloo gathers CPU
-    tensors only, so under gloo the rows travel on the host and the result
-    is on the CPU; under NCCL it stays on the device."""
+    ``all_gather`` over ``group``, the default group when None; all its
+    ranks call it with equal shapes), on ``local``'s device: gloo's and
+    NCCL's all-gathers both take CUDA tensors."""
     if not is_multihost():
         return local
-    on_host = dist.get_backend() == "gloo"
-    x = local.detach().cpu() if on_host else local.detach().contiguous()
-    parts = [torch.empty_like(x) for _ in range(dist.get_world_size())]
-    dist.all_gather(parts, x.contiguous())
+    x = local.detach().contiguous()
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x, group=group)
     return torch.cat(parts)

@@ -7,8 +7,8 @@ XLA all-gather the updated parameters. Here each rank keeps the moments of
 its slice of every such tensor (:func:`zero_spec_for`, the JAX rule), runs
 Adam on that slice alone, and the ranks then put the updated slices back
 together with one all-gather of each rank's slices packed end to end (the
-parameters are copies, so they stay bit-equal across ranks; gloo gathers
-host tensors only, so under gloo the slices travel through the host). Small
+parameters are copies, so they stay bit-equal across ranks; gloo's
+all-gather, like NCCL's, takes CUDA tensors). Small
 tensors (biases, norms) keep replicated moments, as in JAX.
 
 The clip still covers every parameter: the gradients are averaged whole on
@@ -68,12 +68,9 @@ class ZeroClippedAdam(ClippedAdam):
         if not pairs:
             return
         mine = torch.cat([local.reshape(-1) for _, local, _ in pairs])
-        on_host = mine.is_cuda and dist.get_backend() == "gloo"
-        send = mine.cpu() if on_host else mine
-        parts = [torch.empty_like(send) for _ in range(self.dp.world)]
-        dist.all_gather(parts, send)
+        parts = [torch.empty_like(mine) for _ in range(self.dp.world)]
+        dist.all_gather(parts, mine)
         for r, part in enumerate(parts):
-            part = part.to(mine.device)
             offset = 0
             for full, local, dim in pairs:
                 per = full.shape[dim] // self.dp.world

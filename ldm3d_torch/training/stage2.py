@@ -17,9 +17,17 @@ and the condition-dropout mask. A step takes them as an argument, or draws
 them from the caller's ``torch.Generator`` in the order of the JAX step's
 ``jax.random.split(rng, 5)``, so a test can hand both frameworks the same
 draws. Under data parallelism (``dp``) each rank draws the global batch's
-draws and keeps its rows, as JAX draws for the global batch and shards. The
-depth-sharded and pipelined steps of the JAX package are not ported
-(ROADMAP.md).
+draws and keeps its rows, as JAX draws for the global batch and shards.
+
+Depth sharding (``--spatial``): :func:`make_stage2_train_step` and
+:func:`make_stage2_eval_step` with a spatial group ``sg`` (JAX's
+``make_stage2_train_step_spatial`` and ``make_stage2_eval_step_spatial``)
+run the frozen VAE's encode and the UNet on this rank's depth slab of its
+rows (the models bound to the group by
+:func:`~ldm3d_torch.parallel.spatial.spatial_clone`). Their draws are the
+global batch's and volume's, cut to this rank's rows and slab, so a step
+computes the one-process step on the same draws. The pipelined step of the
+JAX package is not ported (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -79,15 +87,31 @@ class Stage2Draws:
         """This rank's rows of a global batch's draws."""
         return Stage2Draws(*(dp.shard(t) for t in dataclasses.astuple(self)))
 
+    def shard_depth(self, sg) -> "Stage2Draws":
+        """This rank's depth slab of a global volume's draws (the per-sample
+        timesteps and mask are the volume's)."""
+        from ldm3d_torch.parallel.spatial import shard_volume
+
+        def cut(t):
+            return t if t is None or t.dim() < 5 else shard_volume(t, sg)
+
+        return Stage2Draws(*(cut(t) for t in dataclasses.astuple(self)))
+
 
 def draw_stage2(generator: torch.Generator, latent_shape, num_train_timesteps: int,
-                cfg: Stage2Config, device, dropout: bool = True, dp=None) -> Stage2Draws:
+                cfg: Stage2Config, device, dropout: bool = True, dp=None,
+                sg=None) -> Stage2Draws:
     """A step's draws from ``generator`` (on the generator's device, then
     moved to ``device``): label epsilon, image epsilon (conditional), noise,
     timesteps, and the dropout mask (conditional with ``cond_dropout > 0``
     and ``dropout``). With ``dp`` (a data-parallel axis), ``latent_shape``
     is this rank's: the global batch's draws are made and this rank's rows
-    kept."""
+    kept; with ``sg`` (a spatial group) it is this rank's depth slab, and
+    the whole volume's draws are made and this rank's slab kept."""
+    if sg is not None:
+        global_shape = (latent_shape[0], latent_shape[1] * sg.size, *latent_shape[2:])
+        return draw_stage2(generator, global_shape, num_train_timesteps, cfg, device, dropout,
+                           dp).shard_depth(sg)
     if dp is not None:
         global_shape = (dp.global_rows(latent_shape[0]), *latent_shape[1:])
         return draw_stage2(generator, global_shape, num_train_timesteps, cfg, device,
@@ -193,7 +217,16 @@ def _denoise_loss(unet, scheduler, cfg, z_labels, condition, noise, timesteps):
     return _stage2_mse(pred, target, timesteps, scheduler, cfg)
 
 
-def make_stage2_train_step(unet, ae, scheduler, cfg: Stage2Config, dp=None):
+def _bound(unet, ae, sg):
+    """The models bound to the spatial group ``sg`` (as they are without)."""
+    if sg is None:
+        return unet, ae
+    from ldm3d_torch.parallel.spatial import spatial_clone
+
+    return spatial_clone(unet, sg), spatial_clone(ae, sg)
+
+
+def make_stage2_train_step(unet, ae, scheduler, cfg: Stage2Config, dp=None, sg=None):
     """The LDM train step with the frozen-VAE encode inside.
 
     Returns ``train_step(state, batch, scale_factor, generator=None,
@@ -202,7 +235,19 @@ def make_stage2_train_step(unet, ae, scheduler, cfg: Stage2Config, dp=None):
     ``diffusion_loss`` and ``grad_norm``. The update is applied to
     ``state`` in place. With ``dp`` the batch is this rank's share and the
     draws are the global batch's rows of this rank (:func:`draw_stage2`);
-    the state's optimizer averages the gradients over the ranks."""
+    the state's optimizer averages the gradients over the ranks.
+
+    With a spatial group ``sg`` (JAX ``ldm3d_tpu/training/stage2.py:210``)
+    the batch is this rank's depth slab of its rows, and the encode, the
+    UNet and its backward run on the slab (halo convolutions, group-summed
+    GroupNorm, gathered-kv attention); ``draws``, when given, are this
+    rank's rows and slab of the global draws. The loss is the slab's mean
+    over ``sg.size``, so the group's sum of the gradients is the replica's
+    (the optimizer, built with ``dp``, sums them over the group and averages
+    them over the data axis before the clip); ``diffusion_loss`` is the
+    replica's, summed over the group; ``grad_norm`` is read after the
+    reduction."""
+    unet, ae = _bound(unet, ae, sg)
 
     def train_step(state: TrainState, batch: dict, scale_factor, generator=None,
                    draws: Optional[Stage2Draws] = None) -> dict:
@@ -211,7 +256,7 @@ def make_stage2_train_step(unet, ae, scheduler, cfg: Stage2Config, dp=None):
             images, labels = torch.clamp(images, 0.0, 1.0), torch.clamp(labels, 0.0, 1.0)
         if draws is None:
             draws = draw_stage2(generator, _latent_shape(ae, labels),
-                                scheduler.num_train_timesteps, cfg, labels.device, dp=dp)
+                                scheduler.num_train_timesteps, cfg, labels.device, dp=dp, sg=sg)
         with torch.no_grad():  # frozen VAE: gradients stop at the latents
             # an fp32 scale factor promotes the latents to fp32, as in JAX
             z_labels = ae.encode_stage_2_inputs(labels, draws.eps_label).float() * scale_factor
@@ -222,7 +267,11 @@ def make_stage2_train_step(unet, ae, scheduler, cfg: Stage2Config, dp=None):
                     condition = _drop_condition(condition, draws.keep)
         noise = draws.noise.to(z_labels.dtype)
         loss = _denoise_loss(unet, scheduler, cfg, z_labels, condition, noise, draws.timesteps)
-        return _apply_update(state, loss)
+        if sg is None:
+            return _apply_update(state, loss)
+        metrics = _apply_update(state, loss / sg.size)
+        metrics["diffusion_loss"] = sg.all_reduce_(metrics["diffusion_loss"].clone())
+        return metrics
 
     return train_step
 
@@ -256,10 +305,14 @@ def make_stage2_train_step_latents(unet, scheduler, cfg: Stage2Config, dp=None):
     return train_step
 
 
-def make_stage2_eval_step(unet, ae, scheduler, cfg: Stage2Config, dp=None):
+def make_stage2_eval_step(unet, ae, scheduler, cfg: Stage2Config, dp=None, sg=None):
     """Validation: the noise-prediction MSE on a batch, no dropout. Returns
     ``eval_step(batch, scale_factor, generator=None, draws=None) ->
-    {"val_diffusion_loss": device tensor}``."""
+    {"val_diffusion_loss": device tensor}``. With a spatial group ``sg``
+    (JAX ``ldm3d_tpu/training/stage2.py:436``) the batch and ``draws`` are
+    this rank's slabs, as in :func:`make_stage2_train_step`, and the loss is
+    the replica's (the slabs' means summed over the group / ``sg.size``)."""
+    unet, ae = _bound(unet, ae, sg)
 
     @torch.no_grad()
     def eval_step(batch: dict, scale_factor, generator=None,
@@ -270,7 +323,7 @@ def make_stage2_eval_step(unet, ae, scheduler, cfg: Stage2Config, dp=None):
         if draws is None:
             draws = draw_stage2(generator, _latent_shape(ae, labels),
                                 scheduler.num_train_timesteps, cfg, labels.device,
-                                dropout=False, dp=dp)
+                                dropout=False, dp=dp, sg=sg)
         z_labels = ae.encode_stage_2_inputs(labels, draws.eps_label).float() * scale_factor
         condition = (ae.encode_stage_2_inputs(images, draws.eps_image)
                      if cfg.conditional else None)
@@ -279,6 +332,9 @@ def make_stage2_eval_step(unet, ae, scheduler, cfg: Stage2Config, dp=None):
                                                    condition)
         pred = unet(model_in, draws.timesteps)
         target = inferer.training_targets(scheduler, z_labels, noise, draws.timesteps)
-        return {"val_diffusion_loss": l2_loss(pred, target)}
+        loss = l2_loss(pred, target)
+        if sg is not None:
+            loss = sg.all_reduce_(loss / sg.size)
+        return {"val_diffusion_loss": loss}
 
     return eval_step

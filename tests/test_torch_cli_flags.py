@@ -10,7 +10,9 @@ LPIPS weights, which the environment sets to a missing file. A flag whose
 path is not ported raises ``NotImplementedError`` naming its ROADMAP item,
 ``--pipeline`` in the stage-1 trainer the JAX CLI's ``ValueError``, and
 ``--pipeline``, ``--spatial`` and ``--tensor`` in the distillation CLI the
-JAX CLI's ``ValueError`` (distillation runs data-parallel).
+JAX CLI's ``ValueError`` (distillation runs data-parallel). ``--spatial 2``
+runs in the stage-2 trainer and the sampler: in one process it raises the
+JAX CLI's ``ValueError`` that the axes do not divide the devices.
 
 ``-g 2`` starts two CPU ranks (gloo), and each rank reaches the same point
 past the flags: the launcher raises the ranks' ``FileNotFoundError`` (the
@@ -39,6 +41,7 @@ PIPELINE = "'UNet mid_depth stack, then pipeline parallelism'"
 
 RANKS, TORCHRUN = "runs on 2 ranks", "needs torchrun"
 ONE_DEVICE = {"evaluate"}  # CLIs without a data-parallel path
+SPATIAL = {"inference", "train_diffusion"}  # CLIs that run --spatial
 
 # (argv, None if the flag runs, else the ROADMAP item its error names, or
 # RANKS / TORCHRUN)
@@ -108,6 +111,10 @@ def test_jax_flag_parses_then_runs_or_names_its_item(cli, flag, argv, item, env_
             CLIS[cli](args)
     elif cli == "distill" and flag in ("--pipeline", "--spatial", "--tensor"):
         with pytest.raises(ValueError, match="^distillation runs data-parallel"):
+            CLIS[cli](args)
+    elif cli in SPATIAL and flag == "--spatial":
+        with pytest.raises(ValueError, match="^--spatial 2 x --tensor 1 x --pipeline 1 does "
+                                             "not divide 1 devices"):
             CLIS[cli](args)
     elif item is None:
         with pytest.raises(FileNotFoundError, match="checkpoint|No such file|lpips_weights"):

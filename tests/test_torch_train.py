@@ -406,11 +406,16 @@ def test_cli_unported_flags_name_the_roadmap(flag, tmp_path):
     """The flags whose paths are not ported raise naming their ROADMAP item;
     ``--remat``, ``--grad-accum``, ``--fsdp`` and ``--zero``, ported since
     (the last two act with more than one rank), pass the flag checks and run
-    on to the stage-1 checkpoint, which this model_dir lacks."""
+    on to the stage-1 checkpoint, which this model_dir lacks; ``--spatial
+    2``, ported since, needs two ranks: one process raises the JAX CLI's
+    ``ValueError``."""
     argv = ["-c", port_preset_path("config_tiny_cpu.json"), "-e", _env(tmp_path),
             "--device", "cpu", *flag]
     if flag[0] in ("--remat", "--grad-accum", "--fsdp", "--zero"):
         with pytest.raises(FileNotFoundError, match="stage-1 autoencoder checkpoint"):
+            port_train(argv)
+    elif flag[0] == "--spatial":
+        with pytest.raises(ValueError, match="does not divide 1 devices"):
             port_train(argv)
     else:
         with pytest.raises(NotImplementedError, match="ROADMAP"):

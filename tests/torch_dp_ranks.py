@@ -10,6 +10,7 @@ arrays of the GLOBAL batch: each rank takes its rows.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import copy
 import sys
 from types import SimpleNamespace
@@ -250,3 +251,183 @@ def sleep(seconds: float) -> None:
     import time
 
     time.sleep(seconds)
+
+
+# --- depth sharding (``--spatial``) --------------------------------------------
+
+
+def _spatial(spatial: int = 2):
+    """This rank's spatial group of the ``data x spatial`` layout."""
+    from ldm3d_torch.parallel import MeshSpec, set_layout
+    from ldm3d_torch.parallel.spatial import SpatialGroup
+
+    set_layout(MeshSpec(spatial=spatial))
+    return SpatialGroup.current()
+
+
+def _slab(x, sg, dim: int = 1):
+    from ldm3d_torch.parallel.spatial import shard_volume
+
+    return shard_volume(x, sg, dim)
+
+
+def spatial_halo(x, w, lo: int, hi: int, dim: int = 2) -> dict:
+    """``halo_exchange`` of this rank's depth slab of ``x`` (NCDHW), and the
+    gradient of ``sum(out * w[rank])`` reaching the slab."""
+    from ldm3d_torch.parallel.spatial import halo_exchange
+
+    sg = _spatial()
+    xs = _slab(_t(x), sg, dim).clone().requires_grad_(True)
+    out = halo_exchange(xs, sg, lo, hi, dim)
+    (out * _t(w[sg.index])).sum().backward()
+    return {"out": out.detach().numpy(), "dx": xs.grad.numpy(),
+            "cl_strides": _cl_strides(halo_exchange(
+                xs.detach().contiguous(memory_format=torch.channels_last_3d), sg, lo, hi, dim))}
+
+
+def _cl_strides(t: torch.Tensor) -> bool:
+    """Whether ``t`` has the exact strides of channels_last_3d (a
+    one-channel tensor's too)."""
+    return t.stride() == torch.empty(t.shape, memory_format=torch.channels_last_3d).stride()
+
+
+def spatial_block(kind: str, kwargs: dict, sd: dict, x, dy) -> dict:
+    """One block of ``ldm3d_torch.nn.blocks`` bound to the spatial group on
+    this rank's depth slab of ``x`` (NCDHW, channels_last_3d): its output
+    slab, the gradient of ``sum(y * dy)`` at the slab, and its parameters'
+    gradients from this slab (the test sums them over the ranks)."""
+    from ldm3d_torch.nn import blocks
+    from ldm3d_torch.parallel.spatial import spatial_clone
+
+    sg = _spatial()
+    block = getattr(blocks, kind)(**kwargs)
+    block.load_state_dict(_t(sd))
+    block = spatial_clone(block, sg)
+    xs = _slab(_t(x), sg, 2).contiguous(memory_format=torch.channels_last_3d)
+    xs.requires_grad_(True)
+    y = block(xs)
+    (y * _slab(_t(dy), sg, 2)).sum().backward()
+    return {"y": y.detach().numpy(), "dx": xs.grad.numpy(),
+            "grads": {n: p.grad.numpy() for n, p in block.named_parameters()}}
+
+
+def spatial_attention(q, k, v, do) -> dict:
+    """``volumetric_attention`` of this rank's query tokens against every
+    slab's keys and values (``gather_tokens``); the output and the q, k, v
+    gradients of ``sum(out * do)`` at this rank's slabs."""
+    from ldm3d_torch.ops.attention import volumetric_attention
+    from ldm3d_torch.parallel.spatial import gather_tokens
+
+    sg = _spatial()
+    qs, ks, vs = (_slab(_t(a), sg).clone().requires_grad_(True) for a in (q, k, v))
+    out = volumetric_attention(qs, gather_tokens(ks, sg), gather_tokens(vs, sg))
+    (out * _slab(_t(do), sg)).sum().backward()
+    return {"out": out.detach().numpy(), "dq": qs.grad.numpy(), "dk": ks.grad.numpy(),
+            "dv": vs.grad.numpy()}
+
+
+def spatial_models(cfg, ae_sd, u_sd, x, eps, z, t) -> dict:
+    """The VAE's ``encode_stage_2_inputs`` and the UNet's forward, each
+    bound to the spatial group, on this rank's slabs (NDHWC)."""
+    from ldm3d_torch.parallel.spatial import make_spatial_encoder, spatial_clone
+
+    sg = _spatial()
+    ae = _model(cfg, "autoencoder_def", ae_sd).eval()
+    unet = spatial_clone(_model(cfg, "diffusion_def", u_sd), sg)
+    with torch.no_grad():
+        enc = make_spatial_encoder(ae, sg)(_slab(_t(x), sg), _slab(_t(eps), sg))
+        pred = unet(_slab(_t(z), sg), _t(t))
+    return {"encode": enc.numpy(), "unet": pred.numpy()}
+
+
+def _spatial_parts(cfg, ae_sd, u_sd, spatial: int):
+    from ldm3d_torch.parallel.spatial import SpatialGroup
+
+    sg = _spatial(spatial) if spatial > 1 else None
+    dp = DataParallel.current() if spatial > 1 else None
+    ae = _model(cfg, "autoencoder_def", ae_sd).eval().requires_grad_(False)
+    unet = _model(cfg, "diffusion_def", u_sd)
+    assert sg is None or isinstance(sg, SpatialGroup)
+    return sg, dp, ae, unet
+
+
+def _cut(batch: dict, dp, sg) -> dict:
+    b = _t(batch)
+    if sg is None:
+        return b
+    return {k: _slab(dp.shard(v), sg).contiguous() for k, v in b.items()}
+
+
+def _one_process_draws(ae, sched, batch: dict, s2cfg, gen, dropout: bool):
+    """The draws the one-process step makes from ``gen`` (drawn here so the
+    caller can hand them to a reference too)."""
+    from ldm3d_torch.training import draw_stage2
+
+    f = ae.downsample_factor
+    labels = batch["label"]
+    shape = (labels.shape[0], *[s // f for s in labels.shape[1:4]], ae.latent_channels)
+    return draw_stage2(gen, shape, sched.num_train_timesteps, s2cfg, labels.device,
+                       dropout=dropout)
+
+
+def _np_draws(draws) -> list | None:
+    return None if draws is None else [None if t is None else t.numpy()
+                                       for t in dataclasses.astuple(draws)]
+
+
+def spatial_stage2_step(cfg, ae_sd, u_sd, batch, lr, seed, cfg_kwargs=None,
+                        spatial: int = 2) -> dict:
+    """One stage-2 step (the VAE encode inside) on the global ``batch``,
+    its draws from a generator seeded ``seed``: the spatial step on this
+    rank's rows and slabs (``spatial > 1``), else the one-process step,
+    which also returns its draws (``Stage2Draws`` fields as numpy)."""
+    sg, dp, ae, unet = _spatial_parts(cfg, ae_sd, u_sd, spatial)
+    s2cfg = Stage2Config(**(cfg_kwargs or {}))
+    state = TrainState(unet, make_diffusion_optimizer(unet.parameters(), lambda _: lr, dp=dp))
+    sched = _sched(cfg)
+    step = make_stage2_train_step(unet, ae, sched, s2cfg, dp=dp, sg=sg)
+    gen, b = torch.Generator().manual_seed(seed), _cut(batch, dp, sg)
+    draws = None if sg is not None else _one_process_draws(ae, sched, b, s2cfg, gen, True)
+    metrics = _metrics(step(state, b, 0.9, gen, draws=draws), dp)
+    return {"metrics": metrics, "params": _np(state.state_dict()["params"]),
+            "grads": _grads(unet), "draws": _np_draws(draws)}
+
+
+def spatial_stage2_eval(cfg, ae_sd, u_sd, batch, seed, spatial: int = 2) -> dict:
+    """The stage-2 eval step's loss (the spatial one with ``spatial > 1``),
+    its draws from a generator seeded ``seed`` (the one-process step's
+    returned too, as in :func:`spatial_stage2_step`)."""
+    from ldm3d_torch.training import make_stage2_eval_step
+
+    sg, dp, ae, unet = _spatial_parts(cfg, ae_sd, u_sd, spatial)
+    sched = _sched(cfg)
+    step = make_stage2_eval_step(unet, ae, sched, Stage2Config(), dp=dp, sg=sg)
+    gen, b = torch.Generator().manual_seed(seed), _cut(batch, dp, sg)
+    draws = (None if sg is not None
+             else _one_process_draws(ae, sched, b, Stage2Config(), gen, False))
+    loss = step(b, 0.9, gen, draws=draws)["val_diffusion_loss"]
+    return {"loss": float(loss if dp is None else dp.mean(loss)), "draws": _np_draws(draws)}
+
+
+def spatial_sample(cfg, ae_sd, u_sd, sampler: str, steps: int, noise, cond, seed: int,
+                   scale: float, spatial: int = 2):
+    """A sample (the reverse loop, ``/ scale`` and the decode) from the
+    global ``noise`` and ``cond``: the spatial sampler's slabs gathered
+    (``spatial > 1``), else the one-process sample."""
+    from ldm3d_torch.cli.common import make_sampling_scheduler
+    from ldm3d_torch.diffusion import inferer
+    from ldm3d_torch.parallel.spatial import make_spatial_sampler
+
+    sg, dp, ae, unet = _spatial_parts(cfg, ae_sd, u_sd, spatial)
+    sched = make_sampling_scheduler(sampler, steps, {
+        "num_train_timesteps": cfg["NoiseScheduler"]["num_train_timesteps"],
+        "beta_start": cfg["NoiseScheduler"]["beta_start"],
+        "beta_end": cfg["NoiseScheduler"]["beta_end"], "prediction_type": "epsilon"})
+    gen = torch.Generator().manual_seed(seed)
+    noise, cond = _t(noise), _t(cond)
+    with torch.no_grad():
+        if sg is None:
+            return inferer.sample(unet, ae.decode_stage_2_outputs, sched, noise, cond,
+                                  scale_factor=scale, generator=gen).numpy()
+        run = make_spatial_sampler(unet, ae, sched, sg, scale_factor=scale, dp=dp)
+        return sg.all_gather(run(_slab(noise, sg), _slab(cond, sg), gen), 1).numpy()

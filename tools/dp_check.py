@@ -26,6 +26,18 @@ computing the one-process reference where one is needed.
 * :func:`timed_steps`: launch counts of one data-parallel step per rank
   against the one-process step at the per-rank batch, then the mean of
   ``steps`` timed steps (wall clock between barriers).
+* :func:`spatial_check`: depth sharding (``--spatial``) on the ranks laid
+  out as one data replica of ``world`` depth slabs: the fp32 spatial
+  stage-2 step's gradients, summed over the slabs, against the one-process
+  step's on the same draws (and the gradient a faulty program would hold,
+  formed from the same run: each rank's own slab's gradient, the sum
+  skipped); a bf16 spatial step's launches by route against the
+  one-process step's, then a second step timed; the attention and
+  GroupNorm inputs each run gave the kernels, and the spatial collectives'
+  and the gradient all-reduce's bytes and seconds.
+* :func:`cli_cases`: a CLI run on this rank (``cli.inference -g 2
+  --spatial 2``, say) with the launches it made and the attention and
+  GroupNorm inputs it gave the kernels.
 * :func:`fsdp_world1`: one step under ``fully_shard`` over a one-rank group
   (:func:`ldm3d_torch.parallel.launch.group_of_one`) against the unwrapped
   step (launch counts), and its full-state checkpoint loaded into a
@@ -401,6 +413,196 @@ def fsdp_world1(preset: str, batch: int, model_dir: str, seed: int = 17,
             "seconds": times,
             "loss": float(metrics["diffusion_loss"]),
             "sharded_params": sum(hasattr(p, "to_local") for p in unet2.parameters())}
+
+
+def _cases() -> dict:
+    """The attention and GroupNorm wrappers' launches by input since the last
+    :func:`_clear_cases`."""
+    from ldm3d_torch.ops import attention as A
+    from ldm3d_torch.ops import groupnorm as G
+
+    return {"attn_fwd": dict(A.flash_attention_fwd.cases),
+            "attn_bwd": dict(A.flash_attention_bwd_dq.cases),
+            "gn_sums": dict(G.gn_sums.cases), "gn_bwd_sums": dict(G.gn_bwd_sums.cases)}
+
+
+def _clear_cases() -> None:
+    from ldm3d_torch.ops import attention as A
+    from ldm3d_torch.ops import groupnorm as G
+
+    for fn in (A.flash_attention_fwd, A.flash_attention_bwd_dq, A.flash_attention_bwd_dkv,
+               G.gn_sums, G.gn_bwd_sums):
+        fn.cases = {}
+
+
+@contextlib.contextmanager
+def _transfers(readings: dict, device: str):
+    """Calls, bytes and wall seconds (to a device sync on both sides) of
+    every spatial collective and of the gradient all-reduce inside the
+    block, by kind; under time-sharing a collective's seconds include its
+    wait for the other rank."""
+    from ldm3d_torch.parallel import mesh
+    from ldm3d_torch.parallel import spatial as S
+
+    def nbytes(ts) -> int:
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    sizes = {
+        (S.SpatialGroup, "exchange"): lambda self, sends, recvs: nbytes(
+            [t for t, _ in sends] + [b for b, _ in recvs]),
+        (S.SpatialGroup, "all_gather"): lambda self, t, dim: nbytes([t]) * self.size,
+        (S.SpatialGroup, "reduce_scatter"): lambda self, g, dim: nbytes([g]),
+        (S.SpatialGroup, "all_reduce_"): lambda self, t: nbytes([t]),
+        (mesh.DataParallel, "all_reduce_mean_"): lambda self, ts: nbytes(ts),
+    }
+    originals = {key: getattr(*key) for key in sizes}
+
+    def wrap(key, fn, size):
+        def run(self, *args):
+            _sync(device)
+            t0 = time.perf_counter()
+            out = fn(self, *args)
+            _sync(device)
+            r = readings.setdefault(key[1], {"calls": 0, "bytes": 0, "seconds": 0.0})
+            r["calls"] += 1
+            r["bytes"] += size(self, *args)
+            r["seconds"] += time.perf_counter() - t0
+            return out
+        return run
+
+    for key, size in sizes.items():
+        setattr(*key, wrap(key, originals[key], size))
+    try:
+        yield
+    finally:
+        for key, fn in originals.items():
+            setattr(*key, fn)
+
+
+def spatial_check(preset: str, global_batch: int = 2, seed: int = 19, device: str = "cuda",
+                  scale_factor: float = 0.8) -> dict:
+    """Depth sharding over every rank (one data replica, ``world`` slabs):
+    see the module docstring. Returns ``"spatial"`` (the fp32 gradients'
+    distance from the one-process step's over its largest |g|) and the
+    fault's (``"skip_spatial_sum"``), the bf16 launches of this rank's
+    first step and (rank 0) the one-process step's, the second step's ms,
+    each run's wrapper cases, the transfer readings of the first bf16 step,
+    the peak memory and each part's seconds."""
+    from ldm3d_torch.cli.common import tf32_flags
+    from ldm3d_torch.diffusion import DDPMScheduler
+    from ldm3d_torch.parallel import MeshSpec, set_layout
+    from ldm3d_torch.parallel.spatial import SpatialGroup, shard_volume
+    from ldm3d_torch.training import (Stage2Config, TrainState, make_diffusion_optimizer,
+                                      make_stage2_train_step)
+
+    _preset_models.cache_clear()  # the data-parallel checks' models
+    if device == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    set_layout(MeshSpec(spatial=dist.get_world_size()))
+    sg, dp = SpatialGroup.current(), DataParallel.current()
+    ns = _cfg(preset)
+    ae, unet = _preset_models(preset, device)
+    init = {k: v.clone() for k, v in unet.state_dict().items()}
+    sched = DDPMScheduler.create(num_train_timesteps=ns.NoiseScheduler["num_train_timesteps"])
+    batch = _batch(ns, 2, global_batch, seed)
+    whole = {k: v.to(device) for k, v in batch.items()}
+    slabs = {k: shard_volume(v, sg).contiguous().to(device) for k, v in batch.items()}
+    lead = dist.get_rank() == 0
+    out: dict = {"cases": {}, "seconds": {}}
+
+    def spatial_state():
+        unet.load_state_dict(init)
+        state = TrainState(unet, make_diffusion_optimizer(unet.parameters(), lambda _: 1e-4,
+                                                          dp=dp))
+        return state, make_stage2_train_step(unet, ae, sched, Stage2Config(), dp=dp, sg=sg)
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        result = fn()
+        out["seconds"][name] = time.perf_counter() - t0
+        return result
+
+    def grads_part():
+        ae.compute_dtype = unet.compute_dtype = torch.float32
+        n = sum(p.numel() for p in unet.parameters() if p.requires_grad)
+        if lead:
+            ref: list = []
+            unet.load_state_dict(init)
+            with _recorded_grads([], ref):
+                s1, step1 = _stage2_step(ns, ae, unet, None, torch.float32)
+                step1(s1, whole, scale_factor, torch.Generator().manual_seed(seed))
+            ref_flat = torch.cat(ref)
+            del ref, s1
+        else:
+            ref_flat = torch.empty(n, device=device)
+        dist.broadcast(ref_flat, 0)
+        top = ref_flat.abs().max()
+
+        def err(g):
+            return float((g - ref_flat).abs().max() / top)
+
+        local, averaged = [], []
+        state, step = spatial_state()
+        _clear_cases()
+        with _recorded_grads(local, averaged):
+            step(state, slabs, scale_factor, torch.Generator().manual_seed(seed))
+        out["cases"]["fp32_step"] = _cases()
+        local, averaged = torch.cat(local), torch.cat(averaged)
+        out["spatial"] = err(averaged)
+        out["skip_spatial_sum"] = err(local)  # each rank keeps its slab's gradient
+        unet.zero_grad(set_to_none=True)
+
+    def bf16_part():
+        ae.compute_dtype = unet.compute_dtype = torch.bfloat16
+        if lead:  # the one-process step on the whole volumes
+            unet.load_state_dict(init)
+            s1, step1 = _stage2_step(ns, ae, unet, None, torch.bfloat16)
+            out["one_process_counts"] = _counts_of(
+                lambda: step1(s1, whole, scale_factor, torch.Generator().manual_seed(seed)),
+                device)
+            del s1
+        state, step = spatial_state()
+        gen = torch.Generator().manual_seed(seed)
+        readings: dict = {}
+        _clear_cases()
+        dist.barrier()
+        with _transfers(readings, device):
+            out["step_counts"] = _counts_of(lambda: step(state, slabs, scale_factor, gen),
+                                            device)
+        out["cases"]["bf16_step"] = _cases()
+        out["transfers"] = readings
+        dist.barrier()
+        _sync(device)
+        t0 = time.perf_counter()
+        before = launch_counts()
+        step(state, slabs, scale_factor, gen)
+        _sync(device)
+        out["ms_per_step"] = (time.perf_counter() - t0) * 1e3
+        out["timed_counts"] = launch_delta(launch_counts(), before)
+        dist.barrier()
+        unet.zero_grad(set_to_none=True)
+        del state
+
+    with tf32_flags(False):
+        timed("grads_fp32", grads_part)
+    timed("bf16_steps", bf16_part)
+    out["peak_gib"] = (torch.cuda.max_memory_allocated() / 2**30 if device == "cuda" else None)
+    _preset_models.cache_clear()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def cli_cases(module: str, argv: list, device: str = "cuda") -> dict:
+    """:func:`cli` on this rank: its result (``"out"``), the launches it
+    made (``"counts"``) and the attention and GroupNorm inputs it gave the
+    kernels (``"cases"``)."""
+    _clear_cases()
+    before = launch_counts()
+    out = cli(module, argv)
+    _sync(device)
+    return {"out": out, "counts": launch_delta(launch_counts(), before), "cases": _cases()}
 
 
 def cli(module: str, argv: list):
